@@ -12,8 +12,8 @@ same fit-quality metrics (:588-643) and warnings (:645-674).
 * Stage 2: :mod:`.lm`, with the top-k DE members and one data-informed
   start polished together as a batch.
 
-Runs on whatever device the quote tensors are on; the GPU path is
-float32/complex64, the parity tests float64/complex128.
+Runs on the card unless the caller passes ``device="cpu"``; the GPU path
+is float32/complex64, the parity tests float64/complex128 on the CPU.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.precision import default_float
+from ..core.precision import default_float, resolve_device
 from ..models import black_scholes as bs
 from ..models import heston as heston_model
 from ..models.heston import HestonParams
@@ -239,8 +239,8 @@ class HestonCalibrator:
 
     ``db`` is any object exposing ``store_model_parameters`` /
     ``get_latest_model_parameters``.  ``device`` and ``dtype`` set where and
-    in which precision the pipeline runs (default: CPU, torch's default
-    float).
+    in which precision the pipeline runs (default: the CUDA card, torch's
+    default float; ``device="cpu"`` for the CPU).
     """
 
     DEFAULT_BOUNDS = {
@@ -273,7 +273,7 @@ class HestonCalibrator:
         # slots leave the fit unchanged (kept from the reference, where it
         # lets one compiled program serve chains of different sizes)
         self.pad_shapes = pad_shapes
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype or default_float()
 
     # ------------------------------------------------------------------ API
@@ -540,8 +540,8 @@ class HestonCalibrator:
         dtype: Optional[torch.dtype] = None,
     ):
         """Synthetic surface from known parameters (heston_calibrator.py:736-816),
-        priced on ``device`` in ``dtype`` (default: CPU, torch's default
-        float)."""
+        priced on ``device`` in ``dtype`` (default: the CUDA card, torch's
+        default float)."""
         if strikes is None:
             strikes = np.linspace(0.8 * S0, 1.2 * S0, n_strikes)
         if maturities is None:
@@ -551,7 +551,7 @@ class HestonCalibrator:
         K, T = K.ravel(), T.ravel()
         params = HestonParams(kappa=kappa, theta=theta, sigma=sigma, rho=rho, v0=v0)
         dtype = dtype or default_float()
-        device = device or "cpu"
+        device = resolve_device(device)
         priced = heston_model.price_options(
             params, torch.as_tensor(K, dtype=dtype, device=device),
             torch.as_tensor(T, dtype=dtype, device=device), S0, r, q

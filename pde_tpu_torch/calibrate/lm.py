@@ -8,13 +8,16 @@
   with masked, fixed-trip-count control flow: no host read in the loop.
 * Box bounds by projection, so the iterate stays feasible like scipy's TRF.
 * Several starts run as one batch dimension (the reference vmaps ``polish``
-  over the starts): ``x0`` of shape (S, n).
+  over the starts): ``x0`` of shape (S, n).  Per-start ``data`` (tensors
+  with a leading S axis, mapped beside ``x``) lets S different problems —
+  M smiles with their own strikes, vols, forward and maturity — fit in one
+  call, as the reference's ``jax.vmap`` over ``_fit_smile`` does.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -54,13 +57,16 @@ def levenberg_marquardt(
     ftol: float = 1e-10,
     gtol: float = 1e-10,
     xtol: float = 1e-10,
+    data: Optional[Sequence[torch.Tensor]] = None,
 ) -> LMResult:
-    """Minimize 0.5 ||residual_fn(x)||^2 subject to lower <= x <= upper.
+    """Minimize 0.5 ||residual_fn(x, *data)||^2 subject to lower <= x <= upper.
 
-    ``residual_fn`` maps (n,) -> (m,) and must be traceable by
-    ``torch.func`` (no in-place writes to its input, no host reads).
-    ``x0`` is (n,) for one start or (S, n) for S starts solved together;
-    the result's leading dimension follows ``x0``.
+    ``residual_fn`` maps (n,) [and one slice of each ``data`` tensor] to
+    (m,) and must be traceable by ``torch.func`` (no in-place writes to
+    its inputs, no host reads).  ``x0`` is (n,) for one start or (S, n)
+    for S starts solved together; each ``data`` tensor then has a leading
+    S axis, and start s sees its slice s.  The result's leading dimension
+    follows ``x0``.
     """
     single = x0.dim() == 1
     x = torch.clamp(x0.reshape(-1, x0.shape[-1]), lower, upper)
@@ -74,12 +80,13 @@ def levenberg_marquardt(
     gtol = max(gtol, 4.0 * eps)
     xtol = max(xtol, 4.0 * eps)
 
+    data = tuple(data or ())
     res_b = torch.func.vmap(residual_fn)
-    jac_b = torch.func.vmap(torch.func.jacfwd(residual_fn))
+    jac_b = torch.func.vmap(torch.func.jacfwd(residual_fn, argnums=0))
 
     def normal_eqs(x):
-        r = res_b(x)                                   # (S, m)
-        J = jac_b(x)                                   # (S, m, n)
+        r = res_b(x, *data)                            # (S, m)
+        J = jac_b(x, *data)                            # (S, m, n)
         JT = J.transpose(-1, -2)
         return 0.5 * torch.sum(r * r, dim=-1), JT @ J, (JT @ r[..., None])[..., 0]
 

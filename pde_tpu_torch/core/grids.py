@@ -17,6 +17,7 @@ __all__ = [
     "uniform_grid",
     "find_index",
     "interp_linear",
+    "price_delta_gamma",
     "interp_bilinear",
     "take",
     "take2",
@@ -98,6 +99,22 @@ def interp_linear(grid: torch.Tensor, values: torch.Tensor, x) -> torch.Tensor:
     f = torch.where(dx == 0, f1, f0 + ((x - x0) / dx) * (f1 - f0))
     f = torch.where(x < grid[..., 0], values[..., 0], f)
     return torch.where(x > grid[..., n - 1], values[..., n - 1], f)
+
+
+def price_delta_gamma(grid: torch.Tensor, values: torch.Tensor, x):
+    """Price, delta and gamma at ``x`` from values on a 1D grid: the
+    bracketing interpolation, then central differences around the nearest
+    interior node (black_scholes_pde.hpp:292-312, the reference's 1D
+    readout).  Batches as :func:`interp_linear`."""
+    price = interp_linear(grid, values, x)
+    n = grid.shape[-1]
+    i = torch.clamp(find_index(grid, x), 1, n - 2)
+    v_at = lambda d: take(values, i + d)  # noqa: E731
+    s_at = lambda d: take(grid, i + d)    # noqa: E731
+    delta = (v_at(1) - v_at(-1)) / (s_at(1) - s_at(-1))
+    davg = 0.5 * (s_at(1) - s_at(-1))
+    gamma = (v_at(1) - 2.0 * v_at(0) + v_at(-1)) / (davg * davg)
+    return price, delta, gamma
 
 
 def interp_bilinear(x_grid: torch.Tensor, y_grid: torch.Tensor,

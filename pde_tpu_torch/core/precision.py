@@ -11,6 +11,10 @@ Library code never flips global torch flags (no ``set_default_dtype``): it
 derives the working dtype from its tensor inputs via :func:`result_dtype`
 and takes the device from them via :func:`device_of`.  Python scalars are
 weakly typed, as in JAX: they never widen a tensor's dtype.
+
+Entry points (calibrators, solvers, surface builders) run on the card
+unless the caller asks for another device: ``device=None`` means
+:func:`default_device`, which never picks the CPU quietly.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ __all__ = [
     "complex_dtype_for",
     "result_dtype",
     "EPS",
+    "default_device",
+    "resolve_device",
     "device_of",
     "to_tensor",
     "where_flag",
@@ -55,6 +61,23 @@ def result_dtype(*args) -> torch.dtype:
 def EPS(dtype: torch.dtype) -> float:
     """Machine epsilon for a dtype."""
     return float(torch.finfo(dtype).eps)
+
+
+def default_device() -> torch.device:
+    """The first CUDA card, ``cuda:0``; raises when there is none.
+
+    Entry points take this for ``device=None``: the CPU runs a port only
+    when the caller passes ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "pde_tpu_torch: no CUDA device (torch.cuda.is_available() is "
+            "false); pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means :func:`default_device`."""
+    return default_device() if device is None else torch.device(device)
 
 
 def device_of(*args, default="cpu") -> torch.device:

@@ -11,8 +11,11 @@ import numpy as np
 import torch
 
 from .models.heston import HestonParams
+from .models.local_vol import SurfaceInterpolator
+from .models.sabr import SABRParams
 
-__all__ = ["tensor", "heston_params", "quotes", "grouping"]
+__all__ = ["tensor", "heston_params", "sabr_params", "quotes", "grouping",
+           "surface_interpolator"]
 
 
 def tensor(x, device="cpu", dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -26,6 +29,25 @@ def heston_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> Heston
     package's ``HestonParams``) as the port's, field by field."""
     return HestonParams(*(tensor(getattr(p, k), device, dtype)
                           for k in HestonParams._fields))
+
+
+def sabr_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> SABRParams:
+    """A parameter record with alpha/beta/rho/nu fields (the JAX package's
+    ``SABRParams``) as the port's, field by field."""
+    return SABRParams(*(tensor(getattr(p, k), device, dtype)
+                        for k in SABRParams._fields))
+
+
+def surface_interpolator(interp, device="cpu",
+                         dtype: torch.dtype = torch.float64) -> SurfaceInterpolator:
+    """The port's interpolator on the same grid as a JAX
+    ``SurfaceInterpolator``: its ``log_k``, ``t`` and ``vols``, as numpy
+    (``log_k`` taken as it is, not through a round trip by ``exp``)."""
+    log_k = np.array(interp.log_k)
+    out = SurfaceInterpolator(np.exp(log_k), np.array(interp.t),
+                              np.array(interp.vols), device=device, dtype=dtype)
+    out.log_k = tensor(log_k, device, dtype)
+    return out
 
 
 def quotes(strikes, maturities, prices, is_calls, device="cpu",

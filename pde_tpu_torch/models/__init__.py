@@ -1,3 +1,4 @@
-"""Pricing models: Black-Scholes closed forms and Heston Carr-Madan pricers."""
+"""Pricing models: Black-Scholes closed forms, Heston Carr-Madan pricers,
+Dupire local volatility and the SABR smile."""
 
-from . import black_scholes, heston  # noqa: F401
+from . import black_scholes, heston, local_vol, sabr  # noqa: F401

@@ -9,6 +9,9 @@
 * The grouped pricers share the characteristic function across the
   strikes of each unique maturity; the corrected Gauss-Legendre rule
   reproduces the reference grid's rectangle sum from 70 nodes.
+* :func:`price_accurate` and its composite Gauss-Legendre twins
+  :func:`price_accurate_gl` / :func:`price_accurate_gl_grouped` give the
+  converged price (the Dupire surface differentiates these).
 
 Parameters broadcast: a :class:`HestonParams` whose fields have shape
 ``(P, 1, 1)`` prices a population of P parameter sets at once, which is
@@ -37,6 +40,8 @@ __all__ = [
     "price_carr_madan_grouped",
     "price_carr_madan_gl_grouped",
     "price_accurate",
+    "price_accurate_gl",
+    "price_accurate_gl_grouped",
     "group_maturities",
     "moment_explosion_time",
     "price_options",
@@ -416,6 +421,76 @@ def price_accurate(
     )
     return _price_from_integral(
         integral, strike, maturity, spot, rate, dividend, is_call, alpha, rdt
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _accurate_gl_rule(n_per_panel: int = 40,
+                      edges: tuple = (0.0, 4.0, 12.0, 28.0, 60.0, 110.0,
+                                      160.0, 204.8)):
+    """Composite Gauss-Legendre rule for the CONVERGED Carr-Madan integral:
+    7 geometrically widening panels of ``n_per_panel`` nodes on the same
+    [0, 204.8] truncation as :func:`price_accurate`'s 8192-point trapezoid,
+    at better accuracy (panel width capped near 50 so the deep-wing
+    oscillations exp(i v ln(F/K)) stay resolved).  Returns float64 numpy
+    (v, w)."""
+    vs, ws = [], []
+    nodes, wts = np.polynomial.legendre.leggauss(n_per_panel)
+    for a, b in zip(edges[:-1], edges[1:]):
+        vs.append(0.5 * (b - a) * (nodes + 1.0) + a)
+        ws.append(0.5 * (b - a) * wts)
+    return np.concatenate(vs), np.concatenate(ws)
+
+
+def price_accurate_gl(
+    params: HestonParams,
+    strike,
+    maturity,
+    spot,
+    rate=0.0,
+    dividend=0.0,
+    is_call=True,
+    n_per_panel: int = 40,
+    alpha: float = 1.25,
+):
+    """:func:`price_accurate` (converged pricing) on the composite GL rule
+    (:func:`_accurate_gl_rule`): ~29x fewer integrand evaluations.
+    Elementwise in (strike, maturity), so forward-mode AD with a ones
+    tangent gives each point's own derivative."""
+    strike, maturity, spot, rdt = _surface(strike, maturity, spot)
+    v_np, w_np = _accurate_gl_rule(n_per_panel)
+    v = to_tensor(v_np, rdt, strike.device)
+    w = to_tensor(w_np, rdt, strike.device)
+    integral = _carr_madan_integrand_sum(
+        params, strike, maturity, spot, rate, dividend, v, w, 1.0, alpha
+    )
+    return _price_from_integral(
+        integral, strike, maturity, spot, rate, dividend, is_call, alpha, rdt
+    )
+
+
+def price_accurate_gl_grouped(
+    params: HestonParams,
+    strikes,
+    t_idx,
+    unique_T,
+    spot,
+    rate=0.0,
+    dividend=0.0,
+    is_call=True,
+    n_per_panel: int = 40,
+    alpha: float = 1.25,
+):
+    """:func:`price_accurate_gl` with the CF shared per unique maturity."""
+    strikes, unique_T, spot, t_idx, rdt = _grouped_inputs(strikes, unique_T, spot, t_idx)
+    v_np, w_np = _accurate_gl_rule(n_per_panel)
+    v = to_tensor(v_np, rdt, strikes.device)
+    w = to_tensor(w_np, rdt, strikes.device)
+    integral, T = _carr_madan_grouped_sum(
+        params, strikes, t_idx, unique_T, spot, rate, dividend, v, w, 1.0, alpha
+    )
+    return _price_from_integral(
+        integral, strikes, T, spot, rate, dividend, is_call, alpha, rdt
     )
 
 

@@ -1,3 +1,4 @@
-"""PDE solvers: the fused Douglas ADI Heston book."""
+"""PDE solvers: the fused Douglas ADI Heston book, the local-vol and the
+Black-Scholes 1D books."""
 
-from . import heston_adi  # noqa: F401
+from . import bs_pde, heston_adi, local_vol_pde  # noqa: F401

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core import grids
-from ..core.precision import device_of
+from ..core.precision import resolve_device
 from ..ops.adi_fused import fused_douglas_march_batched
 
 __all__ = ["HestonPDEResult", "solve_fused_batch"]
@@ -260,8 +260,8 @@ def solve_fused_batch(
     maturities, rates, Heston parameters, calls and puts, European and
     American.  ``american_method`` selects the projection or the
     Ikonen-Toivanen treatment for the flagged options.  The book marches on
-    ``device`` (default: the device of the first tensor argument, else the
-    CPU) in float32; on a CUDA device the march is one kernel launch.
+    ``device`` (default: the CUDA card; ``device="cpu"`` runs the plain
+    march) in float32; on a CUDA device the march is one kernel launch.
 
     Greeks: delta/gamma/vega/theta from the grid (heston_pde.hpp:520-559).
     ``pcr_v``/``pcr_s`` (the reference's parallel-cyclic-reduction sweep
@@ -275,9 +275,7 @@ def solve_fused_batch(
     if pcr_v or pcr_s:
         raise NotImplementedError("the PCR sweep variants (pcr_v, pcr_s) are "
                                   "not yet ported")
-    if device is None:
-        device = device_of(kappa, theta, sigma, rho, v0, r, q, T, K, is_call,
-                           S0, american)
+    device = resolve_device(device)
     # the kernel variant resolves from the CALLER's american argument, so
     # both packages pick the same variant for the same inputs
     use_it = american_method == "it_lcp" and np_any_flag(american)

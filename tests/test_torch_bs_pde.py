@@ -1,0 +1,104 @@
+"""The port's Black-Scholes fused book held against ``pde_tpu``.
+
+K4 (``fused_cn_march_1d``): the JAX Pallas kernel in interpret mode against
+the port's plain twin on identical seeded inputs, then the whole
+``solve_fused_batch`` in both packages.  Both march in float32 in the same
+step order with the same factorisation (a true divide in both), so the
+gate is the repo's float32 variant gate, rtol 2e-5 / atol 2e-5
+(tests/test_solvers.py:307-309).  The CUDA kernel itself runs only on the
+card: tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pde_tpu.ops import cn1d_fused as jops
+from pde_tpu.solvers import bs_pde as jbs
+from pde_tpu_torch.ops import cn1d_fused as tops
+from pde_tpu_torch.solvers import bs_pde as tbs
+
+GATE = dict(rtol=2e-5, atol=2e-5)
+FIELDS = ("price", "delta", "gamma", "theta", "prices", "spot_grid")
+
+
+def _k4_inputs(rng, n, n_time, B):
+    """A seeded mixed book as K4's (pay, sc), built by the port's own
+    operator assembly."""
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    args = [t(a) for a in (rng.uniform(0.15, 0.45, B), rng.uniform(0.0, 0.08, B),
+                           rng.uniform(0.0, 0.04, B), rng.uniform(0.25, 1.5, B),
+                           rng.uniform(80.0, 120.0, B), rng.uniform(size=B) < 0.5,
+                           np.arange(B) % 2 == 0)]
+    pay, sc, _ = tbs._march_inputs(*args, n, n_time, 0.2, 5.0)
+    return pay, sc
+
+
+@pytest.mark.parametrize("w", [0.5, 1.0])
+def test_k4_plain_matches_pallas(rng, w):
+    n, n_time, B = 40, 10, 7
+    pay, sc = _k4_inputs(rng, n, n_time, B)
+    want = np.asarray(jops.fused_cn_march_1d(pay.numpy(), sc.numpy(), n_space=n,
+                                             n_time=n_time, w=w, interpret=True))
+    before = tops.fused_cn_march_1d.launches
+    got = tops.fused_cn_march_1d(pay, sc, n_space=n, n_time=n_time, w=w)
+    assert got.shape == want.shape == (n, B) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **GATE)
+    # a CPU tensor runs the plain twin, never the kernel
+    assert tops.fused_cn_march_1d.launches == before
+
+
+def test_k4_rejects_bad_inputs(rng):
+    pay, sc = _k4_inputs(rng, 12, 2, 3)
+    kw = dict(n_space=12, n_time=2)
+    with pytest.raises(ValueError):  # wrong shape
+        tops.fused_cn_march_1d(pay, sc[:11], **kw)
+    with pytest.raises(ValueError):  # float64
+        tops.fused_cn_march_1d(pay.double(), sc, **kw)
+    with pytest.raises(ValueError):  # neither a CUDA nor a CPU tensor
+        tops.fused_cn_march_1d(pay.to("meta"), sc.to("meta"), **kw)
+
+
+@pytest.mark.parametrize("scheme", ["crank_nicolson", "implicit"])
+def test_solve_fused_batch_mixed_book(scheme):
+    """The mixed book of tests/test_solvers.py:89-95: vols, maturities,
+    strikes, calls and puts, European and American in ONE batch."""
+    sig = np.array([0.15, 0.2, 0.3, 0.25, 0.4])
+    T = np.array([0.25, 0.5, 1.0, 1.5, 0.75])
+    K = np.array([90.0, 95.0, 100.0, 105.0, 110.0])
+    is_call = np.array([1.0, 0.0, 1.0, 0.0, 1.0])
+    amer = np.array([0.0, 0.0, 0.0, 1.0, 1.0])
+    kw = dict(n_space=96, n_time=24, scheme=scheme)
+    want = jbs.solve_fused_batch(sig, 0.05, 0.01, T, K, is_call, 100.0, american=amer,
+                                 interpret=True, **kw)
+    got = tbs.solve_fused_batch(sig, 0.05, 0.01, T, K, is_call, 100.0, american=amer,
+                                device="cpu", **kw)
+    assert got.price.shape == (5,) and got.prices.shape == (5, 96)
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   err_msg=f, **GATE)
+    np.testing.assert_array_equal(got.early_exercise_optimal.numpy(),
+                                  np.asarray(want.early_exercise_optimal))
+
+
+def test_solve_fused_batch_130_options():
+    """A batch that is no multiple of 128: the port needs no lane padding."""
+    B = 130
+    K = np.linspace(80.0, 120.0, B)
+    T = np.linspace(0.25, 1.5, B)
+    sig = np.linspace(0.15, 0.45, B)
+    is_call = (np.arange(B) % 2).astype(float)
+    kw = dict(n_space=32, n_time=10)
+    want = jbs.solve_fused_batch(sig, 0.05, 0.01, T, K, is_call, 100.0,
+                                 american=np.ones(B), interpret=True, **kw)
+    got = tbs.solve_fused_batch(sig, 0.05, 0.01, T, K, is_call, 100.0,
+                                american=np.ones(B), device="cpu", **kw)
+    np.testing.assert_allclose(got.price.numpy(), np.asarray(want.price), **GATE)
+
+
+def test_solve_fused_batch_rejections():
+    args = (0.2, 0.05, 0.01, 1.0, 100.0, 1.0, 100.0)
+    with pytest.raises(ValueError, match="scheme"):
+        tbs.solve_fused_batch(*args, scheme="explicit", device="cpu")
+    with pytest.raises(ValueError, match=">= 10"):
+        tbs.solve_fused_batch(*args, n_space=8, device="cpu")

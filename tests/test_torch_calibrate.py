@@ -146,7 +146,8 @@ def fits():
     data = _small_surface()
     budget = dict(global_maxiter=40, global_popsize=10, seed=42)
     jax_fit = JaxCalibrator(**budget).calibrate(data, S0=S0, r=R, q=Q)
-    torch_fit = HestonCalibrator(dtype=F64, **budget).calibrate(data, S0=S0, r=R, q=Q)
+    torch_fit = HestonCalibrator(device="cpu", dtype=F64, **budget).calibrate(
+        data, S0=S0, r=R, q=Q)
     return data, jax_fit, torch_fit
 
 
@@ -171,7 +172,8 @@ def test_padded_quote_slots_leave_the_fit_unchanged(fits):
     """pad_shapes pads quotes to 32 and maturities to a bucket of 2: the
     masked slots must not move the result."""
     data, _, padded = fits
-    plain = HestonCalibrator(dtype=F64, global_maxiter=40, global_popsize=10,
+    plain = HestonCalibrator(device="cpu", dtype=F64, global_maxiter=40,
+                             global_popsize=10,
                              seed=42, pad_shapes=False).calibrate(data, S0=S0, r=R, q=Q)
     for name in TRUE:
         assert getattr(plain.params, name) == pytest.approx(
@@ -182,14 +184,15 @@ def test_padded_quote_slots_leave_the_fit_unchanged(fits):
 def test_synthetic_data_matches_reference():
     want = _small_surface()
     got = HestonCalibrator.generate_synthetic_data(S0=S0, r=R, q=Q, **TRUE, n_strikes=4,
-                                                   n_maturities=3, dtype=F64)
+                                                   n_maturities=3, device="cpu",
+                                                   dtype=F64)
     np.testing.assert_array_equal(got["strike"], want["strike"])
     np.testing.assert_allclose(got["mid_price"], want["mid_price"], rtol=0, atol=1e-8)
 
 
 def test_validation_and_warnings_match_reference():
     with pytest.raises((ValueError, CalibrationError)):
-        HestonCalibrator().calibrate(
+        HestonCalibrator(device="cpu").calibrate(
             {"strike": [100.0], "maturity": [1.0], "mid_price": [-5.0]},
             S0=100.0, r=0.05, q=0.0)
     for p in ((1.345, 0.192, 1.601, 0.286, 0.724), (2.0, 0.04, 0.3, -0.7, 0.04),
@@ -216,7 +219,7 @@ class _FakeDB:
 def test_db_hooks_store_and_fall_back_to_cache(fits):
     data, _, _ = fits
     db = _FakeDB()
-    cal = HestonCalibrator(db=db, dtype=F64, global_maxiter=3, global_popsize=4,
+    cal = HestonCalibrator(db=db, device="cpu", dtype=F64, global_maxiter=3, global_popsize=4,
                            local_max_iter=3)
     cal.calibrate(data, S0=S0, r=R, q=Q, warm_start=TRUE, underlying="SPX")
     assert db.stored[0]["underlying"] == "SPX"

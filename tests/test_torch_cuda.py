@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from pde_tpu_torch.ops import adi_fused
-from pde_tpu_torch.solvers import heston_adi
+from pde_tpu_torch.models import local_vol
+from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused
+from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
 
 # kernel vs plain twin: both float32 with the same step order; only FMA
 # contraction differs
@@ -61,5 +62,90 @@ def test_book_on_card_matches_cpu(method):
     on_card = heston_adi.solve_fused_batch(**book, **kw, device="cuda")
     on_cpu = heston_adi.solve_fused_batch(**book, **kw, device="cpu")
     for f in ("price", "delta", "gamma", "vega"):
+        np.testing.assert_allclose(getattr(on_card, f).cpu().numpy(),
+                                   getattr(on_cpu, f).numpy(), err_msg=f, **GATE)
+
+
+def _surface(device):
+    """A seeded local-vol grid as an interpolator on ``device``."""
+    rng = np.random.default_rng(3)
+    return local_vol.SurfaceInterpolator(np.linspace(60.0, 150.0, 9), [0.1, 0.5, 1.0, 2.0],
+                                         0.15 + 0.2 * rng.random((4, 9)), device=device,
+                                         dtype=torch.float32)
+
+
+def _lv_book(B, seed):
+    rng = np.random.default_rng(seed)
+    return dict(K=rng.uniform(80.0, 120.0, B), T=rng.uniform(0.25, 1.5, B),
+                is_call=(rng.uniform(size=B) < 0.5).astype(float),
+                american=(rng.uniform(size=B) < 0.5).astype(float))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [0.5, 1.0])
+def test_k3_matches_plain(w):
+    _need_cuda()
+    dev = torch.device("cuda")
+    book = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in _lv_book(45, 4).items()}
+    pay, bands, sc, _ = local_vol_pde._march_inputs(
+        _surface(dev), book["K"], book["T"], book["is_call"], book["american"], 0.04,
+        0.01, 64, 24, 0.2, 5.0)
+    before = cn1d_tv_fused.fused_cn_march_1d_tv.launches
+    got = cn1d_tv_fused.fused_cn_march_1d_tv(pay, bands, sc, 64, 24, w)
+    want = cn1d_tv_fused._fused_cn_march_1d_tv_plain(pay, bands, sc, 64, 24, w)
+    torch.cuda.synchronize()
+    assert cn1d_tv_fused.fused_cn_march_1d_tv.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [0.5, 1.0])
+def test_k4_matches_plain(w):
+    _need_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    B = 70
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    pay, sc, _ = bs_pde._march_inputs(
+        t(rng.uniform(0.15, 0.45, B)), t(rng.uniform(0.0, 0.08, B)),
+        t(rng.uniform(0.0, 0.04, B)), t(rng.uniform(0.25, 1.5, B)),
+        t(rng.uniform(80.0, 120.0, B)), t(rng.uniform(size=B) < 0.5),
+        t(rng.uniform(size=B) < 0.5), 64, 24, 0.2, 5.0)
+    before = cn1d_fused.fused_cn_march_1d.launches
+    got = cn1d_fused.fused_cn_march_1d(pay, sc, 64, 24, w)
+    want = cn1d_fused._fused_cn_march_1d_plain(pay, sc, 64, 24, w)
+    torch.cuda.synchronize()
+    assert cn1d_fused.fused_cn_march_1d.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+def test_local_vol_book_on_card_matches_cpu():
+    """solve_fused_batch through K3 (card) and through its plain twin (CPU)."""
+    _need_cuda()
+    book = _lv_book(50, 6)
+    kw = dict(r=0.04, q=0.01, n_space=64, n_time=24)
+    on_card = local_vol_pde.solve_fused_batch(_surface("cuda"), 100.0, **book, **kw,
+                                              device="cuda")
+    on_cpu = local_vol_pde.solve_fused_batch(_surface("cpu"), 100.0, **book, **kw,
+                                             device="cpu")
+    for f in ("price", "delta", "gamma"):
+        np.testing.assert_allclose(getattr(on_card, f).cpu().numpy(),
+                                   getattr(on_cpu, f).numpy(), err_msg=f, **GATE)
+
+
+@pytest.mark.cuda
+def test_bs_book_on_card_matches_cpu():
+    """solve_fused_batch through K4 (card) and through its plain twin (CPU)."""
+    _need_cuda()
+    rng = np.random.default_rng(7)
+    B = 60
+    args = (rng.uniform(0.15, 0.45, B), 0.05, 0.01, rng.uniform(0.25, 1.5, B),
+            rng.uniform(80.0, 120.0, B), (rng.uniform(size=B) < 0.5).astype(float), 100.0)
+    kw = dict(american=(rng.uniform(size=B) < 0.5).astype(float), n_space=64, n_time=24)
+    on_card = bs_pde.solve_fused_batch(*args, **kw, device="cuda")
+    on_cpu = bs_pde.solve_fused_batch(*args, **kw, device="cpu")
+    for f in ("price", "delta", "gamma", "theta"):
         np.testing.assert_allclose(getattr(on_card, f).cpu().numpy(),
                                    getattr(on_cpu, f).numpy(), err_msg=f, **GATE)

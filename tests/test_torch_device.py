@@ -1,0 +1,69 @@
+"""The port's entry points run on the card unless the caller names the CPU.
+
+``device=None`` means ``precision.default_device()``: ``cuda:0``, or a
+``RuntimeError`` when no card is there.  With CUDA reported absent, every
+entry point called without ``device`` must raise before it computes
+anything, rather than quietly run on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pde_tpu_torch.calibrate.heston import HestonCalibrator
+from pde_tpu_torch.calibrate.sabr import SABRCalibrator
+from pde_tpu_torch.core import precision
+from pde_tpu_torch.models import heston, local_vol
+from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
+
+
+@pytest.fixture()
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _flat(s, t):
+    return torch.full_like(s, 0.2)
+
+
+ENTRY_POINTS = {
+    "HestonCalibrator": lambda: HestonCalibrator(),
+    "generate_synthetic_data": lambda: HestonCalibrator.generate_synthetic_data(
+        n_strikes=3, n_maturities=2),
+    "heston_adi.solve_fused_batch": lambda: heston_adi.solve_fused_batch(
+        2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, 1.0, 100.0, 1.0, 100.0,
+        n_spot=8, n_vol=5, n_time=2),
+    "local_vol_pde.solve": lambda: local_vol_pde.solve(
+        _flat, 100.0, K=100.0, T=1.0, n_space=12, n_time=2),
+    "local_vol_pde.solve_fused": lambda: local_vol_pde.solve_fused(
+        _flat, 100.0, K=100.0, T=1.0, n_space=12, n_time=2),
+    "local_vol_pde.solve_fused_batch": lambda: local_vol_pde.solve_fused_batch(
+        _flat, 100.0, K=[90.0, 110.0], T=1.0, n_space=12, n_time=2),
+    "bs_pde.solve_fused_batch": lambda: bs_pde.solve_fused_batch(
+        0.2, 0.05, 0.01, 1.0, 100.0, 1.0, 100.0),
+    "SABRCalibrator": lambda: SABRCalibrator(),
+    "generate_synthetic_smile": lambda: SABRCalibrator.generate_synthetic_smile(),
+    "dupire_surface": lambda: local_vol.dupire_surface(
+        heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04), np.array([90.0, 110.0]),
+        np.array([0.5, 1.0]), 100.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_device_needs_the_card(no_card, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+
+
+def test_default_device_is_the_first_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert precision.default_device() == torch.device("cuda", 0)
+    assert precision.resolve_device(None) == torch.device("cuda", 0)
+    assert precision.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_functions_follow_their_inputs(no_card):
+    """Plain model functions on tensors keep their inputs' device."""
+    p = heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04)
+    price = heston.price_accurate_gl(p, torch.tensor([100.0]), torch.tensor([1.0]), 100.0)
+    assert price.device.type == "cpu"

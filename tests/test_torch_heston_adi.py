@@ -87,7 +87,8 @@ def test_solve_fused_batch_mixed_book(method, amer):
                                 100.0, american=amer, american_method=method,
                                 interpret=True, **kw)
     got = ta.solve_fused_batch(kappa, 0.04, 0.3, -0.7, 0.04, r, q, T, K, is_call,
-                               100.0, american=amer, american_method=method, **kw)
+                               100.0, american=amer, american_method=method,
+                               device="cpu", **kw)
     for f in FIELDS:
         np.testing.assert_allclose(getattr(got, f).numpy(),
                                    np.asarray(getattr(want, f)), err_msg=f, **GATE)
@@ -105,7 +106,7 @@ def test_solve_fused_batch_130_options():
     want = ja.solve_fused_batch(2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, T, K,
                                 is_call, 100.0, interpret=True, **kw)
     got = ta.solve_fused_batch(2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, T, K,
-                               is_call, 100.0, **kw)
+                               is_call, 100.0, device="cpu", **kw)
     assert got.price.shape == (B,)
     for f in FIELDS:
         gate = THETA_GATE_16x8 if f == "theta" else GATE
@@ -115,7 +116,7 @@ def test_solve_fused_batch_130_options():
 
 def test_solve_fused_batch_rejections():
     args = (2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, 1.0, 100.0, 1.0, 100.0)
-    kw = dict(n_spot=16, n_vol=8, n_time=4)
+    kw = dict(n_spot=16, n_vol=8, n_time=4, device="cpu")
     with pytest.raises(ValueError):
         ta.solve_fused_batch(*args, american=1.0, american_method="psor", **kw)
     for flag in ("pcr_v", "pcr_s"):
