@@ -11,12 +11,20 @@ checks every result:
 3. kernel vs plain, each kernel against its plain PyTorch twin on the same
    inputs on the card, and both timed at the bench shape:
    - K1, the fused Douglas march (European, American projection, American
-     Ikonen-Toivanen; B = 512, 130 and 1);
+     Ikonen-Toivanen; B = 512, 130 and 1), and its PCR sweeps (pcr_v,
+     pcr_s, both; B = 512);
+   - K2, the single-option fused march at 100x50x100 (European call,
+     American put by projection and by Ikonen-Toivanen);
    - K3, the time-varying CN march, on bands from the port's own lattice
      builder on the bench's Dupire surface (B = 256, 37 and 1; European and
      mixed American; w = 0.5 and 1);
    - K4, the constant-coefficient CN march (B = 512, 130 and 1; European
      and mixed American; w = 0.5 and 1);
+   - K5, the batched Thomas solve, on the Black-Scholes book's per-step
+     system (512, 200) and the fused-ADI book's v sweep (51200, 50), with
+     ``torch.linalg.solve`` on the same systems as its yardstick;
+   - K6, the batched projected SOR, on the Black-Scholes book's LCP
+     (512, 200) at 60 and 120 sweeps;
 4. headline calibration: bench.py's 108-quote surface through
    ``_calibrate_pipeline`` and ``HestonCalibrator.calibrate`` (DE 100/15,
    LM 60, seed 42), float32/complex64;
@@ -31,11 +39,25 @@ checks every result:
    own European book;
 8. SABR smile: bench.py's 11-strike fit through
    ``SABRCalibrator.calibrate_single_maturity``, and one ``calibrate`` of a
-   regular 5-maturity surface (the batched LM).
+   regular 5-maturity surface (the batched LM);
+9. the Heston scan and single-option rows of bench_full.py (787-873):
+   ``heston_adi.solve`` at 100x50x100 (K5), ``solve_fused`` (K2) held
+   against it, the Ikonen-Toivanen American put through both, the mixed
+   108-option surface through ``solve_batch`` (K5) and
+   ``solve_fused_batch`` (K1), ``greeks_ad`` in float64 against central
+   differences, and the 512-book with the PCR sweeps against the Thomas
+   book;
+10. ``bs_pde.solve`` for an American put at 200x100 by projection (K5),
+    PSOR (K6) and Brennan-Schwartz; ``ops.tridiagonal_solve`` on a 2D
+    float32 batch (K5); ``lcp.projected_sor_batched`` (K6).
 
-Each main path (4-8) runs with every kernel's launch count set to 0 just
+Each main path (4-10) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails.
-Each phase prints one JSON line; then the kernel table, the card's
+While they run, the first input set of each shape that each path hands K5
+and K6 is kept; afterwards both kernels are held against their plain twins
+on those very inputs, and timed at the shapes of the path whose launches
+the kernel line reports (K5: ``heston_adi.solve``; K6: ``bs_pde.solve`` by
+PSOR).  Each phase prints one JSON line; then the kernel table, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  Run from the
 repository root with no arguments:
@@ -43,7 +65,8 @@ repository root with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and traces
-one warm call of each book row and of the SABR fit under
+one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
+``solve_fused``, ``bs_pde.solve`` by PSOR and of the K5 and K6 calls under
 ``torch.profiler``: wall, the card's busy time and idle share, and the
 kernels that took most of the device time.
 """
@@ -71,6 +94,18 @@ LV_B, LV_GRID = 256, dict(n_space=200, n_time=100)
 BS_R, BS_Q = 0.05, 0.01
 BS_B, BS_GRID = 512, dict(n_space=200, n_time=100)
 SABR_TRUTH = dict(alpha=0.25, beta=0.5, rho=-0.35, nu=0.45)
+# bench_full.py:787-873: HestonPDEParams(q=0.02) at 100x50x100; the American
+# put at r=0.08, q=0, S0=90; the 108-option surface (12 strikes x 9
+# maturities, calls and puts alternating)
+HESTON_PDE = dict(kappa=2.0, theta=0.04, sigma=0.3, rho=-0.7, v0=0.04, r=0.05,
+                  q=0.02, T=1.0, K=100.0)
+HESTON_TRUE_CALL = 9.05950689470441   # tests/test_solvers.py:140-149
+# solve_fused against solve on the card: 5e-4 absolute on the price
+# (tests/test_solvers.py:226-231); on the grid also 1e-5 relative, since at
+# 100x50x100 the float32 march itself sits 4e-6 relative (1.05e-3 at a node
+# of value 255) from the float64 one, both routes alike
+FUSED_ATOL, FUSED_GRID_RTOL = 5e-4, 1e-5
+PSOR_ITERS = (60, 120)
 # the card's peaks (H100 SXM data sheet): float32 outside the tensor cores
 # and HBM bandwidth; a kernel's bound is the larger of its operations over
 # the one and its bytes over the other
@@ -79,12 +114,27 @@ KERNELS = {
     "K1": dict(name="fused_douglas_march_batched", route="cuda",
                source="pde_tpu_torch/csrc/adi_fused_batched.cu",
                replaces="pde_tpu/ops/adi_fused.py:250"),
+    "K1-pcr_v": dict(name="fused_douglas_march_batched(pcr_v=True)", route="cuda",
+                     source="pde_tpu_torch/csrc/adi_fused_batched.cu",
+                     replaces="pde_tpu/ops/adi_fused.py:438"),
+    "K1-pcr_s": dict(name="fused_douglas_march_batched(pcr_s=True)", route="cuda",
+                     source="pde_tpu_torch/csrc/adi_fused_batched.cu",
+                     replaces="pde_tpu/ops/adi_fused.py:396"),
+    "K2": dict(name="fused_douglas_march", route="cuda",
+               source="pde_tpu_torch/csrc/adi_fused.cu",
+               replaces="pde_tpu/ops/adi_fused.py:38"),
     "K3": dict(name="fused_cn_march_1d_tv", route="cuda",
                source="pde_tpu_torch/csrc/cn1d_tv_fused.cu",
                replaces="pde_tpu/ops/cn1d_tv_fused.py:59"),
     "K4": dict(name="fused_cn_march_1d", route="cuda",
                source="pde_tpu_torch/csrc/cn1d_fused.cu",
                replaces="pde_tpu/ops/cn1d_fused.py:36"),
+    "K5": dict(name="thomas_batched", route="cuda",
+               source="pde_tpu_torch/csrc/thomas_batched.cu",
+               replaces="pde_tpu/ops/tridiag.py:182"),
+    "K6": dict(name="projected_sor_batched", route="cuda",
+               source="pde_tpu_torch/csrc/psor_batched.cu",
+               replaces="pde_tpu/solvers/lcp.py:251"),
 }
 
 
@@ -534,6 +584,517 @@ def phase_sabr(torch, dev, reps=20):
         raise AssertionError("the SABR surface calibration missed the truth")
 
 
+def heston_params(**over):
+    """bench_full.py:787's HestonPDEParams(q=0.02) at 100x50x100, with
+    ``over`` replaced."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    return heston_adi.HestonPDEParams(**{**HESTON_PDE, **GRID, **over})
+
+
+# the American put of bench_full.py:866 (Ikonen-Toivanen), priced at S0=90
+AMER_PUT = dict(is_call=False, american=True, american_method="it_lcp", r=0.08, q=0.0)
+K2_CASES = (("european_call", {}),
+            ("american_put_projection", dict(is_call=False, american=True, r=0.08, q=0.0)),
+            ("american_put_it_lcp", AMER_PUT))
+
+
+def k2_inputs(torch, dev, p):
+    """K2's public inputs for one option, built by the port's own
+    ``_fused_inputs`` in float32 on ``dev``."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    t = lambda k: torch.tensor(float(getattr(p, k)), device=dev)  # noqa: E731
+    return heston_adi._fused_inputs(p, *(t(k) for k in ("kappa", "theta", "sigma", "rho",
+                                                        "r", "q", "T", "K")))[0]
+
+
+def phase_k2(torch, dev, plain_reps=1, kernel_reps=20):
+    """K2 against its plain twin at the bench grid, three cases."""
+    from pde_tpu_torch.ops import adi_fused
+
+    march, plain = adi_fused.fused_douglas_march, adi_fused._fused_douglas_march_plain
+    size = (GRID["n_spot"], GRID["n_vol"], GRID["n_time"])
+    worst = 0.0
+    for name, over in K2_CASES:
+        args = k2_inputs(torch, dev, heston_params(**over))
+        V = march(*args, *size)
+        P = plain(*adi_fused._stack_single(*args), *size)
+        worst = max(worst, compare(torch, dev, V, P, kernel="K2", case=name))
+    args = k2_inputs(torch, dev, heston_params())
+    stacked = adi_fused._stack_single(*args)
+    before = march.launches
+    ms = time_ms(torch, lambda: march(*args, *size), kernel_reps)
+    if march.launches <= before:
+        raise AssertionError("K2's launch count did not move")
+    plain_ms = time_ms(torch, lambda: plain(*stacked, *size), plain_reps)
+    emit(phase="kernel_timing", kernel="K2", grid=list(size), kernel_ms=ms,
+         plain_ms=plain_ms)
+    # per node and step (csrc/adi_fused.cu): stencils and explicit rhs 22,
+    # S sweep 5, rhs2 7, v sweep 5, floor 1 = 40
+    nodes = size[0] * size[1]
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound=bound(nbytes(*stacked) + nodes * 4, 40.0 * nodes * size[2]))
+
+
+def phase_k1_pcr(torch, dev, grid=GRID, B=BOOK_B, plain_reps=1, kernel_reps=20):
+    """K1's PCR sweeps against the plain twin's on the 512-book."""
+    from pde_tpu_torch.ops import adi_fused
+
+    march = adi_fused.fused_douglas_march_batched
+    plain = adi_fused._fused_douglas_march_batched_plain
+    size = (grid["n_spot"], grid["n_vol"], grid["n_time"])
+    mixed = (torch.arange(B) % 3 == 0).float()
+    lev_s, lev_v = adi_fused._levels(size[0]), adi_fused._levels(size[1])
+    out = {}
+    for key, variant in (("K1-pcr_v", dict(pcr_v=True)), ("K1-pcr_s", dict(pcr_s=True)),
+                         ("K1-pcr_v+s", dict(pcr_v=True, pcr_s=True))):
+        worst = 0.0
+        for name, amer, use_it in (("european", torch.zeros(B), False),
+                                   ("american_it", mixed, True)):
+            args = book(torch, dev, B, amer, grid)
+            V = march(*args, *size, use_it=use_it, **variant)
+            P = plain(*args, *size, use_it, **variant)
+            worst = max(worst, compare(torch, dev, V, P, kernel=key, B=B, case=name))
+        args = book(torch, dev, B, torch.zeros(B), grid)
+        ms = time_ms(torch, lambda: march(*args, *size, **variant), kernel_reps)
+        plain_ms = time_ms(torch, lambda: plain(*args, *size, False, **variant), plain_reps)
+        emit(phase="kernel_timing", kernel=key, B=B, grid=list(size), kernel_ms=ms,
+             plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3)
+        # K1's 38 flops a node and step with a PCR sweep in place of a
+        # Thomas sweep (5): 4 a level and 1 for the final 1/d
+        flops = 38.0 + sum(4.0 * lev + 1.0 - 5.0 for lev, on in
+                           ((lev_v, variant.get("pcr_v")), (lev_s, variant.get("pcr_s"))) if on)
+        nodes = size[0] * size[1] * B
+        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                        bound=bound(nbytes(*args) + nodes * 4, flops * nodes * size[2]))
+    return out
+
+
+def bs_system(torch, dev, B=BS_B, grid=BS_GRID, w=0.5):
+    """The Black-Scholes book's per-step CN system as (B, n) rows: lower,
+    diag, upper (interior rows I - w dt L, identity rows at both ends), the
+    explicit side on the payoff as right-hand side, and the payoff."""
+    pay, sc = bs_inputs(torch, dev, B, torch.zeros(B, device=dev), grid)
+    n = grid["n_space"]
+    dt, Lm, Lc, Lp = (sc[k][:, None] for k in (0, 6, 7, 8))
+    one, zero = torch.ones((B, 1), device=dev), torch.zeros((B, 1), device=dev)
+    inner = lambda v: v.expand(B, n - 2)  # noqa: E731
+    lower = torch.cat([inner(-w * dt * Lm), zero], 1)
+    upper = torch.cat([zero, inner(-w * dt * Lp)], 1)
+    diag = torch.cat([one, inner(1.0 - w * dt * Lc), one], 1)
+    V = pay.T.contiguous()
+    LV = Lm * V[:, :-2] + Lc * V[:, 1:-1] + Lp * V[:, 2:]
+    rhs = torch.cat([V[:, :1], V[:, 1:-1] + (1.0 - w) * dt * LV, V[:, -1:]], 1)
+    return lower, diag, upper, rhs, V
+
+
+def adi_v_system(torch, dev, B=BOOK_B, grid=GRID):
+    """The fused-ADI book's v-sweep systems, one per (option, S row):
+    (B nS, nv) rows of the port's own implicit v bands, and a seeded
+    right-hand side."""
+    i2 = book(torch, dev, B, torch.zeros(B), grid)[5]             # (3, nv, B)
+    nS, nv = grid["n_spot"], grid["n_vol"]
+    rows = lambda a: a.T[:, None, :].expand(B, nS, a.shape[0]).reshape(B * nS, -1)  # noqa: E731
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rhs = 100.0 * torch.rand((B * nS, nv), generator=gen, device=dev)
+    return rows(i2[0][1:]), rows(i2[1]), rows(i2[2][:-1]), rhs
+
+
+def dense(torch, lower, diag, upper):
+    """The (B, n, n) matrices of a batch of tridiagonal systems."""
+    B, n = diag.shape
+    A = torch.zeros((B, n, n), dtype=diag.dtype, device=diag.device)
+    A.diagonal(0, -2, -1).copy_(diag)
+    A.diagonal(-1, -2, -1).copy_(lower)
+    A.diagonal(1, -2, -1).copy_(upper)
+    return A
+
+
+def median_ms(torch, fn, reps, warmup=3):
+    """(median, least, most) milliseconds of ``reps`` single calls after
+    ``warmup`` calls, each call between its own pair of CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), min(times), max(times)
+
+
+def k5_timing(torch, dev, lower, diag, upper, rhs, kernel_reps=20, plain_reps=3,
+              library_reps=10):
+    """K5 on one batch of systems: the kernel alone (its launch on operands
+    laid out once, without the wrapper's layout copies), its plain twin,
+    and the yardstick torch.linalg.solve on the same systems as dense
+    matrices, TF32 off, the solve alone (median of single warmed calls,
+    with its spread); plus the bytes and flops of the bound."""
+    from pde_tpu_torch.ops import tridiag
+
+    B, n = rhs.shape
+    system = (lower, diag, upper, rhs)
+    fn, ins = tridiag._thomas_library(), tridiag._row_major(*system)
+    x, C = (torch.empty((n, B), device=dev) for _ in range(2))
+    ptrs = [t.data_ptr() for t in (*ins, x, C)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = time_ms(torch, lambda: fn(*ptrs, B, n, stream), kernel_reps)
+    plain_ms = time_ms(torch, lambda: tridiag._thomas_batched_plain(*system), plain_reps)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A, b = dense(torch, lower, diag, upper), rhs[..., None]
+    lib_ms, lib_min, lib_max = median_ms(torch, lambda: torch.linalg.solve(A, b),
+                                         library_reps)
+    lib_diff = float((torch.linalg.solve(A, b)[..., 0] - x.T).abs().max())
+    del A
+    # per row: forward 7 (pivot 2, reciprocal 1, c 1, dp 3), back 2
+    return dict(B=B, n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_min_max_ms=[lib_min, lib_max], max_abs_vs_library=lib_diff,
+                n_bytes=nbytes(*system) + B * n * 4, n_flops=9.0 * B * n)
+
+
+def k6_timing(torch, dev, lower, diag, upper, b, g, x0=None, omega=1.5,
+              n_iter=PSOR_ITERS[0], kernel_reps=20, plain_reps=1):
+    """K6 on one batch of LCPs: the kernel alone (on row-aligned operands
+    laid out once; the wrapper also builds them and computes the residual)
+    and its plain twin; plus the bytes and flops of the bound."""
+    from pde_tpu_torch.solvers import lcp
+
+    B, n = b.shape
+    fn, zero = lcp._psor_library(), torch.zeros((B, 1), device=dev)
+    ins = [t.contiguous() for t in (torch.cat([zero, lower], 1), diag,
+                                    torch.cat([upper, zero], 1), b, g)]
+    x0c = None if x0 is None else x0.contiguous()
+    x = torch.empty((B, n), device=dev)
+    ptrs = [t.data_ptr() for t in ins] + [None if x0c is None else x0c.data_ptr(),
+                                          x.data_ptr()]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = time_ms(torch, lambda: fn(*ptrs, B, n, n_iter, float(omega), stream), kernel_reps)
+    plain_ms = time_ms(torch, lambda: lcp._projected_sor(lower, diag, upper, b, g, x0,
+                                                         omega, n_iter), plain_reps)
+    # per row and sweep: neighbours 3, Gauss-Seidel value 2, relaxation 3,
+    # projection 1; the start 2 (max(b / d, g)) or 1 (max(x0, g))
+    start = 2.0 if x0 is None else 1.0
+    return dict(B=B, n=n, n_iter=n_iter, x0=x0 is not None, ms=ms, plain_ms=plain_ms,
+                n_bytes=nbytes(lower, diag, upper, b, g, *(() if x0 is None else (x0,)))
+                + B * n * 4,
+                n_flops=(9.0 * n_iter + start) * B * n)
+
+
+def phase_k5(torch, dev):
+    """K5 against its plain twin and beside torch.linalg.solve at the bench
+    shapes: the BS book's per-step system and the fused-ADI book's v sweep.
+    Returns the worst |kernel - plain|."""
+    from pde_tpu_torch.ops import tridiag
+
+    solve = tridiag.thomas_batched
+    worst = 0.0
+    for name, system in (("bs_book_step", bs_system(torch, dev)[:4]),
+                         ("adi_v_sweep", adi_v_system(torch, dev))):
+        B, n = system[3].shape
+        X = solve(*system)
+        worst = max(worst, compare(torch, dev, X, tridiag._thomas_batched_plain(*system),
+                                   kernel="K5", case=name, B=B, n=n))
+        before = solve.launches
+        wrapper_ms = time_ms(torch, lambda: solve(*system), 20)
+        if solve.launches <= before:
+            raise AssertionError("K5's launch count did not move")
+        emit(phase="kernel_timing", kernel="K5", case=name, wrapper_ms=wrapper_ms,
+             **k5_timing(torch, dev, *system))
+    return worst
+
+
+def phase_k6(torch, dev):
+    """K6 against its plain twin on the BS book's LCP at 60 and 120 sweeps,
+    and timed at 60.  Returns the worst |kernel - plain|."""
+    from pde_tpu_torch.solvers import lcp
+
+    lower, diag, upper, b, g = bs_system(torch, dev)
+    psor = lcp.projected_sor_batched
+    worst = 0.0
+    for n_iter in PSOR_ITERS:
+        x, resid = psor(lower, diag, upper, b, g, n_iter=n_iter)
+        xp, _ = lcp._projected_sor(lower, diag, upper, b, g, None, 1.5, n_iter)
+        worst = max(worst, compare(torch, dev, x, xp, kernel="K6", case="bs_book_lcp",
+                                   n_iter=n_iter, residual=float(resid)))
+    before = psor.launches
+    wrapper_ms = time_ms(torch, lambda: psor(lower, diag, upper, b, g), 20)
+    if psor.launches <= before:
+        raise AssertionError("K6's launch count did not move")
+    emit(phase="kernel_timing", kernel="K6", case="bs_book_lcp", wrapper_ms=wrapper_ms,
+         **k6_timing(torch, dev, lower, diag, upper, b, g))
+    return worst
+
+
+def phase_heston_scan(torch, dev, reps=5):
+    """bench_full.py:787: heston_adi.solve at 100x50x100 (the scan route,
+    its sweeps on K5), against the true price (tests/test_solvers.py:140)."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    p = heston_params()
+    res, walls = timed_walls(torch, dev, lambda: heston_adi.solve(p, 100.0, device=dev), reps)
+    per = statistics.median(walls)
+    err = abs(float(res.price) - HESTON_TRUE_CALL)
+    ok = bool(torch.isfinite(res.prices).all()) and err < 0.03
+    emit(phase="heston_adi_scan", grid=list(GRID.values()), price=float(res.price),
+         abs_err_vs_truth=err, wall_s=per, wall_s_runs=walls,
+         heston_adi_100x50_steps_per_sec=p.n_time / per, ok=ok)
+    if not ok:
+        raise AssertionError("heston_adi.solve failed its checks")
+    return res
+
+
+def fused_vs_scan(torch, fused, scan):
+    """Max |diff| on the grid, the same over its gate, and |diff| on the
+    price (tests/test_solvers.py:226-231)."""
+    diff = (fused.prices - scan.prices).abs()
+    over = diff / (FUSED_ATOL + FUSED_GRID_RTOL * scan.prices.abs())
+    return float(diff.max()), float(over.max()), abs(float(fused.price) - float(scan.price))
+
+
+def phase_heston_fused(torch, dev, scan, reps=20):
+    """bench_full.py:799: solve_fused (K2) on the same grid, held against
+    the scan solve on the card at 5e-4 absolute."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    p = heston_params()
+    res, walls = timed_walls(torch, dev, lambda: heston_adi.solve_fused(p, 100.0, device=dev),
+                             reps)
+    grid_err, grid_over, price_err = fused_vs_scan(torch, res, scan)
+    per = statistics.median(walls)
+    ok = (bool(torch.isfinite(res.prices).all()) and grid_over <= 1.0
+          and price_err <= FUSED_ATOL)
+    # how far float32 itself sits from float64 on this grid: the scan
+    # route in float64 on the card (its factored twin) as the reference
+    s64 = heston_adi.solve(p, 100.0, device=dev, dtype=torch.float64).prices
+    emit(phase="heston_adi_fused", price=float(res.price), max_abs_grid_vs_scan=grid_err,
+         max_over_bound_grid_vs_scan=grid_over, abs_price_vs_scan=price_err,
+         max_abs_grid_scan_vs_scan_f64=float((scan.prices.double() - s64).abs().max()),
+         max_abs_grid_fused_vs_scan_f64=float((res.prices.double() - s64).abs().max()),
+         heston_adi_fused_solve_s=per, wall_s_runs=walls, ok=ok)
+    if not ok:
+        raise AssertionError("solve_fused disagrees with solve")
+
+
+def phase_heston_lcp(torch, dev, reps=5):
+    """bench_full.py:866-873: the Ikonen-Toivanen American put at S0=90
+    through solve (K5) and solve_fused (K2), held against each other."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    p = heston_params(**AMER_PUT)
+    scan, scan_walls = timed_walls(torch, dev, lambda: heston_adi.solve(p, 90.0, device=dev),
+                                   reps)
+    fused, fused_walls = timed_walls(
+        torch, dev, lambda: heston_adi.solve_fused(p, 90.0, device=dev), 4 * reps)
+    grid_err, grid_over, price_err = fused_vs_scan(torch, fused, scan)
+    ok = (grid_over <= 1.0 and price_err <= FUSED_ATOL and float(scan.price) >= 10.0
+          and bool(torch.isfinite(scan.prices).all()))
+    emit(phase="heston_american_lcp", price=float(scan.price), fused_price=float(fused.price),
+         max_abs_grid_fused_vs_scan=grid_err, max_over_bound_grid=grid_over,
+         heston_american_lcp_solve_s=statistics.median(scan_walls),
+         heston_american_lcp_fused_solve_s=statistics.median(fused_walls), ok=ok)
+    if not ok:
+        raise AssertionError("the Ikonen-Toivanen American put failed its checks")
+
+
+def surface(torch, dev):
+    """bench_full.py:805-817's mixed surface: 12 strikes in [85, 115] x 9
+    maturities in [0.25, 1.5], calls and puts alternating."""
+    n_k, n_t = 12, 9
+    K = torch.linspace(85.0, 115.0, n_k, device=dev).repeat(n_t)
+    T = torch.linspace(0.25, 1.5, n_t, device=dev).repeat_interleave(n_k)
+    return K, T, torch.arange(n_k * n_t, device=dev) % 2 == 0
+
+
+def phase_heston_surface(torch, dev, reps=5):
+    """The 108-option surface through solve_batch (K5) and
+    solve_fused_batch (K1), held against each other (tests/test_solvers.py:
+    260-265: 5e-4 absolute on the price)."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    K, T, call = surface(torch, dev)
+    B = K.shape[0]
+    args = (2.0, 0.04, 0.3, -0.7, 0.04, R, Q, T, K)
+    scan, scan_walls = timed_walls(torch, dev, lambda: heston_adi.solve_batch(
+        *args, call, S0, device=dev, **GRID), reps)
+    fused, fused_walls = timed_walls(torch, dev, lambda: heston_adi.solve_fused_batch(
+        *args, call.float(), S0, device=dev, **GRID), reps)
+    err = float((fused.price - scan.price).abs().max())
+    ok = err <= FUSED_ATOL and bool(torch.isfinite(scan.price).all())
+    emit(phase="heston_surface", B=B, max_abs_price_fused_vs_scan=err,
+         heston_adi_batch108_options_per_sec=B / statistics.median(scan_walls),
+         heston_adi_mixed_book_options_per_sec=B / statistics.median(fused_walls), ok=ok)
+    if not ok:
+        raise AssertionError("the 108-option surface failed its checks")
+
+
+def phase_greeks(torch, dev, eps=1e-3):
+    """greeks_ad in float64 at 60x30x40 against central differences of
+    solve_batch (tests/test_solvers.py:327-344)."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    f64 = torch.float64
+    kw = dict(n_spot=60, n_vol=30, n_time=40, device=dev, dtype=f64)
+    t0 = time.perf_counter()
+    out = heston_adi.greeks_ad(2.0, 0.04, 0.3, -0.7, 0.04, R, Q, 1.0, 100.0, True, S0, **kw)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+
+    def price(s0=S0, sigma=0.3):
+        return float(heston_adi.solve_batch(2.0, 0.04, sigma, -0.7, 0.04, R, Q, 1.0, 100.0,
+                                            True, s0, **kw).price[0])
+
+    fd_delta = (price(s0=S0 + eps) - price(s0=S0 - eps)) / (2 * eps)
+    fd_dsigma = (price(sigma=0.3 + eps) - price(sigma=0.3 - eps)) / (2 * eps)
+    rel_delta = abs(float(out["delta"]) - fd_delta) / abs(fd_delta)
+    rel_dsigma = abs(float(out["d_sigma"]) - fd_dsigma) / abs(fd_dsigma)
+    ok = (rel_delta <= 1e-4 and rel_dsigma <= 1e-3 and float(out["d_T"]) > 0
+          and float(out["d_v0"]) > 0)
+    emit(phase="greeks_ad", dtype="float64", grid=[60, 30, 40],
+         greeks={k: float(v) for k, v in out.items()}, rel_err_delta_vs_fd=rel_delta,
+         rel_err_d_sigma_vs_fd=rel_dsigma, wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("greeks_ad disagrees with central differences")
+
+
+def phase_pcr_book(torch, dev, grid=GRID, B=BOOK_B):
+    """The 512-book through solve_fused_batch with the PCR sweeps, held
+    against the Thomas book at 1e-4 relative + 1e-4 absolute."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    K = torch.linspace(85.0, 115.0, B, device=dev)
+    T = torch.linspace(0.25, 1.5, B, device=dev)
+    cf = (torch.arange(B, device=dev) % 2).float()
+    run = lambda **kw: heston_adi.solve_fused_batch(  # noqa: E731
+        2.0, 0.04, 0.3, -0.7, 0.04, R, Q, T, K, cf, S0, device=dev, **grid, **kw).price
+    base = run()
+    worst = {}
+    for name, kw in (("pcr_v", dict(pcr_v=True)), ("pcr_s", dict(pcr_s=True)),
+                     ("pcr_v+s", dict(pcr_v=True, pcr_s=True))):
+        over = (run(**kw) - base).abs() / (1e-4 + 1e-4 * base.abs())
+        worst[name] = float(over.max())
+    ok = max(worst.values()) <= 1.0
+    emit(phase="pcr_book", B=B, max_over_bound_vs_thomas=worst, ok=ok)
+    if not ok:
+        raise AssertionError("a PCR book disagrees with the Thomas book")
+
+
+def phase_bs_solve(torch, dev, reps=2):
+    """bs_pde.solve for an American put at 200x100 by each method:
+    projection (K5), PSOR (K6), Brennan-Schwartz; Brennan-Schwartz within
+    1e-3 of PSOR, each at least the European price less 1e-4."""
+    from pde_tpu_torch.solvers import bs_pde
+
+    p = bs_pde.BSPDEParams(is_call=False, american=True, **BS_GRID)
+    euro = float(bs_pde.solve(p._replace(american=False), 100.0, device=dev).price)
+    prices, walls = {}, {}
+    for method in ("projection", "psor", "brennan_schwartz"):
+        res, w = timed_walls(torch, dev, lambda: bs_pde.solve(
+            p._replace(american_method=method), 100.0, device=dev), reps)
+        prices[method], walls[method] = float(res.price), statistics.median(w)
+    ok = (abs(prices["brennan_schwartz"] - prices["psor"]) <= 1e-3
+          and min(prices.values()) >= euro - 1e-4)
+    emit(phase="bs_pde_solve", grid=list(BS_GRID.values()), european=euro, american=prices,
+         wall_s=walls, ok=ok)
+    if not ok:
+        raise AssertionError("bs_pde.solve failed its checks")
+
+
+def phase_tridiagonal_solve(torch, dev):
+    """ops.tridiagonal_solve on the BS book's 2D float32 system (its kernel
+    branch), against the plain twin."""
+    from pde_tpu_torch.ops import tridiag
+
+    lower, diag, upper, rhs, _ = bs_system(torch, dev)
+    X = tridiag.tridiagonal_solve(lower, diag, upper, rhs)
+    P = tridiag._thomas_batched_plain(lower, diag, upper, rhs)
+    compare(torch, dev, X, P, kernel="K5", case="tridiagonal_solve")
+
+
+def phase_projected_sor(torch, dev):
+    """lcp.projected_sor_batched on the BS book's LCP: x >= g, a small
+    complementarity residual, and more sweeps shrink it."""
+    from pde_tpu_torch.solvers import lcp
+
+    lower, diag, upper, b, g = bs_system(torch, dev)
+    (x, r60), (_, r120) = (lcp.projected_sor_batched(lower, diag, upper, b, g, n_iter=it)
+                           for it in PSOR_ITERS)
+    ok = bool((x >= g).all()) and float(r120) <= float(r60) and float(r120) < 1e-2
+    emit(phase="projected_sor_batched", residual_60=float(r60), residual_120=float(r120),
+         ok=ok)
+    if not ok:
+        raise AssertionError("projected_sor_batched failed its checks")
+
+
+class LaunchInputs:
+    """Stands in for a kernel's launcher ``module.name`` while the main
+    paths run: it keeps, for each path, a clone of the first argument set
+    of each shape it is given, and calls through to the launcher."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.launch = module, name, getattr(module, name)
+        self.path, self.kept = None, {}
+        setattr(module, name, self)
+
+    def __call__(self, *args):
+        key = (self.path,) + tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                                   for a in args)
+        if key not in self.kept:
+            self.kept[key] = [a.clone() if hasattr(a, "clone") else a for a in args]
+        return self.launch(*args)
+
+    def on(self, path):
+        """The argument sets kept on ``path``."""
+        return [args for key, args in self.kept.items() if key[0] == path]
+
+    def close(self):
+        setattr(self.module, self.name, self.launch)
+
+
+def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path):
+    """K5 and K6 against their plain twins on every argument set the main
+    paths gave them, then timed at the shapes of ``k5_path`` (the scan's S
+    and v sweeps, one launch each a step: the kernel line gives the mean of
+    one launch) and ``k6_path`` (the PSOR solve's systems, started at V)."""
+    from pde_tpu_torch.ops import tridiag
+    from pde_tpu_torch.solvers import lcp
+
+    worst = {"K5": 0.0, "K6": 0.0}
+    for (path, *_), args in k5_inputs.kept.items():
+        B, n = args[3].shape
+        X = tridiag.thomas_batched(*args)
+        err = compare(torch, dev, X, tridiag._thomas_batched_plain(*args), kernel="K5",
+                      case=path, B=B, n=n)
+        worst["K5"] = max(worst["K5"], err)
+    for (path, *_), (lower, diag, upper, b, g, x0, omega, n_iter) in k6_inputs.kept.items():
+        x, _ = lcp.projected_sor_batched(lower, diag, upper, b, g, omega=omega,
+                                         n_iter=n_iter, x0=x0)
+        xp, _ = lcp._projected_sor(lower, diag, upper, b, g, x0, omega, n_iter)
+        err = compare(torch, dev, x, xp, kernel="K6", case=path, B=b.shape[0], n=b.shape[1],
+                      n_iter=n_iter, x0=x0 is not None)
+        worst["K6"] = max(worst["K6"], err)
+
+    k5 = [k5_timing(torch, dev, *args) for args in k5_inputs.on(k5_path)]
+    k6 = [k6_timing(torch, dev, *args) for args in k6_inputs.on(k6_path)]
+    out = {}
+    for key, rows, path in (("K5", k5, k5_path), ("K6", k6, k6_path)):
+        if not rows:
+            raise AssertionError(f"{path} gave {key} no input")
+        mean = lambda f: sum(r[f] for r in rows) / len(rows)  # noqa: E731
+        out[key] = dict(max_abs_err=worst[key], ms=mean("ms"), plain_ms=mean("plain_ms"),
+                        bound=bound(mean("n_bytes"), mean("n_flops")))
+        if key == "K5":
+            out[key]["library_ms"] = mean("library_ms")
+        emit(phase="kernel_timing", kernel=key, case=path, per_launch_mean=out[key]["ms"],
+             shapes=rows)
+    return out
+
+
 def profile_rows(torch, dev, interp, top=4):
     """One warm call of each row under ``torch.profiler``: the call's wall,
     the card's busy time (device time of its kernels), the idle share and
@@ -544,9 +1105,13 @@ def profile_rows(torch, dev, interp, top=4):
 
     from pde_tpu_torch.calibrate.sabr import SABRCalibrator
     from pde_tpu_torch.models import sabr
-    from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
+    from pde_tpu_torch.ops import tridiag
+    from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
 
     K, T, cf = lv_book(torch, dev, LV_B)
+    system = bs_system(torch, dev)
+    american_put = bs_pde.BSPDEParams(is_call=False, american=True,
+                                      american_method="psor", **BS_GRID)
     Kb = torch.linspace(80.0, 120.0, BS_B, device=dev)
     Tb = torch.linspace(0.25, 1.5, BS_B, device=dev)
     cb = (torch.arange(BS_B, device=dev) % 2).float()
@@ -565,6 +1130,12 @@ def profile_rows(torch, dev, interp, top=4):
             sig, BS_R, BS_Q, Tb, Kb, cb, 100.0, american=torch.ones(BS_B, device=dev),
             device=dev, **BS_GRID),
         "sabr_smile": lambda: cal.calibrate_single_maturity(Ks, vols, F1, 1.0),
+        "heston_adi_solve": lambda: heston_adi.solve(heston_params(), 100.0, device=dev),
+        "heston_adi_fused": lambda: heston_adi.solve_fused(heston_params(), 100.0,
+                                                           device=dev),
+        "bs_pde_solve_psor": lambda: bs_pde.solve(american_put, 100.0, device=dev),
+        "k6_projected_sor": lambda: lcp.projected_sor_batched(*system),
+        "k5_thomas_batched": lambda: tridiag.thomas_batched(*system[:4]),
     }
     for name, fn in rows.items():
         fn()
@@ -591,7 +1162,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this run needs an NVIDIA GPU")
-    from pde_tpu_torch.ops import adi_fused, build, cn1d_fused, cn1d_tv_fused
+    from pde_tpu_torch.ops import adi_fused, build, cn1d_fused, cn1d_tv_fused, tridiag
+    from pde_tpu_torch.solvers import lcp
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -601,38 +1173,72 @@ def main() -> None:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    sources = [k["source"].rsplit("/", 1)[1] for k in KERNELS.values()]
+    sources = dict.fromkeys(k["source"].rsplit("/", 1)[1] for k in KERNELS.values())
     built = build.load_libraries(*sources)
     emit(phase="build", seconds=time.perf_counter() - t0,
          ptxas={src: [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln]
                 for src, (_, log) in built.items()})
 
-    wrappers = {"K1": adi_fused.fused_douglas_march_batched,
-                "K3": cn1d_tv_fused.fused_cn_march_1d_tv,
-                "K4": cn1d_fused.fused_cn_march_1d}
+    # each kernel's launch count: (wrapper, attribute); K1's PCR variants
+    # are counted apart from its launches of every kind
+    k1 = adi_fused.fused_douglas_march_batched
+    counters = {"K1": (k1, "launches"), "K1-pcr_v": (k1, "launches_pcr_v"),
+                "K1-pcr_s": (k1, "launches_pcr_s"),
+                "K2": (adi_fused.fused_douglas_march, "launches"),
+                "K3": (cn1d_tv_fused.fused_cn_march_1d_tv, "launches"),
+                "K4": (cn1d_fused.fused_cn_march_1d, "launches"),
+                "K5": (tridiag.thomas_batched, "launches"),
+                "K6": (lcp.projected_sor_batched, "launches")}
     interp = lv_surface(torch, dev)
     if "--profile" in sys.argv[1:]:
         profile_rows(torch, dev, interp)
         return
-    measured = {"K1": phase_kernel(torch, dev), "K3": phase_k3(torch, dev, interp),
+    measured = {"K1": phase_kernel(torch, dev), **phase_k1_pcr(torch, dev),
+                "K2": phase_k2(torch, dev), "K3": phase_k3(torch, dev, interp),
                 "K4": phase_k4(torch, dev)}
+    bench_err = {"K5": phase_k5(torch, dev), "K6": phase_k6(torch, dev)}
 
-    # the main paths: every count is 0 just before a path and read just after
-    def path(fn, *args):
-        for w in wrappers.values():
-            w.launches = 0
-        fn(*args)
-        return {k: w.launches for k, w in wrappers.items()}
+    # the main paths: every count is 0 just before a path and read just
+    # after; a path that never launched a kernel it needs fails.  K5's and
+    # K6's launchers keep the inputs each path gives them.
+    k5_inputs = LaunchInputs(tridiag, "_launch_thomas")
+    k6_inputs = LaunchInputs(lcp, "_launch_psor")
+
+    def path(fn, *args, needs=()):
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        k5_inputs.path = k6_inputs.path = fn.__name__
+        out = fn(*args)
+        counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        emit(phase="launches", path=fn.__name__, counts={k: n for k, n in counts.items() if n})
+        missing = [k for k in needs if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{fn.__name__} never launched {missing}")
+        return counts, out
 
     path(phase_calibration, torch, dev, torch.float32)
-    launches = {"K1": path(phase_book, torch, dev)["K1"],
-                "K3": path(phase_local_vol_book, torch, dev, interp)["K3"],
-                "K4": path(phase_bs_book, torch, dev)["K4"]}
+    launches = {"K1": path(phase_book, torch, dev, needs=("K1",))[0]["K1"],
+                "K3": path(phase_local_vol_book, torch, dev, interp, needs=("K3",))[0]["K3"],
+                "K4": path(phase_bs_book, torch, dev, needs=("K4",))[0]["K4"]}
     path(phase_sabr, torch, dev)
-    for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the main path never launched {k} ({KERNELS[k]['name']})")
+    counts, scan = path(phase_heston_scan, torch, dev, needs=("K5",))
+    launches["K5"] = counts["K5"]
+    launches["K2"] = path(phase_heston_fused, torch, dev, scan, needs=("K2",))[0]["K2"]
+    path(phase_heston_lcp, torch, dev, needs=("K5", "K2"))
+    path(phase_heston_surface, torch, dev, needs=("K5", "K1"))
+    path(phase_greeks, torch, dev)
+    counts = path(phase_pcr_book, torch, dev, needs=("K1-pcr_v", "K1-pcr_s"))[0]
+    launches.update({k: counts[k] for k in ("K1-pcr_v", "K1-pcr_s")})
+    launches["K6"] = path(phase_bs_solve, torch, dev, needs=("K5", "K6"))[0]["K6"]
+    path(phase_tridiagonal_solve, torch, dev, needs=("K5",))
+    path(phase_projected_sor, torch, dev, needs=("K6",))
+    k5_inputs.close()
+    k6_inputs.close()
+    measured.update(phase_path_inputs(torch, dev, k5_inputs, k6_inputs,
+                                      "phase_heston_scan", "phase_bs_solve"))
+    for k, err in bench_err.items():
+        measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
 
     rows = []
     for k, info in KERNELS.items():
@@ -640,7 +1246,7 @@ def main() -> None:
         bound_ms, bound_by = m["bound"]
         rows.append({**info, "launches": launches[k], "max_abs_err": m["max_abs_err"],
                      "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+                     "bound_by": bound_by, "library_ms": m.get("library_ms")})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from .precision import default_float
+from .precision import default_float, resolve_device
 
 __all__ = [
     "uniform_grid",
+    "linspace",
     "find_index",
     "interp_linear",
     "price_delta_gamma",
@@ -26,14 +27,26 @@ __all__ = [
 
 def uniform_grid(x_min: float, x_max: float, n_points: int, dtype=None,
                  device=None) -> torch.Tensor:
-    """Uniformly spaced grid of ``n_points`` points on [x_min, x_max]."""
+    """Uniformly spaced grid of ``n_points`` points on [x_min, x_max], on
+    ``device`` (default: the CUDA card)."""
     if n_points < 3:
         raise ValueError("grid requires at least 3 points")
     if not (x_min < x_max):
         raise ValueError("x_min must be less than x_max")
     return torch.linspace(x_min, x_max, n_points,
                           dtype=dtype or default_float(),
-                          device=device or "cpu")
+                          device=resolve_device(device))
+
+
+def linspace(start: torch.Tensor, stop: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` points from ``start`` to ``stop`` along a new last axis, spaced
+    as ``jnp.linspace`` spaces them: ``start (1 - s) + stop s`` with
+    s = i / (n - 1), and the last point ``stop`` itself.  Endpoints of
+    shape (...) give (..., n); built by arithmetic, so gradients reach both
+    endpoints."""
+    step = torch.arange(n - 1, dtype=start.dtype, device=start.device) / (n - 1)
+    head = start[..., None] * (1.0 - step) + stop[..., None] * step
+    return torch.cat([head, stop[..., None].expand(head.shape[:-1] + (1,))], -1)
 
 
 def _as_points(grid: torch.Tensor, x) -> torch.Tensor:

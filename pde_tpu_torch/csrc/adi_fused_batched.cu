@@ -30,11 +30,25 @@
 // state to shared memory (227 KB per block) and coalescing the v-sweep are
 // later work.
 //
+// PCR variants (pcr_v, pcr_s; the reference's adi_fused.py:396-419,
+// :438-466, :495-546): a sweep becomes parallel cyclic reduction, log2 n
+// levels of whole-grid updates rr = rr + alpha rr[-s] + beta rr[+s] with
+// all threads busy and a barrier per level, then one multiply by 1/d.  The
+// level coefficients depend only on the time-independent bands, so they
+// are computed once before the march: alpha and beta for each level and
+// the final 1/d, per (j, option) for v (2 levels_v nv + nv floats, in the
+// c2/inv2 slots) and per (i, j, option) for S (2 levels_S nS nv + nS nv:
+// the identity rows couple in, so they do not stay i-independent).  The
+// level recurrence itself ping-pongs six band arrays through WORK.
+//
 // Layout: option-major and contiguous, (B, nS, nv) for every grid field,
 // (B, 3, nv) for the band triples [lo, di, up], (B, nv) for mix, c2 and
-// inv2, (B, nS) for the payoff and the spot grid, (B, 8) for the scalars
-// dt, r, q, K, is_call, american.  The kernel allocates nothing and does not
-// synchronise; it runs on the caller's stream.
+// inv2 (c2: (B, 2 levels_v nv) with pcr_v), (B, nS) for the payoff and the
+// spot grid, (B, 8) for the scalars dt, r, q, K, is_call, american;
+// SAB (B, 2 levels_S nS nv) and SINVD (B, nS nv) with pcr_s; WORK
+// (B, 6 nS nv) with pcr_s, else (B, 6 nv) with pcr_v.  The kernel
+// allocates nothing and does not synchronise; it runs on the caller's
+// stream.
 
 #include <cuda_runtime.h>
 
@@ -42,6 +56,83 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr float kTheta = 0.5f;  // Douglas parameter
+
+// PCR levels of an n-long sweep: strides 1, 2, 4, ... below n
+__host__ __device__ int pcr_levels(int n) {
+  int lev = 1;
+  while ((1 << lev) < n) ++lev;
+  return lev;
+}
+
+// Level coefficients of n_sys independent systems of length n laid out with
+// row stride `stride` (S: stride nv, the nv columns are the systems; v:
+// stride 1, one system).  lo/di/up hold the row-aligned bands of level 0 in
+// W[0..2] and are ping-ponged with W[3..5]; alpha and beta of level lev go
+// to AB[2 lev][.] and AB[2 lev + 1][.], the final 1/d to INVD.  Same
+// arithmetic as the reference (adi_fused.py:396-419, :438-466).
+__device__ void pcr_factor(float* W, int m, int n, int stride, float* AB,
+                           float* INVD) {
+  const int tid = threadIdx.x;
+  float *lo = W, *up = W + m, *di = W + 2 * m;
+  float *lo2 = W + 3 * m, *up2 = W + 4 * m, *di2 = W + 5 * m;
+  const int levels = pcr_levels(n);
+  for (int lev = 0; lev < levels; ++lev) {
+    const int s = 1 << lev;
+    for (int k = tid; k < m; k += kThreads) {
+      const int i = (k / stride) % n;  // row within its system
+      const bool has_lo = i >= s, has_hi = i < n - s;
+      const float in_lo = has_lo ? 1.f : 0.f, in_hi = has_hi ? 1.f : 0.f;
+      const float d_dn = (has_lo ? di[k - s * stride] : 0.f) + (1.f - in_lo);
+      const float d_up = (has_hi ? di[k + s * stride] : 0.f) + (1.f - in_hi);
+      const float alpha = -(lo[k] * in_lo) / d_dn;
+      const float beta = -(up[k] * in_hi) / d_up;
+      AB[(2 * lev) * m + k] = alpha;
+      AB[(2 * lev + 1) * m + k] = beta;
+      lo2[k] = alpha * (has_lo ? lo[k - s * stride] : 0.f);
+      up2[k] = beta * (has_hi ? up[k + s * stride] : 0.f);
+      di2[k] = di[k] + alpha * (has_lo ? up[k - s * stride] : 0.f) +
+               beta * (has_hi ? lo[k + s * stride] : 0.f);
+    }
+    __syncthreads();
+    float* t;
+    t = lo; lo = lo2; lo2 = t;
+    t = up; up = up2; up2 = t;
+    t = di; di = di2; di2 = t;
+  }
+  for (int k = tid; k < m; k += kThreads) INVD[k] = 1.f / di[k];
+  __syncthreads();
+}
+
+// One PCR solve in place on R (nS x nv), systems along S (along_s) or v,
+// ping-ponging through D; AB/INVD from pcr_factor (per node for S, per
+// column j for v).
+__device__ void pcr_solve(float* R, float* D, const float* AB, const float* INVD,
+                          int nS, int nv, bool along_s) {
+  const int tid = threadIdx.x;
+  const int n = nS * nv;
+  const int len = along_s ? nS : nv;
+  const int stride = along_s ? nv : 1;
+  const int m = along_s ? n : nv;  // coefficient entries per level
+  const int levels = pcr_levels(len);
+  float *src = R, *dst = D;
+  for (int lev = 0; lev < levels; ++lev) {
+    const int s = 1 << lev;
+    for (int k = tid; k < n; k += kThreads) {
+      const int i = along_s ? k / nv : k % nv;
+      const int c = along_s ? k : k % nv;
+      const float dn = i >= s ? src[k - s * stride] : 0.f;
+      const float up = i < len - s ? src[k + s * stride] : 0.f;
+      dst[k] = src[k] + AB[(2 * lev) * m + c] * dn + AB[(2 * lev + 1) * m + c] * up;
+    }
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  for (int k = tid; k < n; k += kThreads)
+    R[k] = src[k] * INVD[along_s ? k : k % nv];
+  __syncthreads();
+}
 
 __global__ void __launch_bounds__(kThreads)
 douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ sg,
@@ -52,7 +143,9 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
                       float* __restrict__ D, float* __restrict__ C1,
                       float* __restrict__ INV1, float* __restrict__ LAM,
                       float* __restrict__ C2, float* __restrict__ INV2,
-                      int nS, int nv, int nT, int use_it) {
+                      float* __restrict__ SAB, float* __restrict__ SINVD,
+                      float* __restrict__ WORK, int nS, int nv, int nT,
+                      int use_it, int pcr_v, int pcr_s) {
   const int tid = threadIdx.x;
   const int n = nS * nv;
   const size_t b = blockIdx.x;
@@ -71,8 +164,13 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
   C1 += b * n;
   INV1 += b * n;
   if (use_it) LAM += b * n;
-  C2 += b * nv;
+  C2 += b * (pcr_v ? 2 * pcr_levels(nv) * nv : nv);
   INV2 += b * nv;
+  if (pcr_s) {
+    SAB += b * 2 * pcr_levels(nS) * n;
+    SINVD += b * n;
+  }
+  if (pcr_s || pcr_v) WORK += b * 6 * (pcr_s ? n : nv);
 
   const float dt = sc[0], r = sc[1], q = sc[2], K = sc[3];
   const bool is_call = sc[4] > 0.5f;
@@ -88,23 +186,45 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
     if (use_it) LAM[k] = 0.f;
   }
 
-  // S-system Thomas factors, one thread per column j; rows 0 and nS-1 are
-  // identity (c = 0, inv = 1)
-  for (int j = tid; j < nv; j += kThreads) {
-    C1[j] = 0.f;
-    INV1[j] = 1.f;
-    float c = 0.f;
-    for (int i = 1; i < nS - 1; ++i) {
-      const float inv = 1.f / (i1D[j] - i1L[j] * c);
-      c = i1U[j] * inv;
-      C1[i * nv + j] = c;
-      INV1[i * nv + j] = inv;
+  if (pcr_s) {
+    // S-system PCR levels over the full grid; rows 0 and nS-1 are identity
+    for (int k = tid; k < n; k += kThreads) {
+      const int i = k / nv, j = k - i * nv;
+      const float mi = (i > 0 && i < nS - 1) ? 1.f : 0.f;
+      WORK[k] = i1L[j] * mi;
+      WORK[n + k] = i1U[j] * mi;
+      WORK[2 * n + k] = i1D[j] * mi + (1.f - mi);
     }
-    C1[(nS - 1) * nv + j] = 0.f;
-    INV1[(nS - 1) * nv + j] = 1.f;
+    __syncthreads();
+    pcr_factor(WORK, n, nS, nv, SAB, SINVD);
+  } else {
+    // S-system Thomas factors, one thread per column j; rows 0 and nS-1
+    // are identity (c = 0, inv = 1)
+    for (int j = tid; j < nv; j += kThreads) {
+      C1[j] = 0.f;
+      INV1[j] = 1.f;
+      float c = 0.f;
+      for (int i = 1; i < nS - 1; ++i) {
+        const float inv = 1.f / (i1D[j] - i1L[j] * c);
+        c = i1U[j] * inv;
+        C1[i * nv + j] = c;
+        INV1[i * nv + j] = inv;
+      }
+      C1[(nS - 1) * nv + j] = 0.f;
+      INV1[(nS - 1) * nv + j] = 1.f;
+    }
   }
-  // v-system Thomas factors: (nv,) per option, one thread
-  if (tid == 0) {
+  if (pcr_v) {
+    // v-system PCR levels: (nv,) per option
+    for (int j = tid; j < nv; j += kThreads) {
+      WORK[j] = i2L[j];
+      WORK[nv + j] = i2U[j];
+      WORK[2 * nv + j] = i2D[j];
+    }
+    __syncthreads();
+    pcr_factor(WORK, nv, nv, 1, C2, INV2);
+  } else if (tid == 0) {
+    // v-system Thomas factors: (nv,) per option, one thread
     float c = i2U[0] / i2D[0];
     C2[0] = c;
     INV2[0] = 1.f / i2D[0];
@@ -145,8 +265,10 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
     }
     __syncthreads();
 
-    // 2. implicit S sweep, one thread per column j, serial in i
-    for (int j = tid; j < nv; j += kThreads) {
+    // 2. implicit S sweep: PCR over the grid, or one thread per column j,
+    //    serial in i
+    if (pcr_s) pcr_solve(R, D, SAB, SINVD, nS, nv, true);
+    for (int j = tid; j < nv && !pcr_s; j += kThreads) {
       const float l = i1L[j];
       float d = R[j];
       D[j] = d;
@@ -173,8 +295,10 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
     }
     __syncthreads();
 
-    // 4. implicit v sweep, one thread per row i, serial in j
-    for (int i = tid; i < nS; i += kThreads) {
+    // 4. implicit v sweep: PCR over the grid, or one thread per row i,
+    //    serial in j
+    if (pcr_v) pcr_solve(R, D, C2, INV2, nS, nv, false);
+    for (int i = tid; i < nS && !pcr_v; i += kThreads) {
       float* Ri = R + i * nv;
       float* Di = D + i * nv;
       float d = Ri[0] * INV2[0];
@@ -224,7 +348,8 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
 }  // namespace
 
 // C interface, bound with ctypes.  Pointers are device pointers of
-// float32 tensors in the layout above; lam may be null when use_it == 0.
+// float32 tensors in the layout above; lam may be null when use_it == 0,
+// SAB and SINVD when pcr_s == 0, WORK when neither PCR flag is set.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int pde_adi_fused_batched(const float* pay, const float* sg,
                                      const float* a1, const float* i1,
@@ -232,12 +357,14 @@ extern "C" int pde_adi_fused_batched(const float* pay, const float* sg,
                                      const float* mix, const float* sc,
                                      float* V, float* R, float* D, float* C1,
                                      float* INV1, float* LAM, float* C2,
-                                     float* INV2, int B, int nS, int nv, int nT,
-                                     int use_it, void* stream) {
+                                     float* INV2, float* SAB, float* SINVD,
+                                     float* WORK, int B, int nS, int nv, int nT,
+                                     int use_it, int pcr_v, int pcr_s,
+                                     void* stream) {
   if (B > 0) {
     douglas_march_batched<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        pay, sg, a1, i1, a2, i2, mix, sc, V, R, D, C1, INV1, LAM, C2, INV2, nS,
-        nv, nT, use_it);
+        pay, sg, a1, i1, a2, i2, mix, sc, V, R, D, C1, INV1, LAM, C2, INV2, SAB,
+        SINVD, WORK, nS, nv, nT, use_it, pcr_v, pcr_s);
   }
   return static_cast<int>(cudaGetLastError());
 }

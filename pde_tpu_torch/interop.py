@@ -13,9 +13,11 @@ import torch
 from .models.heston import HestonParams
 from .models.local_vol import SurfaceInterpolator
 from .models.sabr import SABRParams
+from .solvers.bs_pde import BSPDEParams
+from .solvers.heston_adi import HestonPDEParams
 
 __all__ = ["tensor", "heston_params", "sabr_params", "quotes", "grouping",
-           "surface_interpolator"]
+           "surface_interpolator", "heston_pde_params", "bs_pde_params"]
 
 
 def tensor(x, device="cpu", dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -36,6 +38,26 @@ def sabr_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> SABRPara
     ``SABRParams``) as the port's, field by field."""
     return SABRParams(*(tensor(getattr(p, k), device, dtype)
                         for k in SABRParams._fields))
+
+
+def _pde_params(cls, p, floats, device, dtype):
+    """A PDE parameter record as the port's ``cls``, field by field: the
+    model/contract values in ``floats`` as 0-d tensors of ``dtype`` (so the
+    solver runs in that dtype), the rest (flags, grid sizes and spans,
+    methods) as they are."""
+    return cls(**{k: tensor(getattr(p, k), device, dtype) if k in floats
+                  else getattr(p, k) for k in cls._fields})
+
+
+def heston_pde_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> HestonPDEParams:
+    """The JAX package's ``heston_adi.HestonPDEParams`` as the port's."""
+    return _pde_params(HestonPDEParams, p, ("kappa", "theta", "sigma", "rho", "v0",
+                                            "r", "q", "T", "K"), device, dtype)
+
+
+def bs_pde_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> BSPDEParams:
+    """The JAX package's ``bs_pde.BSPDEParams`` as the port's."""
+    return _pde_params(BSPDEParams, p, ("sigma", "r", "q", "T", "K"), device, dtype)
 
 
 def surface_interpolator(interp, device="cpu",

@@ -1,35 +1,51 @@
-"""Fused Douglas ADI march for a batch of Heston options (twin of
-``pde_tpu/ops/adi_fused.py:fused_douglas_march_batched``).
+"""Fused Douglas ADI marches for Heston options (twin of
+``pde_tpu/ops/adi_fused.py``).
 
-The whole time loop of a book runs in ONE kernel launch: the explicit A0
-(mixed-derivative), A1 and A2 stencils, a Thomas sweep along S and one along
-v (both factored once, before the march), the Ikonen-Toivanen multiplier
-update or the American projection, and the In 't Hout-Foulon Dirichlet rows.
+The whole time loop runs in ONE kernel launch: the explicit A0
+(mixed-derivative), A1 and A2 stencils, an implicit sweep along S and one
+along v (both factored once, before the march), the Ikonen-Toivanen
+multiplier update or the American projection, and the In 't Hout-Foulon
+Dirichlet rows.
 
-* On a CUDA tensor, :func:`fused_douglas_march_batched` launches the CUDA
-  kernel ``csrc/adi_fused_batched.cu`` (one thread block per option) or
-  raises.
-* On a CPU tensor it runs :func:`_fused_douglas_march_batched_plain`, the
-  same step order in tensor ops over (nS, nv, B) with Python loops for the
-  sweeps.  The tests hold it against the reference's Pallas kernel, and
-  ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+* :func:`fused_douglas_march_batched` (K1) marches a BOOK on K-scaled log
+  grids.  A CUDA tensor launches ``csrc/adi_fused_batched.cu`` (one thread
+  block per option) or raises; a CPU tensor runs
+  :func:`_fused_douglas_march_batched_plain`, the same step order in tensor
+  ops over (nS, nv, B).  Each sweep is a Thomas recurrence, or with
+  ``pcr_v``/``pcr_s`` parallel cyclic reduction with level coefficients
+  computed once before the march.  The public layout is the reference's
+  ``(…, B)`` (batch last); the CUDA wrapper permutes to option-major
+  ``(B, nS, nv)`` and back.
+* :func:`fused_douglas_march` (K2) marches ONE option on a general (nS, nv)
+  grid with row-aligned bands.  A CUDA tensor launches ``csrc/adi_fused.cu``
+  (one thread block) or raises; a CPU tensor runs
+  :func:`_fused_douglas_march_plain`.  Its step order is the reference
+  kernel's own, not K1's: ``Y0 = V + dt (A0 V + A1 V + A2 V + lam)``, then
+  ``Y0 - th dt A1 V`` into the S sweep.
 
-The public layout is the reference's ``(…, B)`` (batch last); the CUDA
-wrapper permutes to option-major ``(B, nS, nv)`` and back.
+The tests hold each plain twin against the reference's Pallas kernel, and
+``chip_smoke.py`` holds each CUDA kernel against its twin on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .build import load_library
 
-__all__ = ["fused_douglas_march_batched"]
+__all__ = ["fused_douglas_march", "fused_douglas_march_batched"]
 
 _SOURCE = "adi_fused_batched.cu"
+_SOURCE_SINGLE = "adi_fused.cu"
 _TH = 0.5  # Douglas parameter
+
+
+def _levels(n: int) -> int:
+    """PCR levels for an n-long sweep: strides 1, 2, 4, ... below n."""
+    return max(1, math.ceil(math.log2(n)))
 
 
 def fused_douglas_march_batched(
@@ -45,6 +61,8 @@ def fused_douglas_march_batched(
     n_vol: int,
     n_time: int,
     use_it: bool = False,
+    pcr_v: bool = False,
+    pcr_s: bool = False,
 ) -> torch.Tensor:
     """Douglas ADI march for a whole option batch; returns V(t=0) as
     (nS, nv, B) float32.
@@ -52,9 +70,13 @@ def fused_douglas_march_batched(
     Per-option contract scalars ride ``sc``: a batch may mix strikes,
     maturities, rates, Heston parameters, calls with puts, and European
     with American options.  ``use_it`` treats flagged options with the
-    Ikonen-Toivanen splitting (projection otherwise).  ``launches`` counts
-    the CUDA kernel's launches.  The reference's ``pcr_v``/``pcr_s`` sweep
-    variants are not ported yet.
+    Ikonen-Toivanen splitting (projection otherwise).  ``pcr_v``/``pcr_s``
+    solve the v/S sweep by parallel cyclic reduction instead of Thomas:
+    the level coefficients (alpha, beta per level) and the final 1/d are
+    computed once, and each step reduces the right-hand side with two
+    multiply-adds per level.  ``launches`` counts the CUDA kernel's
+    launches; ``launches_pcr_v`` and ``launches_pcr_s`` count those of
+    them that ran the PCR v or S sweep.
     """
     args = (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)
     nS, nv, B = n_spot, n_vol, pay.shape[-1]
@@ -68,46 +90,100 @@ def fused_douglas_march_batched(
     if nS < 3 or nv < 3 or n_time < 1:
         raise ValueError("the march needs nS >= 3, nv >= 3 and n_time >= 1")
     if pay.device.type == "cuda":
-        return _launch(*args, nS, nv, n_time, use_it)
+        return _launch(*args, nS, nv, n_time, use_it, pcr_v, pcr_s)
     if pay.device.type == "cpu":
-        return _fused_douglas_march_batched_plain(*args, nS, nv, n_time, use_it)
+        return _fused_douglas_march_batched_plain(*args, nS, nv, n_time, use_it,
+                                                  pcr_v, pcr_s)
     raise ValueError(f"no fused ADI march for device {pay.device}")
 
 
 fused_douglas_march_batched.launches = 0
+fused_douglas_march_batched.launches_pcr_v = 0
+fused_douglas_march_batched.launches_pcr_s = 0
 
 
 def _library():
     lib, _ = load_library(_SOURCE)
     fn = lib.pde_adi_fused_batched
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it):
-    """Permute to option-major, launch on the current stream, permute back."""
+def _launch(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_v,
+            pcr_s):
+    """Permute to option-major, launch on the current stream, permute back.
+    The PCR variants take their level coefficients in scratch: for v,
+    2 levels_v nv alphas and betas in place of the Thomas c2 (and 1/d in
+    place of inv2); for S, 2 levels_S nS nv plus nS nv for 1/d; WORK holds
+    the six band arrays the level recurrence reads and writes."""
     fn = _library()
     B = pay.shape[-1]
     major = lambda a: a.permute(2, 0, 1).contiguous()  # noqa: E731  (…, B) -> (B, …)
     ins = [major(a) for a in (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)]
     opts = dict(dtype=torch.float32, device=pay.device)
-    V = torch.empty((B, nS, nv), **opts)
-    R, D, C1, INV1 = (torch.empty((B, nS, nv), **opts) for _ in range(4))
-    LAM = torch.empty((B, nS, nv), **opts) if use_it else None
-    C2, INV2 = (torch.empty((B, nv), **opts) for _ in range(2))
-    ptrs = [t.data_ptr() for t in (*ins, V, R, D, C1, INV1)]
-    ptrs += [LAM.data_ptr() if use_it else None, C2.data_ptr(), INV2.data_ptr()]
+    empty = lambda *shape: torch.empty((B,) + shape, **opts)  # noqa: E731
+    V = empty(nS, nv)
+    R, D, C1, INV1 = (empty(nS, nv) for _ in range(4))
+    LAM = empty(nS, nv) if use_it else None
+    C2 = empty(2 * _levels(nv) * nv if pcr_v else nv)
+    INV2 = empty(nv)
+    SAB = empty(2 * _levels(nS) * nS * nv) if pcr_s else None
+    SINVD = empty(nS * nv) if pcr_s else None
+    work = nS * nv if pcr_s else nv if pcr_v else 0
+    WORK = empty(6 * work) if work else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    ptrs = [ptr(t) for t in (*ins, V, R, D, C1, INV1, LAM, C2, INV2, SAB, SINVD, WORK)]
     stream = torch.cuda.current_stream(pay.device).cuda_stream
-    err = fn(*ptrs, B, nS, nv, nT, int(use_it), stream)
+    err = fn(*ptrs, B, nS, nv, nT, int(use_it), int(pcr_v), int(pcr_s), stream)
     if err != 0:
         raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
     fused_douglas_march_batched.launches += 1
+    fused_douglas_march_batched.launches_pcr_v += int(pcr_v)
+    fused_douglas_march_batched.launches_pcr_s += int(pcr_s)
     return V.permute(1, 2, 0)
 
 
+def _pcr_levels(lo, di, up, axis, n):
+    """PCR level coefficients of a time-independent system along ``axis``
+    (0: S, 1: v) of (nS, nv, B)-shaped bands, row-aligned (lo[0] = 0,
+    up[n-1] = 0): [(alpha, beta)] per level and the final 1/d, exactly as
+    the reference kernel forms them (adi_fused.py:396-419, :438-466)."""
+    idx = torch.arange(n, device=di.device).reshape((n, 1, 1) if axis == 0 else (1, n, 1))
+    levels = []
+    for lev in range(_levels(n)):
+        s = 1 << lev
+        in_lo = (idx >= s).to(di.dtype)             # row i-s exists
+        in_hi = (idx < n - s).to(di.dtype)          # row i+s exists
+        d_dn = _shift(di, -s, axis) + (1.0 - in_lo)  # out-of-range rows: d = 1
+        d_up = _shift(di, s, axis) + (1.0 - in_hi)
+        alpha = -(lo * in_lo) / d_dn
+        beta = -(up * in_hi) / d_up
+        levels.append((alpha, beta))
+        lo, up, di = (alpha * _shift(lo, -s, axis), beta * _shift(up, s, axis),
+                      di + alpha * _shift(up, -s, axis) + beta * _shift(lo, s, axis))
+    return levels, 1.0 / di
+
+
+def _pcr_solve(rhs, levels, inv_d, axis):
+    """Reduce a right-hand side with precomputed levels: two multiply-adds
+    per level, then one multiply by 1/d."""
+    for lev, (alpha, beta) in enumerate(levels):
+        s = 1 << lev
+        rhs = rhs + alpha * _shift(rhs, -s, axis) + beta * _shift(rhs, s, axis)
+    return rhs * inv_d
+
+
+def _shift(x, s, axis):
+    """``x[i + s]`` along ``axis``; zero where that runs off the grid."""
+    out = torch.zeros_like(x)
+    src = x.narrow(axis, max(s, 0), x.shape[axis] - abs(s))
+    out.narrow(axis, max(-s, 0), x.shape[axis] - abs(s)).copy_(src)
+    return out
+
+
 def _fused_douglas_march_batched_plain(pay, sg, a1b, i1b, a2b, i2b, mixb, sc,
-                                       nS, nv, nT, use_it):
+                                       nS, nv, nT, use_it, pcr_v=False, pcr_s=False):
     """The march in plain tensor ops, in the kernel's step order."""
     B = pay.shape[-1]
     dt, r, q, K = sc[0:1], sc[1:2], sc[2:3], sc[3:4]      # (1, 1, B)
@@ -123,21 +199,8 @@ def _fused_douglas_march_batched_plain(pay, sg, a1b, i1b, a2b, i2b, mixb, sc,
     V = g.expand(nS, nv, B).clone()
     lam = torch.zeros_like(V) if use_it else None
 
-    def sh_i(x, s):  # x[i+s]; zero where it runs off the grid
-        out = torch.zeros_like(x)
-        if s > 0:
-            out[:-s] = x[s:]
-        else:
-            out[-s:] = x[:s]
-        return out
-
-    def sh_j(x, s):  # x[:, j+s]
-        out = torch.zeros_like(x)
-        if s > 0:
-            out[:, :-s] = x[:, s:]
-        else:
-            out[:, -s:] = x[:, :s]
-        return out
+    sh_i = lambda x, s: _shift(x, s, 0)  # noqa: E731  x[i+s], zero off the grid
+    sh_j = lambda x, s: _shift(x, s, 1)  # noqa: E731  x[:, j+s]
 
     def interior(x):  # A1 and A0 act on interior rows only
         x[0] = 0.0
@@ -157,21 +220,32 @@ def _fused_douglas_march_batched_plain(pay, sg, a1b, i1b, a2b, i2b, mixb, sc,
 
     # both implicit operators are time-independent: factor ONCE.  S system:
     # rows 0 and nS-1 are identity (c = 0, inv = 1)
-    c1 = torch.zeros((nS, nv, B), dtype=pay.dtype, device=pay.device)
-    inv1 = torch.ones_like(c1)
-    for i in range(1, nS - 1):
-        inv = 1.0 / (i1b[1] - i1L * c1[i - 1])
-        c1[i] = i1b[2] * inv
-        inv1[i] = inv
+    if pcr_s:
+        # full (nS, nv, B) level coefficients: the identity rows couple in,
+        # so unlike the bands they are not i-independent across levels
+        mi = torch.zeros((nS, 1, 1), dtype=pay.dtype, device=pay.device)
+        mi[1:nS - 1] = 1.0
+        s_levels = _pcr_levels(i1b[0:1] * mi, i1b[1:2] * mi + (1.0 - mi),
+                               i1b[2:3] * mi, 0, nS)
+    else:
+        c1 = torch.zeros((nS, nv, B), dtype=pay.dtype, device=pay.device)
+        inv1 = torch.ones_like(c1)
+        for i in range(1, nS - 1):
+            inv = 1.0 / (i1b[1] - i1L * c1[i - 1])
+            c1[i] = i1b[2] * inv
+            inv1[i] = inv
     # v system: (nv, B) coefficients
-    c2 = torch.empty_like(i2D)
-    inv2 = torch.empty_like(i2D)
-    c2[0] = i2U[0] / i2D[0]
-    inv2[0] = 1.0 / i2D[0]
-    for j in range(1, nv):
-        inv = 1.0 / (i2D[j] - i2L[j] * c2[j - 1])
-        c2[j] = i2U[j] * inv
-        inv2[j] = inv
+    if pcr_v:
+        v_levels = _pcr_levels(i2b[0:1], i2b[1:2], i2b[2:3], 1, nv)
+    else:
+        c2 = torch.empty_like(i2D)
+        inv2 = torch.empty_like(i2D)
+        c2[0] = i2U[0] / i2D[0]
+        inv2[0] = 1.0 / i2D[0]
+        for j in range(1, nv):
+            inv = 1.0 / (i2D[j] - i2L[j] * c2[j - 1])
+            c2[j] = i2U[j] * inv
+            inv2[j] = inv
 
     d = torch.empty_like(V)
     is_edge = torch.zeros((nS, nv, 1), dtype=torch.bool, device=pay.device)
@@ -186,29 +260,35 @@ def _fused_douglas_march_batched_plain(pay, sg, a1b, i1b, a2b, i2b, mixb, sc,
         if use_it:
             acc = acc + dt * lam
 
-        # implicit S sweep (Thomas along i; row 0 identity, row nS-1
-        # identity: its lower band is masked off)
-        d[0] = acc[0]
-        for i in range(1, nS):
-            li = i1L if i < nS - 1 else zero
-            d[i] = (acc[i] - li * d[i - 1]) * inv1[i]
-        Y = acc
-        Y[nS - 1] = d[nS - 1]
-        for i in range(nS - 2, -1, -1):
-            Y[i] = d[i] - c1[i] * Y[i + 1]
+        if pcr_s:
+            Y = _pcr_solve(acc, *s_levels, 0)
+        else:
+            # implicit S sweep (Thomas along i; row 0 identity, row nS-1
+            # identity: its lower band is masked off)
+            d[0] = acc[0]
+            for i in range(1, nS):
+                li = i1L if i < nS - 1 else zero
+                d[i] = (acc[i] - li * d[i - 1]) * inv1[i]
+            Y = acc
+            Y[nS - 1] = d[nS - 1]
+            for i in range(nS - 2, -1, -1):
+                Y[i] = d[i] - c1[i] * Y[i + 1]
 
         # rhs2 = Y1 - th dt A2 V
         R = Y - (_TH * dt) * apply_a2(V)
 
-        # implicit v sweep (Thomas along j; the j = nv-1 identity row and
-        # the j = 0 one-sided row are baked into i2)
-        d[:, 0] = R[:, 0] * inv2[0]
-        for j in range(1, nv):
-            d[:, j] = (R[:, j] - i2L[j] * d[:, j - 1]) * inv2[j]
-        Vn = R
-        Vn[:, nv - 1] = d[:, nv - 1]
-        for j in range(nv - 2, -1, -1):
-            Vn[:, j] = d[:, j] - c2[j] * Vn[:, j + 1]
+        if pcr_v:
+            Vn = _pcr_solve(R, *v_levels, 1)
+        else:
+            # implicit v sweep (Thomas along j; the j = nv-1 identity row
+            # and the j = 0 one-sided row are baked into i2)
+            d[:, 0] = R[:, 0] * inv2[0]
+            for j in range(1, nv):
+                d[:, j] = (R[:, j] - i2L[j] * d[:, j - 1]) * inv2[j]
+            Vn = R
+            Vn[:, nv - 1] = d[:, nv - 1]
+            for j in range(nv - 2, -1, -1):
+                Vn[:, j] = d[:, j] - c2[j] * Vn[:, j + 1]
 
         if use_it:
             # Ikonen-Toivanen multiplier update on flagged options:
@@ -231,4 +311,165 @@ def _fused_douglas_march_batched_plain(pay, sg, a1b, i1b, a2b, i2b, mixb, sc,
         # Dirichlet edges are European — floor flagged options there
         floor = amer & is_edge if use_it else amer
         V = torch.where(floor, torch.maximum(Vn, g), Vn)
+    return V
+
+
+def fused_douglas_march(
+    payoff,        # (nS, nv) terminal condition
+    a1_bands,      # (a1L, a1D, a1U): row-aligned (nS, nv) explicit S-operator
+    i1_bands,      # (i1L, i1D, i1U): row-aligned (nS, nv) implicit S-system
+    a2_bands,      # (a2L, a2D, a2U): (nv,) explicit v-operator bands
+    i2_bands,      # (i2L, i2D, i2U): (nv,) implicit v-system bands
+    mix_coef,      # (nv,) rho sigma v_j / (4 dx dv)
+    s_grid,        # (nS,)
+    scalars,       # (7,): dt, r, q, K, is_call(0/1), american(0/1), it_lcp(0/1)
+    n_spot: int,
+    n_vol: int,
+    n_time: int,
+) -> torch.Tensor:
+    """The whole Douglas march of ONE option in one kernel (the reference's
+    ``fused_douglas_march``, ``pde_tpu/ops/adi_fused.py:38``); returns
+    V(t=0) as (nS, nv) float32.
+
+    Boundary treatment, band conventions and step order are the reference
+    kernel's: row-aligned bands (``band[i]`` multiplies the value shifted
+    INTO row i, zero where the shift runs off the grid), A0 masked to the
+    interior, the mixed coefficient per column; American exercise by
+    projection, or by the Ikonen-Toivanen multiplier when the it_lcp flag
+    is set.  Inputs of any float dtype are cast to float32.  A CUDA tensor
+    launches ``csrc/adi_fused.cu`` or raises; a CPU tensor runs
+    :func:`_fused_douglas_march_plain`.  ``launches`` counts the kernel's
+    launches.
+    """
+    nS, nv = n_spot, n_vol
+    grid, vec, sg, sc = _stack_single(payoff, a1_bands, i1_bands, a2_bands, i2_bands,
+                                      mix_coef, s_grid, scalars)
+    for a, shape in ((grid, (7, nS, nv)), (vec, (7, nv)), (sg, (nS,)), (sc, (7,))):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(a.shape)}")
+        if a.device != grid.device:
+            raise ValueError("all inputs must be on one device")
+    if nS < 3 or nv < 3 or n_time < 1:
+        raise ValueError("the march needs nS >= 3, nv >= 3 and n_time >= 1")
+    if grid.device.type == "cuda":
+        return _launch_single(grid, vec, sg, sc, nS, nv, n_time)
+    if grid.device.type == "cpu":
+        return _fused_douglas_march_plain(grid, vec, sg, sc, nS, nv, n_time)
+    raise ValueError(f"no fused ADI march for device {grid.device}")
+
+
+fused_douglas_march.launches = 0
+
+
+def _stack_single(payoff, a1_bands, i1_bands, a2_bands, i2_bands, mix_coef, s_grid,
+                  scalars):
+    """K2's public inputs as its kernel's four float32 arrays: G (7, nS, nv)
+    = payoff, a1, i1; W (7, nv) = a2, i2, mix; sg (nS,); sc (7,)."""
+    f32 = lambda a: torch.as_tensor(a).to(torch.float32)  # noqa: E731
+    grid = torch.stack([f32(a) for a in (payoff, *a1_bands, *i1_bands)])
+    vec = torch.stack([f32(a) for a in (*a2_bands, *i2_bands, mix_coef)])
+    return grid, vec, f32(s_grid), f32(scalars)
+
+
+def _launch_single(grid, vec, sg, sc, nS, nv, nT):
+    lib, _ = load_library(_SOURCE_SINGLE)
+    fn = lib.pde_adi_fused
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    opts = dict(dtype=torch.float32, device=grid.device)
+    V = torch.empty((nS, nv), **opts)
+    S = torch.empty((5, nS, nv), **opts)  # lam, rhs, d, c1, inv1
+    S2 = torch.empty((2, nv), **opts)     # c2, inv2
+    ins = [t.contiguous() for t in (grid, vec, sg, sc)]
+    stream = torch.cuda.current_stream(grid.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in (*ins, V, S, S2)), nS, nv, nT, stream)
+    if err != 0:
+        raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
+    fused_douglas_march.launches += 1
+    return V
+
+
+def _fused_douglas_march_plain(grid, vec, sg, sc, nS, nv, nT):
+    """K2's march in plain tensor ops over the (nS, nv) grid, in the
+    reference kernel's step order, sweeps as Python loops over rows."""
+    g, a1L, a1D, a1U, i1L, i1D, i1U = grid
+    a2L, a2D, a2U, i2L, i2D, i2U, mix = vec
+    dt, r, q, K = sc[0], sc[1], sc[2], sc[3]
+    is_call, american, it_lcp = sc[4] > 0.5, sc[5] > 0.5, sc[6] > 0.5
+    sh_i = lambda x, s: _shift(x, s, 0)  # noqa: E731  x[i+s], zero off the grid
+    sh_j = lambda x, s: _shift(x, s, 1)  # noqa: E731  x[i, j+s]
+    ii = torch.arange(nS, device=g.device)[:, None]
+    jj = torch.arange(nv, device=g.device)[None, :]
+    interior = (ii > 0) & (ii < nS - 1) & (jj > 0) & (jj < nv - 1)
+    edge = (ii == 0) | (ii == nS - 1) | (jj == 0) | (jj == nv - 1)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+
+    def apply_a1(V):  # the bands are zero where the shift runs off the grid
+        return a1D * V + a1L * sh_i(V, -1) + a1U * sh_i(V, 1)
+
+    def apply_a2(V):
+        return V * a2D + sh_j(V, -1) * a2L + sh_j(V, 1) * a2U
+
+    def apply_a0(V):
+        Vxv = (sh_i(sh_j(V, 1), 1) - sh_i(sh_j(V, -1), 1)
+               - sh_i(sh_j(V, 1), -1) + sh_i(sh_j(V, -1), -1))
+        return torch.where(interior, mix * Vxv, zero)
+
+    def thomas_columns(lo, di, up):
+        """Factors of a time-independent system, as lists of rows."""
+        c, inv = [up[0] / di[0]], [1.0 / di[0]]
+        for k in range(1, lo.shape[0]):
+            inv.append(1.0 / (di[k] - lo[k] * c[k - 1]))
+            c.append(up[k] * inv[k])
+        return c, inv
+
+    # both implicit operators are time-independent: factor ONCE
+    c1, inv1 = thomas_columns(i1L, i1D, i1U)     # rows of (nv,)
+    c2, inv2 = thomas_columns(i2L, i2D, i2U)     # scalars per column j
+
+    V = g.clone()
+    lam = torch.zeros_like(g)
+    for step in range(nT):
+        Y0 = V + dt * (apply_a0(V) + apply_a1(V) + apply_a2(V)
+                       + torch.where(it_lcp, lam, zero))
+
+        # implicit S sweep
+        t = Y0 - _TH * dt * apply_a1(V)
+        d = [t[0] * inv1[0]]
+        for i in range(1, nS):
+            d.append((t[i] - i1L[i] * d[i - 1]) * inv1[i])
+        y = [d[nS - 1]]
+        for i in range(nS - 2, -1, -1):
+            y.append(d[i] - c1[i] * y[-1])
+        Y1 = torch.stack(y[::-1])
+
+        # implicit v sweep
+        t2 = Y1 - _TH * dt * apply_a2(V)
+        d = [t2[:, 0] * inv2[0]]
+        for j in range(1, nv):
+            d.append((t2[:, j] - i2L[j] * d[j - 1]) * inv2[j])
+        y = [d[nv - 1]]
+        for j in range(nv - 2, -1, -1):
+            y.append(d[j] - c2[j] * y[-1])
+        Vn = torch.stack(y[::-1], 1)
+
+        # Ikonen-Toivanen multiplier update: V_new - dt lam_new = Vn - dt lam,
+        # V_new >= g, lam_new >= 0, lam_new (V_new - g) = 0
+        W = Vn - dt * lam
+        V_it = torch.maximum(g, W)
+        lam = torch.where(it_lcp, (V_it - W) / dt, lam)
+        Vn = torch.where(it_lcp, V_it, Vn)
+
+        # In 't Hout-Foulon Dirichlet boundaries at tau
+        tau = dt * float(step + 1)
+        dfr = torch.exp(-r * tau)
+        dfq = torch.exp(-q * tau)
+        Vn = torch.where(ii == 0, torch.where(is_call, zero, K * dfr - sg[0] * dfq), Vn)
+        Vn = torch.where(ii == nS - 1, torch.where(is_call, sg[nS - 1] * dfq - K * dfr,
+                                                   zero), Vn)
+        Vn = torch.where(jj == nv - 1, torch.where(is_call, sg[:, None] * dfq, K * dfr), Vn)
+        # projection-mode American: clamp everywhere; it_lcp: the Dirichlet
+        # rows are European, floor them at intrinsic
+        Vn = torch.where(american & ~it_lcp, torch.maximum(Vn, g), Vn)
+        V = torch.where(it_lcp & edge, torch.maximum(Vn, g), Vn)
     return V

@@ -27,10 +27,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "pde_tpu_t
 # contraction stays on
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per source, on top: the 1D theta-scheme marches round every product and
-# sum on its own, as their plain twins do (no FMA contraction); their
-# float32 round-off alone is of the size of the kernel-vs-twin gate
-SOURCE_FLAGS = {"cn1d_fused.cu": ("-fmad=false",), "cn1d_tv_fused.cu": ("-fmad=false",)}
+# per source, on top: these kernels round every product and sum on its
+# own, as their plain twins do (no FMA contraction), so kernel and twin
+# agree bit for bit; for the 1D theta-scheme marches the float32 round-off
+# alone is of the size of the kernel-vs-twin gate
+SOURCE_FLAGS = {src: ("-fmad=false",) for src in (
+    "cn1d_fused.cu", "cn1d_tv_fused.cu", "adi_fused.cu", "thomas_batched.cu",
+    "psor_batched.cu")}
 
 
 def _nvcc() -> str:

@@ -3,26 +3,35 @@
 * :func:`thomas` — the Thomas recurrence along the last axis, a Python
   loop over the system axis with every step vectorised over the batch.
   Works on any device and dtype (float64 parity mode) and is
-  differentiable by autograd.
+  differentiable by autograd: each row's result is a new tensor, collected
+  and stacked at the end, never written into a tensor that is read later.
 * :func:`thomas_factor` / :func:`thomas_solve_factored` — the elimination
   of a time-independent matrix done once, then multiply-only solves.
+* :func:`thomas_batched` — B independent systems forward-eliminated and
+  back-substituted in ONE launch of the CUDA kernel ``csrc/thomas_batched.cu``
+  (the reference's ``thomas_pallas``) on a CUDA tensor, its plain twin
+  :func:`_thomas_batched_plain` on a CPU tensor.
 * :func:`pcr` — parallel cyclic reduction for few, very long systems:
   ceil(log2 n) rounds of shifted whole-tensor eliminations.
 
-:func:`tridiagonal_solve` keeps the reference's dispatch rule.  Its
-kernel branch (2D float32 batches on the accelerator, the reference's
-``thomas_pallas``) is not ported yet and raises.
+:func:`tridiagonal_solve` keeps the reference's dispatch rule: its kernel
+branch takes 2D float32 batches on the card to :func:`thomas_batched`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
+from .build import load_library
+
 __all__ = ["thomas", "thomas_factor", "thomas_solve_factored", "ThomasFactors",
-           "pcr", "tridiagonal_solve"]
+           "thomas_batched", "pcr", "tridiagonal_solve", "kernel_route"]
+
+_SOURCE = "thomas_batched.cu"
 
 
 class ThomasFactors(NamedTuple):
@@ -54,15 +63,14 @@ def thomas_factor(lower, diag, upper) -> ThomasFactors:
     """Forward-eliminate the matrix only (shapes as :func:`thomas`)."""
     lo, d, up = _bands(lower, diag, upper)
     n = d.shape[-1]
-    cp = torch.empty_like(d)
-    inv_m = torch.empty_like(d)
-    cp[..., 0] = up[..., 0] / d[..., 0]
-    inv_m[..., 0] = 1.0 / d[..., 0]
+    c = up[..., 0] / d[..., 0]
+    cps, invs = [c], [1.0 / d[..., 0]]
     for i in range(1, n):
-        inv = 1.0 / (d[..., i] - lo[..., i] * cp[..., i - 1])
-        cp[..., i] = up[..., i] * inv
-        inv_m[..., i] = inv
-    return ThomasFactors(cp, inv_m, lo)
+        inv = 1.0 / (d[..., i] - lo[..., i] * c)
+        c = up[..., i] * inv
+        cps.append(c)
+        invs.append(inv)
+    return ThomasFactors(torch.stack(cps, -1), torch.stack(invs, -1), lo)
 
 
 def thomas_solve_factored(factors: ThomasFactors, rhs) -> torch.Tensor:
@@ -72,20 +80,24 @@ def thomas_solve_factored(factors: ThomasFactors, rhs) -> torch.Tensor:
     n = cp.shape[-1]
     batch = torch.broadcast_shapes(cp.shape[:-1], rhs.shape[:-1])
     b, cp, inv_m, lo = (a.expand(batch + (n,)) for a in (rhs, cp, inv_m, lo))
-    dp = torch.empty(batch + (n,), dtype=b.dtype, device=b.device)
-    dp[..., 0] = b[..., 0] * inv_m[..., 0]
+    dp = b[..., 0] * inv_m[..., 0]
+    dps = [dp]
     for i in range(1, n):
-        dp[..., i] = (b[..., i] - lo[..., i] * dp[..., i - 1]) * inv_m[..., i]
-    return _back_substitute(cp, dp)
+        dp = (b[..., i] - lo[..., i] * dp) * inv_m[..., i]
+        dps.append(dp)
+    return _back_substitute(cp.unbind(-1), dps)
 
 
-def _back_substitute(cp, dp):
-    x = torch.empty_like(dp)
-    n = dp.shape[-1]
-    x[..., n - 1] = dp[..., n - 1]
+def _back_substitute(cps, dps):
+    """x[n-1] = dp[n-1], x[i] = dp[i] - cp[i] x[i+1], from the columns of
+    the forward sweep; stacked along the last axis."""
+    n = len(dps)
+    x = dps[n - 1]
+    xs = [x]
     for i in range(n - 2, -1, -1):
-        x[..., i] = dp[..., i] - cp[..., i] * x[..., i + 1]
-    return x
+        x = dps[i] - cps[i] * x
+        xs.append(x)
+    return torch.stack(xs[::-1], -1)
 
 
 def thomas(lower, diag, upper, rhs) -> torch.Tensor:
@@ -102,15 +114,94 @@ def thomas(lower, diag, upper, rhs) -> torch.Tensor:
     """
     lo, d, up, b = _bands(lower, diag, upper, rhs)
     n = d.shape[-1]
-    cp = torch.empty_like(b)
-    dp = torch.empty_like(b)
-    cp[..., 0] = up[..., 0] / d[..., 0]
-    dp[..., 0] = b[..., 0] / d[..., 0]
+    c = up[..., 0] / d[..., 0]
+    dp = b[..., 0] / d[..., 0]
+    cps, dps = [c], [dp]
     for i in range(1, n):
-        m = d[..., i] - lo[..., i] * cp[..., i - 1]
-        cp[..., i] = up[..., i] / m
-        dp[..., i] = (b[..., i] - lo[..., i] * dp[..., i - 1]) / m
-    return _back_substitute(cp, dp)
+        m = d[..., i] - lo[..., i] * c
+        dp = (b[..., i] - lo[..., i] * dp) / m
+        c = up[..., i] / m
+        cps.append(c)
+        dps.append(dp)
+    return _back_substitute(cps, dps)
+
+
+def thomas_batched(lower, diag, upper, rhs) -> torch.Tensor:
+    """B independent n-point systems in one kernel (the reference's
+    ``thomas_pallas``, ``pde_tpu/ops/tridiag.py:182``).
+
+    Shapes: lower (B, n-1), diag (B, n), upper (B, n-1), rhs (B, n) ->
+    (B, n), float32.  Forward elimination takes one reciprocal per pivot
+    and multiplies (``inv_m = 1/m; c = up inv_m; dp = (b - lo dp) inv_m``),
+    row 0 divides; the back substitution follows in the same launch.  On
+    a CUDA tensor it launches ``csrc/thomas_batched.cu`` (one thread per
+    system) or raises; on a CPU tensor it runs :func:`_thomas_batched_plain`.
+    ``launches`` counts the kernel's launches.
+    """
+    B, n = rhs.shape
+    for a, shape in ((lower, (B, n - 1)), (diag, (B, n)), (upper, (B, n - 1)),
+                     (rhs, (B, n))):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(a.shape)}")
+        if a.dtype != torch.float32 or a.device != rhs.device:
+            raise ValueError("all inputs must be float32 on one device")
+    if n < 2:
+        raise ValueError("systems need n >= 2")
+    if rhs.device.type == "cuda":
+        return _launch_thomas(lower, diag, upper, rhs)
+    if rhs.device.type == "cpu":
+        return _thomas_batched_plain(lower, diag, upper, rhs)
+    raise ValueError(f"no batched Thomas solve for device {rhs.device}")
+
+
+thomas_batched.launches = 0
+
+
+def _row_major(lower, diag, upper, rhs):
+    """Batch-last, row-aligned (n, B) operands: lo[0] = 0, up[n-1] = 0."""
+    zero = torch.zeros_like(rhs[:, :1])
+    lo = torch.cat([zero, lower], 1).T.contiguous()
+    up = torch.cat([upper, zero], 1).T.contiguous()
+    return lo, diag.T.contiguous(), up, rhs.T.contiguous()
+
+
+def _thomas_library():
+    lib, _ = load_library(_SOURCE)
+    fn = lib.pde_thomas_batched
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_thomas(lower, diag, upper, rhs):
+    fn = _thomas_library()
+    B, n = rhs.shape
+    ins = _row_major(lower, diag, upper, rhs)
+    out, C = (torch.empty((n, B), dtype=torch.float32, device=rhs.device)
+              for _ in range(2))
+    stream = torch.cuda.current_stream(rhs.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in (*ins, out, C)), B, n, stream)
+    if err != 0:
+        raise RuntimeError(f"batched Thomas launch failed: CUDA error {err}")
+    thomas_batched.launches += 1
+    return out.T
+
+
+def _thomas_batched_plain(lower, diag, upper, rhs):
+    """The kernel's recurrence in tensor ops over the batch, rows in a
+    Python loop: a reciprocal per pivot (row 0 divides), as the kernel."""
+    lo, d, up, b = _row_major(lower, diag, upper, rhs)
+    n = d.shape[0]
+    c = up[0] / d[0]
+    dp = b[0] / d[0]
+    cps, dps = [c], [dp]
+    for i in range(1, n):
+        inv_m = 1.0 / (d[i] - lo[i] * c)
+        c = up[i] * inv_m
+        dp = (b[i] - lo[i] * dp) * inv_m
+        cps.append(c)
+        dps.append(dp)
+    return _back_substitute(cps, dps)
 
 
 def pcr(lower, diag, upper, rhs) -> torch.Tensor:
@@ -147,12 +238,23 @@ def pcr(lower, diag, upper, rhs) -> torch.Tensor:
     return d / b
 
 
+def kernel_route(*tensors) -> bool:
+    """Whether a solve on these tensors belongs to the kernel: float32 on
+    a CUDA device, with no autograd through it (the kernels have no
+    backward).  The scan solvers ask this before they hand a sweep to
+    :func:`tridiagonal_solve` instead of their factored twin."""
+    t = tensors[0]
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        return False
+    return not (torch.is_grad_enabled() and any(a.requires_grad for a in tensors))
+
+
 def tridiagonal_solve(lower, diag, upper, rhs, use_kernel: bool | None = None):
     """Dispatch on the batch/length regime, as the reference does.
 
     - Few, very long systems -> :func:`pcr`.
-    - Wide float32 2D batches on the card -> the batched Thomas kernel
-      (the reference's ``thomas_pallas``): not ported yet, raises.
+    - Wide float32 2D batches on the card -> :func:`thomas_batched` (K5).
+      Shared 1-D bands are broadcast to one set per system first.
     - Everything else -> :func:`thomas`.
     """
     rhs = torch.as_tensor(rhs)
@@ -164,5 +266,7 @@ def tridiagonal_solve(lower, diag, upper, rhs, use_kernel: bool | None = None):
         use_kernel = (rhs.dim() == 2 and rhs.dtype == torch.float32
                       and rhs.device.type == "cuda")
     if use_kernel:
-        raise NotImplementedError("K5 thomas_pallas not ported yet")
+        lower, diag, upper = (torch.as_tensor(b).expand(rhs.shape[:-1] + (m,))
+                              for b, m in ((lower, n - 1), (diag, n), (upper, n - 1)))
+        return thomas_batched(lower, diag, upper, rhs)
     return thomas(lower, diag, upper, rhs)

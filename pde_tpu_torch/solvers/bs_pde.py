@@ -6,13 +6,19 @@ Same discretisation as the reference BlackScholesPDESolver
 [K s_min_mult, K s_max_mult], central differences, Crank-Nicolson or
 implicit Euler, Dirichlet rows discounted over time-to-expiry (both
 discounts), per-step ``max(V, payoff)`` projection for American exercise.
-A whole book marches in ONE launch of the K4 kernel
-(:mod:`pde_tpu_torch.ops.cn1d_fused`).
 
-Port notes: :func:`solve` (the scan route, with its PSOR and
-Brennan-Schwartz American treatments) waits for ``solvers/lcp.py``; the
-batch needs no 128-lane padding and there is no ``interpret`` argument
-(both TPU artifacts).
+* :func:`solve` — one option, a backward march of per-step tridiagonal
+  solves (the matrix factored once), American exercise by projection, by
+  the LCP through red-black PSOR (:mod:`pde_tpu_torch.solvers.lcp`) or
+  exactly by Brennan-Schwartz.  Any dtype.  On float32 tensors on the card
+  each step's solve is one launch of K5
+  (:func:`~pde_tpu_torch.ops.tridiag.tridiagonal_solve`) and each PSOR
+  solve one launch of K6 (:func:`~pde_tpu_torch.solvers.lcp.projected_sor`).
+* :func:`solve_fused_batch` — a whole book marches in ONE launch of the K4
+  kernel (:mod:`pde_tpu_torch.ops.cn1d_fused`).
+
+Port notes: the batch needs no 128-lane padding and there is no
+``interpret`` argument (both TPU artifacts).
 """
 
 from __future__ import annotations
@@ -23,10 +29,13 @@ from typing import NamedTuple
 import torch
 
 from ..core import grids
-from ..core.precision import resolve_device
+from ..core.precision import resolve_device, result_dtype, to_tensor
 from ..ops.cn1d_fused import fused_cn_march_1d
+from ..ops.tridiag import (kernel_route, thomas_factor, thomas_solve_factored,
+                           tridiagonal_solve)
+from . import lcp
 
-__all__ = ["BSPDEParams", "BSPDEResult", "solve_fused_batch"]
+__all__ = ["BSPDEParams", "BSPDEResult", "solve", "solve_fused_batch"]
 
 
 class BSPDEParams(NamedTuple):
@@ -70,11 +79,14 @@ def _operator_coeffs(p: BSPDEParams, dx):
     return a - b, -2.0 * a - p.r, a + b
 
 
-def _readout_1d(V, s_grid, S0, K, sigma, r, q, T, is_call, american):
+def _readout_1d(V, s_grid, S0, K, sigma, r, q, T, is_call, american, price=None):
     """Price, grid delta and gamma, analytic theta and the early-exercise
     flag from the t=0 values; ``V``/``s_grid`` (..., n) with the other
-    arguments of the batch shape, ``is_call``/``american`` bool tensors."""
-    price, delta, gamma = grids.price_delta_gamma(s_grid, V, S0)
+    arguments of the batch shape, ``is_call``/``american`` bool tensors.
+    A given ``price`` overrides the bracketing interpolation (the
+    reference_compat readout)."""
+    interp, delta, gamma = grids.price_delta_gamma(s_grid, V, S0)
+    price = interp if price is None else price
 
     # analytic BS theta at S0 (black_scholes_pde.hpp:314-331)
     d1 = (torch.log(S0 / K) + (r - q + 0.5 * sigma * sigma) * T) / (sigma * torch.sqrt(T))
@@ -87,6 +99,140 @@ def _readout_1d(V, s_grid, S0, K, sigma, r, q, T, is_call, american):
                             torch.clamp_min(K - S0, 0.0))
     early_ex = american & (price > payoff_s0 + 1e-10)
     return price, delta, gamma, theta, early_ex
+
+
+def _solve_impl(S0, sigma, r, q, T, K, s_min_mult, s_max_mult, n_space, n_time,
+                is_call, american, scheme, american_method="projection",
+                psor_iterations=60, reference_compat=False):
+    """The backward march of one option; ``S0``..``K`` are 0-d tensors of
+    one dtype on one device, the rest Python values."""
+    n = n_space
+    s_grid = torch.exp(grids.linspace(torch.log(K * s_min_mult),
+                                      torch.log(K * s_max_mult), n))
+    dx = torch.log(s_grid[-1] / s_grid[0]) / (n - 1)
+    dt = T / n_time
+    payoff = (torch.clamp_min(s_grid - K, 0.0) if is_call
+              else torch.clamp_min(K - s_grid, 0.0))
+    L_m, L_c, L_p = _operator_coeffs(BSPDEParams(sigma=sigma, r=r, q=q), dx)
+
+    # implicit system diagonals (boundary rows are identity rows); the
+    # theta-scheme weight on the implicit side: CN 1/2, implicit Euler 1,
+    # explicit Euler 0 (pde_core.hpp:186)
+    idx = torch.arange(n, device=s_grid.device)
+    is_interior = (idx > 0) & (idx < n - 1)
+    w = {"crank_nicolson": 0.5, "implicit": 1.0, "explicit": 0.0}[scheme]
+    diag = torch.where(is_interior, 1.0 - w * dt * L_c, 1.0)
+    lower = torch.where(is_interior[1:], -w * dt * L_m, 0.0)
+    upper = torch.where(is_interior[:-1], -w * dt * L_p, 0.0)
+    zero = torch.zeros_like(diag[:1])
+    if reference_compat:
+        # the reference zeroes A[1,0] and A[n-2,n-1] after assembly
+        # (black_scholes_pde.hpp:250-254), so rows 1 and n-2 lose their
+        # implicit coupling to the Dirichlet rows
+        lower = torch.cat([zero, lower[1:]])
+        upper = torch.cat([upper[:-1], zero])
+
+    def explicit_rhs(V):
+        """(I + (1-w) dt L) V on interior points."""
+        if w == 1.0:
+            return V
+        LV = L_m * V[:-2] + L_c * V[1:-1] + L_p * V[2:]
+        return torch.cat([V[:1], V[1:-1] + (1.0 - w) * dt * LV, V[-1:]])
+
+    def apply_bc(V, tau):
+        """Dirichlet values at time-to-expiry ``tau``: discounted over tau
+        with the dividend discount on the S leg, or with
+        ``reference_compat`` the reference's calendar-time discount
+        (black_scholes_pde.hpp:127) and no dividend discount."""
+        if reference_compat:
+            df_r = torch.exp(-r * (T - tau))
+            df_q = torch.ones_like(df_r)
+        else:
+            df_r = torch.exp(-r * tau)
+            df_q = torch.exp(-q * tau)
+        if is_call:
+            ends = (zero, (s_grid[-1] * df_q - K * df_r)[None])
+        else:
+            ends = ((K * df_r - s_grid[0] * df_q)[None], zero)
+        return torch.cat([ends[0], V[1:-1], ends[1]])
+
+    psor = american and american_method == "psor"
+    brennan = american and american_method == "brennan_schwartz"
+    on_kernel = not (psor or brennan) and kernel_route(diag, lower, upper, payoff)
+    if brennan:
+        # put: exercise region at low S (sweep from the left); call: high S
+        factors = lcp.brennan_schwartz_factor(lower, diag, upper, reverse=bool(is_call))
+    elif not (psor or on_kernel):
+        factors = thomas_factor(lower, diag, upper)
+
+    V = payoff
+    for k in range(1, n_time + 1):
+        tau = dt * float(k)
+        rhs = explicit_rhs(V)
+        if psor:
+            V, _ = lcp.projected_sor(lower, diag, upper, rhs, payoff, x0=V,
+                                     n_iter=psor_iterations)
+        elif brennan:
+            V = lcp.brennan_schwartz_apply(factors, rhs, payoff)
+        elif on_kernel:
+            V = tridiagonal_solve(lower, diag, upper, rhs[None])[0]
+        else:
+            V = thomas_solve_factored(factors, rhs)
+        if reference_compat:
+            # the reference's step order (black_scholes_pde.hpp:117-127):
+            # American projection first, Dirichlet overwrite last (unfloored)
+            if american:
+                V = torch.maximum(V, payoff)
+            V = apply_bc(V, tau)
+        else:
+            V = apply_bc(V, tau)
+            if american:
+                # after the Dirichlet overwrite, so the boundary rows are
+                # floored at intrinsic too
+                V = torch.maximum(V, payoff)
+
+    price = None
+    if reference_compat:
+        # the reference's readout defect (pde_core.hpp:101-133): the NEAREST
+        # grid point, then always the segment [i-1, i], which extrapolates
+        # from the wrong segment when the nearest point lies left of S0
+        i_lo = torch.clamp(torch.searchsorted(s_grid, S0[None], right=True)[0] - 1,
+                           0, n - 2)
+        nearest = torch.where(S0 - s_grid[i_lo] < s_grid[i_lo + 1] - S0, i_lo, i_lo + 1)
+        i = torch.clamp(nearest, 1, n - 2)
+        t = (S0 - s_grid[i - 1]) / (s_grid[i] - s_grid[i - 1])
+        price = (1.0 - t) * V[i - 1] + t * V[i]
+    flag = lambda b: torch.as_tensor(bool(b), device=V.device)  # noqa: E731
+    price, delta, gamma, theta, early = _readout_1d(
+        V, s_grid, S0, K, sigma, r, q, T, flag(is_call), flag(american), price=price)
+    return BSPDEResult(price, delta, gamma, theta, V, s_grid, early)
+
+
+def solve(params: BSPDEParams, S0, device=None, dtype=None) -> BSPDEResult:
+    """Solve the BS PDE and return price/Greeks at ``S0``.
+
+    Runs on ``device`` (default: the CUDA card) in ``dtype`` (default: the
+    dtype of the tensors among the parameters and ``S0``, else torch's
+    default float).
+    """
+    if params.sigma <= 0:
+        raise ValueError("sigma must be positive")
+    if params.T <= 0:
+        raise ValueError("T must be positive")
+    if params.K <= 0:
+        raise ValueError("K must be positive")
+    if params.n_space < 10 or params.n_time < 10:
+        raise ValueError("n_space and n_time must be >= 10")
+    if params.scheme not in ("crank_nicolson", "implicit", "explicit"):
+        raise ValueError(f"unknown scheme {params.scheme!r}")
+    device = resolve_device(device)
+    floats = (S0, params.sigma, params.r, params.q, params.T, params.K)
+    f = dtype or result_dtype(*floats)
+    return _solve_impl(
+        *(to_tensor(a, f, device) for a in floats), params.s_min_mult,
+        params.s_max_mult, params.n_space, params.n_time, bool(params.is_call),
+        bool(params.american), params.scheme, params.american_method,
+        params.psor_iterations, bool(params.reference_compat))
 
 
 def _march_inputs(sigma, r, q, T, K, call_f, amer_f, n_space, n_time,

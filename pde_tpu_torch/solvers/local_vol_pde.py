@@ -106,9 +106,8 @@ def solve(
     K = to_tensor(K, dt_, device)
     T = to_tensor(T, dt_, device)
     w = _W[scheme]
-    lo, hi = torch.log(K * s_min_mult), torch.log(K * s_max_mult)
-    step = torch.arange(n_space, dtype=dt_, device=device) / (n_space - 1)
-    s_grid = torch.exp(lo * (1.0 - step) + hi * step)
+    s_grid = torch.exp(grids.linspace(torch.log(K * s_min_mult),
+                                      torch.log(K * s_max_mult), n_space))
     dx = torch.log(s_grid[-1] / s_grid[0]) / (n_space - 1)
     dt = T / n_time
 

@@ -1,13 +1,19 @@
-"""The port's Black-Scholes fused book held against ``pde_tpu``.
+"""The port's Black-Scholes solvers held against ``pde_tpu``.
 
 K4 (``fused_cn_march_1d``): the JAX Pallas kernel in interpret mode against
 the port's plain twin on identical seeded inputs, then the whole
 ``solve_fused_batch`` in both packages.  Both march in float32 in the same
 step order with the same factorisation (a true divide in both), so the
 gate is the repo's float32 variant gate, rtol 2e-5 / atol 2e-5
-(tests/test_solvers.py:307-309).  The CUDA kernel itself runs only on the
-card: tests/test_torch_cuda.py.
+(tests/test_solvers.py:307-309).  ``solve`` (the scan route, every scheme
+and American method) in float64 at 1e-8, the same recurrences in the same
+order; ``reference_compat`` against the reference engine's golden values
+at the tolerances of tests/test_golden_pde.py.  The CUDA kernels
+themselves run only on the card: tests/test_torch_cuda.py.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -15,8 +21,13 @@ import torch
 
 from pde_tpu.ops import cn1d_fused as jops
 from pde_tpu.solvers import bs_pde as jbs
+from pde_tpu_torch import interop
 from pde_tpu_torch.ops import cn1d_fused as tops
 from pde_tpu_torch.solvers import bs_pde as tbs
+
+with open(os.path.join(os.path.dirname(__file__), "golden",
+                       "reference_pde_values.json")) as fh:
+    GOLD = json.load(fh)
 
 GATE = dict(rtol=2e-5, atol=2e-5)
 FIELDS = ("price", "delta", "gamma", "theta", "prices", "spot_grid")
@@ -102,3 +113,60 @@ def test_solve_fused_batch_rejections():
         tbs.solve_fused_batch(*args, scheme="explicit", device="cpu")
     with pytest.raises(ValueError, match=">= 10"):
         tbs.solve_fused_batch(*args, n_space=8, device="cpu")
+
+
+SOLVE_CASES = [(scheme, american, method)
+               for scheme in ("crank_nicolson", "implicit", "explicit")
+               for american, method in ((False, "projection"), (True, "projection"),
+                                        (True, "psor"), (True, "brennan_schwartz"))]
+
+
+@pytest.mark.parametrize("scheme,american,method", SOLVE_CASES)
+def test_solve_matches_reference_f64(scheme, american, method):
+    """solve: every scheme x American method, float64, 1e-8."""
+    p = jbs.BSPDEParams(sigma=0.25, r=0.06, q=0.01, T=0.5, K=100.0, is_call=False,
+                        american=american, american_method=method, n_space=40,
+                        n_time=200 if scheme == "explicit" else 20, scheme=scheme)
+    want = jbs.solve(p, 95.0)
+    got = tbs.solve(interop.bs_pde_params(p), 95.0, device="cpu")
+    assert got.prices.dtype == torch.float64
+    for f in ("price", "delta", "gamma", "theta", "prices", "spot_grid"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   rtol=1e-8, atol=1e-8, err_msg=f)
+    assert bool(got.early_exercise_optimal) == bool(want.early_exercise_optimal)
+
+
+BS_COMPAT = tbs.BSPDEParams(sigma=0.2, r=0.05, q=0.02, T=1.0, K=100.0, is_call=True,
+                            reference_compat=True)
+
+
+@pytest.mark.parametrize("case", ["euro_call", "euro_put", "amer_put", "off_strike"])
+def test_reference_compat_matches_golden(case):
+    """reference_compat=True reproduces the reference C++ engine's values
+    (tests/golden/reference_pde_values.json) as tests/test_golden_pde.py
+    holds the JAX package to them: 1e-10 absolute."""
+    solve = lambda p, s0: tbs.solve(p, s0, device="cpu", dtype=torch.float64)  # noqa: E731
+    near = lambda x, key: x == pytest.approx(GOLD[key], abs=1e-10)  # noqa: E731
+    if case == "euro_call":
+        r = solve(BS_COMPAT, 100.0)
+        for f in ("price", "delta", "gamma", "theta"):
+            assert near(float(getattr(r, f)), f"bs_pde_euro_call_{f}"), f
+    elif case == "euro_put":
+        assert near(float(solve(BS_COMPAT._replace(is_call=False), 100.0).price),
+                    "bs_pde_euro_put_price")
+    elif case == "amer_put":
+        r = solve(BS_COMPAT._replace(is_call=False, american=True, r=0.08), 100.0)
+        assert near(float(r.price), "bs_pde_amer_put_price")
+        assert bool(r.early_exercise_optimal) == bool(GOLD["bs_pde_amer_put_early"])
+    else:
+        p = BS_COMPAT._replace(is_call=False)
+        assert near(float(solve(p, 90.0).price), "bs_pde_euro_put_S90")
+        assert near(float(solve(p, 115.0).price), "bs_pde_euro_put_S115")
+
+
+def test_solve_rejections():
+    p = tbs.BSPDEParams()
+    for bad in (dict(sigma=0.0), dict(T=0.0), dict(K=-1.0), dict(n_space=8),
+                dict(scheme="leapfrog")):
+        with pytest.raises(ValueError):
+            tbs.solve(p._replace(**bad), 100.0, device="cpu")

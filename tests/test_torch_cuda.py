@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from pde_tpu_torch.models import local_vol
-from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused
-from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
+from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused, tridiag
+from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
 
 # kernel vs plain twin: both float32 with the same step order; only FMA
 # contraction differs
@@ -149,3 +149,113 @@ def test_bs_book_on_card_matches_cpu():
     for f in ("price", "delta", "gamma", "theta"):
         np.testing.assert_allclose(getattr(on_card, f).cpu().numpy(),
                                    getattr(on_cpu, f).numpy(), err_msg=f, **GATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["pcr_v", "pcr_s"])
+def test_k1_pcr_matches_plain(variant):
+    """K1's PCR sweeps against the plain twin's, IT-LCP and projection mixed."""
+    _need_cuda()
+    book = _book(33, 8)
+    args = heston_adi._broadcast_batch(*book.values(), "cuda")
+    kappa, theta, sigma, rho, _, r, q, T, K, call, _, amer = args
+    ins, _ = heston_adi._march_inputs(kappa, theta, sigma, rho, r, q, T, K, call,
+                                      amer, 40, 20, 20, 0.2, 5.0, 1.0)
+    k1 = adi_fused.fused_douglas_march_batched
+    before = getattr(k1, "launches_" + variant)
+    for use_it in (False, True):
+        got = k1(*ins, 40, 20, 20, use_it=use_it, **{variant: True})
+        want = adi_fused._fused_douglas_march_batched_plain(*ins, 40, 20, 20, use_it,
+                                                            **{variant: True})
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+    assert getattr(k1, "launches_" + variant) == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [{}, dict(is_call=False, american=True, r=0.08, q=0.0),
+                                  dict(is_call=False, american=True, r=0.08, q=0.0,
+                                       american_method="it_lcp")])
+def test_k2_matches_plain(case):
+    """K2 against its plain twin; both round every operation alike."""
+    _need_cuda()
+    p = heston_adi.HestonPDEParams(q=0.02, n_spot=40, n_vol=20, n_time=20)._replace(**case)
+    t = lambda k: torch.tensor(float(getattr(p, k)), device="cuda")  # noqa: E731
+    args, _ = heston_adi._fused_inputs(p, *(t(k) for k in ("kappa", "theta", "sigma", "rho",
+                                                           "r", "q", "T", "K")))
+    before = adi_fused.fused_douglas_march.launches
+    got = adi_fused.fused_douglas_march(*args, 40, 20, 20)
+    want = adi_fused._fused_douglas_march_plain(*adi_fused._stack_single(*args), 40, 20, 20)
+    torch.cuda.synchronize()
+    assert adi_fused.fused_douglas_march.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+def _tridiagonal(B, n, seed, dev="cuda"):
+    """Seeded diagonally dominant systems (B, n) in float32 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return (t(rng.uniform(-1, 0, (B, n - 1))), t(2.5 + rng.uniform(0, 1, (B, n))),
+            t(rng.uniform(-1, 0, (B, n - 1))), t(rng.normal(size=(B, n))),
+            t(rng.uniform(-0.5, 0.5, (B, n))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(300, 64), (5, 200)])
+def test_k5_matches_plain(B, n):
+    """K5 through tridiagonal_solve's kernel branch against its twin."""
+    _need_cuda()
+    lower, diag, upper, rhs, _ = _tridiagonal(B, n, 9)
+    before = tridiag.thomas_batched.launches
+    got = tridiag.tridiagonal_solve(lower, diag, upper, rhs)
+    want = tridiag._thomas_batched_plain(lower, diag, upper, rhs)
+    torch.cuda.synchronize()
+    assert tridiag.thomas_batched.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_x0", [False, True])
+def test_k6_matches_plain(with_x0):
+    """K6 against its plain twin, the port's projected_sor in float32."""
+    _need_cuda()
+    lower, diag, upper, b, g = _tridiagonal(64, 100, 10)
+    x0 = 0.5 * b if with_x0 else None
+    before = lcp.projected_sor_batched.launches
+    got, resid = lcp.projected_sor_batched(lower, diag, upper, b, g, n_iter=80, x0=x0)
+    want, _ = lcp._projected_sor(lower, diag, upper, b, g, x0, 1.5, 80)
+    torch.cuda.synchronize()
+    assert lcp.projected_sor_batched.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+    assert float(resid) < 1e-2
+
+
+@pytest.mark.cuda
+def test_heston_solve_on_card_matches_cpu():
+    """heston_adi.solve with its sweeps on K5 (card) and on the factored
+    Thomas solve (CPU), both float32."""
+    _need_cuda()
+    p = heston_adi.HestonPDEParams(q=0.02, n_spot=40, n_vol=20, n_time=20)
+    before = tridiag.thomas_batched.launches
+    on_card = heston_adi.solve(p, 100.0, device="cuda")
+    assert tridiag.thomas_batched.launches > before
+    on_cpu = heston_adi.solve(p, 100.0, device="cpu")
+    for f in ("price", "delta", "gamma", "vega"):
+        np.testing.assert_allclose(float(getattr(on_card, f)), float(getattr(on_cpu, f)),
+                                   err_msg=f, **GATE)
+
+
+@pytest.mark.cuda
+def test_bs_solve_psor_on_card_matches_cpu():
+    """bs_pde.solve(american_method="psor") with each step's LCP on K6
+    (card) and on the tensor-op sweeps (CPU), both float32."""
+    _need_cuda()
+    p = bs_pde.BSPDEParams(is_call=False, american=True, american_method="psor",
+                           n_space=64, n_time=20)
+    before = lcp.projected_sor_batched.launches
+    on_card = bs_pde.solve(p, 100.0, device="cuda")
+    assert lcp.projected_sor_batched.launches == before + 20
+    on_cpu = bs_pde.solve(p, 100.0, device="cpu")
+    for f in ("price", "delta", "gamma", "theta"):
+        np.testing.assert_allclose(float(getattr(on_card, f)), float(getattr(on_cpu, f)),
+                                   err_msg=f, **GATE)

@@ -12,7 +12,7 @@ import torch
 
 from pde_tpu_torch.calibrate.heston import HestonCalibrator
 from pde_tpu_torch.calibrate.sabr import SABRCalibrator
-from pde_tpu_torch.core import precision
+from pde_tpu_torch.core import grids, precision
 from pde_tpu_torch.models import heston, local_vol
 from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
 
@@ -26,6 +26,9 @@ def _flat(s, t):
     return torch.full_like(s, 0.2)
 
 
+_HP = heston_adi.HestonPDEParams(n_spot=8, n_vol=5, n_time=2)
+
+
 ENTRY_POINTS = {
     "HestonCalibrator": lambda: HestonCalibrator(),
     "generate_synthetic_data": lambda: HestonCalibrator.generate_synthetic_data(
@@ -33,6 +36,16 @@ ENTRY_POINTS = {
     "heston_adi.solve_fused_batch": lambda: heston_adi.solve_fused_batch(
         2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, 1.0, 100.0, 1.0, 100.0,
         n_spot=8, n_vol=5, n_time=2),
+    "heston_adi.solve": lambda: heston_adi.solve(_HP, 100.0),
+    "heston_adi.solve_fused": lambda: heston_adi.solve_fused(_HP, 100.0),
+    "heston_adi.solve_batch": lambda: heston_adi.solve_batch(
+        2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, 1.0, [90.0, 110.0], True, 100.0,
+        n_spot=8, n_vol=5, n_time=2),
+    "heston_adi.greeks_ad": lambda: heston_adi.greeks_ad(
+        2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, 1.0, 100.0, True, 100.0,
+        n_spot=8, n_vol=5, n_time=2),
+    "bs_pde.solve": lambda: bs_pde.solve(bs_pde.BSPDEParams(n_space=12, n_time=10), 100.0),
+    "grids.uniform_grid": lambda: grids.uniform_grid(0.0, 1.0, 5),
     "local_vol_pde.solve": lambda: local_vol_pde.solve(
         _flat, 100.0, K=100.0, T=1.0, n_space=12, n_time=2),
     "local_vol_pde.solve_fused": lambda: local_vol_pde.solve_fused(
@@ -53,6 +66,14 @@ ENTRY_POINTS = {
 def test_entry_point_without_device_needs_the_card(no_card, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+def test_uniform_grid_takes_the_device_it_is_given():
+    """uniform_grid has no tensor inputs: device=None means the card, and
+    the CPU only when asked for."""
+    grid = grids.uniform_grid(0.0, 1.0, 5, dtype=torch.float64, device="cpu")
+    assert grid.device.type == "cpu" and grid.dtype == torch.float64
+    assert float(grid[-1]) == 1.0
 
 
 def test_default_device_is_the_first_card(monkeypatch):

@@ -80,7 +80,7 @@ class TestGrids:
         want = [float(jgrids.interp_bilinear(xg[b], yg, vals[b], x[b], y[b]))
                 for b in range(3)]
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
-        assert tgrids.uniform_grid(0.0, 1.0, 5, dtype=F64).dtype == F64
+        assert tgrids.uniform_grid(0.0, 1.0, 5, dtype=F64, device="cpu").dtype == F64
 
 
 class TestBlackScholes:

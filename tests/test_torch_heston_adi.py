@@ -119,9 +119,31 @@ def test_solve_fused_batch_rejections():
     kw = dict(n_spot=16, n_vol=8, n_time=4, device="cpu")
     with pytest.raises(ValueError):
         ta.solve_fused_batch(*args, american=1.0, american_method="psor", **kw)
+    # the PCR sweep variants are ported: they price, they do not raise
     for flag in ("pcr_v", "pcr_s"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ta.solve_fused_batch(*args, **kw, **{flag: True})
+        assert bool(torch.isfinite(ta.solve_fused_batch(*args, **kw, **{flag: True}).price))
+
+
+@pytest.mark.parametrize("variant", [dict(pcr_v=True), dict(pcr_s=True),
+                                     dict(pcr_v=True, pcr_s=True)])
+def test_pcr_variants_match_reference(variant):
+    """K1's PCR sweeps (level coefficients once, two multiply-adds a level
+    each step) in both packages on the mixed book of
+    tests/test_solvers.py:288-309, at its 2e-5 variant gate."""
+    kw = dict(n_spot=32, n_vol=16, n_time=8)
+    K = np.array([90.0, 100.0, 110.0, 100.0])
+    T = np.array([0.5, 1.0, 1.5, 1.0])
+    is_call = np.array([1.0, 0.0, 1.0, 0.0])
+    amer = np.array([0.0, 1.0, 0.0, 1.0])
+    args = (2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, T, K, is_call, 100.0)
+    want = ja.solve_fused_batch(*args, american=amer, interpret=True, **kw, **variant)
+    got = ta.solve_fused_batch(*args, american=amer, device="cpu", **kw, **variant)
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   err_msg=f, **GATE)
+    np.testing.assert_allclose(got.prices.numpy(), np.asarray(want.prices), **GATE)
+    base = ta.solve_fused_batch(*args, american=amer, device="cpu", **kw)
+    np.testing.assert_allclose(got.price.numpy(), base.price.numpy(), **GATE)
 
 
 def test_kernel_variant_resolves_from_callers_flags():

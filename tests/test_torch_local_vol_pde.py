@@ -191,3 +191,20 @@ def test_low_vol_high_rate_book():
     assert np.all(np.isfinite(fused.price.numpy()))
     np.testing.assert_allclose(fused.price.numpy(), scan.price.numpy(), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(scan.price.numpy(), np.asarray(want.price), **BOOK_GATE)
+
+
+def test_solve_differentiates_in_s0_and_r(rng):
+    """local_vol_pde.solve is differentiable by autograd (its Thomas solves
+    write no tensor that is read later): d price / d S0 and d price / d r
+    in float64 against jax.grad of the reference's solve, 1e-8 relative."""
+    Ks, Ts, grid = _grid(rng, np.float64)
+    jint = jlv.SurfaceInterpolator(jnp.asarray(Ks), jnp.asarray(Ts), jnp.asarray(grid))
+    kw = dict(K=100.0, T=1.0, q=Q, is_call=False, n_space=40, n_time=16)
+    want = jax.grad(lambda s0, r: jpde.solve(jint, s0, r=r, **kw).price, argnums=(0, 1))(
+        S0, R)
+    s0, r = (torch.tensor(a, dtype=torch.float64, requires_grad=True) for a in (S0, R))
+    price = tpde.solve(interop.surface_interpolator(jint), s0, r=r, device="cpu",
+                       dtype=torch.float64, **kw).price
+    got = torch.autograd.grad(price, (s0, r))
+    np.testing.assert_allclose([float(g) for g in got], [float(w) for w in want], rtol=1e-8)
+    assert float(got[0]) < 0  # a put falls with the spot

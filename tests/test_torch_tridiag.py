@@ -2,17 +2,25 @@
 
 Seeded, diagonally dominant systems go through both packages in float64.
 Both run the same recurrences in the same order, so the gate is 1e-12
-(relative, on solutions of order one): round-off only.
+(relative, on solutions of order one): round-off only.  Gradients through
+the Thomas solvers match ``jax.grad`` at 1e-10 relative.  The batched
+Thomas kernel's plain twin (K5) is held against the reference's Pallas
+kernel in interpret mode at its own float32 gate.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from pde_tpu.ops import tridiag as jt
 from pde_tpu_torch.ops import tridiag as tt
 
 GATE = dict(rtol=1e-12, atol=1e-12)
+# float32 kernel twin vs the reference kernel (tests/test_tridiag.py:190)
+K5_GATE = dict(rtol=2e-4, atol=2e-4)
 
 
 def _system(rng, batch, n, shared_bands=False):
@@ -80,8 +88,75 @@ def test_tridiagonal_solve_dispatch(rng):
 
 def test_k5_branch_is_not_ported(rng):
     """The batched Thomas kernel branch (the reference's thomas_pallas, K5)
-    raises rather than falling back."""
-    sys_ = tuple(torch.as_tensor(a, dtype=torch.float32)
-                 for a in _system(rng, (4,), 12))
-    with pytest.raises(NotImplementedError, match="K5 thomas_pallas not ported yet"):
-        tt.tridiagonal_solve(*sys_, use_kernel=True)
+    runs its plain twin on a CPU tensor, held against thomas_pallas in
+    interpret mode (tests/test_tridiag.py:179-190) and counting no launch.
+    The name dates from when this branch raised, before K5 was ported."""
+    B, n = 70, 40
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    sys_ = (f32(rng.uniform(-1, 1, (B, n - 1))), f32(4.0 + rng.uniform(0, 1, (B, n))),
+            f32(rng.uniform(-1, 1, (B, n - 1))), f32(rng.uniform(-2, 2, (B, n))))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt.thomas_pallas(*map(jnp.asarray, sys_)))
+    before = tt.thomas_batched.launches
+    got = tt.tridiagonal_solve(*_t(*sys_), use_kernel=True)
+    assert got.shape == (B, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **K5_GATE)
+    np.testing.assert_array_equal(got.numpy(), tt.thomas_batched(*_t(*sys_)).numpy())
+    assert tt.thomas_batched.launches == before
+
+
+def test_kernel_branch_broadcasts_shared_bands(rng):
+    """Shared 1-D bands (heston_adi's v sweep) are broadcast to one set per
+    system before the kernel (tests/test_tridiag.py:203-220)."""
+    B, n = 6, 24
+    lower, upper = rng.uniform(-1, 1, n - 1), rng.uniform(-1, 1, n - 1)
+    diag = 4 + rng.uniform(0, 1, n)
+    rhs = rng.uniform(-1, 1, (B, n)).astype(np.float32)
+    want = np.asarray(jt.thomas(lower, diag, upper, rhs))
+    got = tt.tridiagonal_solve(*(torch.as_tensor(a, dtype=torch.float32)
+                                 for a in (lower, diag, upper)),
+                               torch.as_tensor(rhs), use_kernel=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-5)
+
+
+def test_thomas_batched_rejects_bad_inputs(rng):
+    sys_ = [torch.as_tensor(a, dtype=torch.float32) for a in _system(rng, (3,), 8)]
+    with pytest.raises(ValueError):  # wrong shape
+        tt.thomas_batched(sys_[0][:, :-1], *sys_[1:])
+    with pytest.raises(ValueError):  # float64
+        tt.thomas_batched(*sys_[:3], sys_[3].double())
+    with pytest.raises(ValueError):  # neither a CUDA nor a CPU tensor
+        tt.thomas_batched(*(a.to("meta") for a in sys_))
+
+
+def _weights(rng, shape):
+    return rng.normal(size=shape)
+
+
+@pytest.mark.parametrize("fn", ["thomas", "thomas_factor", "thomas_solve_factored"])
+def test_gradients_match_jax(rng, fn):
+    """torch.autograd through each Thomas function against jax.grad of the
+    same weighted sum, float64, for the bands and the right-hand side."""
+    B, n = 3, 9
+    lower, diag, upper, rhs = _system(rng, (B,), n)
+    w = _weights(rng, (2, B, n))
+
+    def loss(mod, lo, di, up, b, to):
+        if fn == "thomas":
+            return (to(w[0]) * mod.thomas(lo, di, up, b)).sum()
+        factors = mod.thomas_factor(lo, di, up)
+        if fn == "thomas_factor":
+            return (to(w[0]) * factors.cp).sum() + (to(w[1]) * factors.inv_m).sum()
+        return (to(w[0]) * mod.thomas_solve_factored(factors, b)).sum()
+
+    # float64: the suite runs JAX with jax_enable_x64 (tests/conftest.py)
+    want = jax.grad(lambda *a: loss(jt, *a, jnp.asarray), argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (lower, diag, upper, rhs)))
+    args = [torch.as_tensor(a).requires_grad_() for a in (lower, diag, upper, rhs)]
+    got = torch.autograd.grad(loss(tt, *args, torch.as_tensor), args, allow_unused=True)
+    for name, g, h in zip(("lower", "diag", "upper", "rhs"), got, want):
+        if fn == "thomas_factor" and name == "rhs":
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(h), rtol=1e-10, atol=1e-14,
+                                   err_msg=name)
