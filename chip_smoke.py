@@ -7,17 +7,25 @@ checks every result:
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the paths, compiled from
    ``pde_tpu_torch/csrc`` (one ``nvcc`` per source, all started together),
-   with each kernel's registers and spills;
+   with each kernel's registers and spills, and the dynamic shared memory
+   per block of K1's and K3's redesigned routes at the bench shapes;
 3. kernel vs plain, each kernel against its plain PyTorch twin on the same
    inputs on the card, and both timed at the bench shape:
    - K1, the fused Douglas march (European, American projection, American
-     Ikonen-Toivanen; B = 512, 130 and 1), and its PCR sweeps (pcr_v,
-     pcr_s, both; B = 512);
+     Ikonen-Toivanen): its shared-memory route at 100x50 (B = 512, 130, 37
+     and 1) and at 16x8 and 40x20 (B = 130, 37 and 1), its first design at
+     100x50 (B = 512, 130 and 1) and on a grid too large for the other route
+     (200x100, B = 37), each public call checked to have taken its route;
+     and its PCR sweeps (pcr_v, pcr_s, both; B = 512);
    - K2, the single-option fused march at 100x50x100 (European call,
      American put by projection and by Ikonen-Toivanen);
    - K3, the time-varying CN march, on bands from the port's own lattice
-     builder on the bench's Dupire surface (B = 256, 37 and 1; European and
-     mixed American; w = 0.5 and 1);
+     builder on the bench's Dupire surface: its warp route at n = 200, 3
+     and 33 (so that a lane's chunk may hold one row or none; B = 256, 37,
+     7 and 1), its first design at n = 200 (B = 256, 37 and 1) and on a
+     lattice too long for the warp route (n = 520, B = 37), each public call
+     checked to have taken its route; European and mixed American; w = 0.5
+     and 1;
    - K4, the constant-coefficient CN march (B = 512, 130 and 1; European
      and mixed American; w = 0.5 and 1);
    - K5, the batched Thomas solve, on the Black-Scholes book's per-step
@@ -52,12 +60,17 @@ checks every result:
     float32 batch (K5); ``lcp.projected_sor_batched`` (K6).
 
 Each main path (4-10) runs with every kernel's launch count set to 0 just
-before it and read just after; a path whose kernel never launched fails.
+before it and read just after; a path whose kernel never launched fails,
+and so do the two books and the 108-option surface if K1's or K3's
+redesigned route (``launches_smem``) never launched.
 While they run, the first input set of each shape that each path hands K5
 and K6 is kept; afterwards both kernels are held against their plain twins
 on those very inputs, and timed at the shapes of the path whose launches
 the kernel line reports (K5: ``heston_adi.solve``; K6: ``bs_pde.solve`` by
-PSOR).  Each phase prints one JSON line; then the kernel table, the card's
+PSOR).  Last, outside the counted paths, the 108-option surface and the
+512-book run through K1's shared-memory route and its first design in
+turns, and each route's options/s is printed.
+Each phase prints one JSON line; then the kernel table, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  Run from the
 repository root with no arguments:
@@ -84,9 +97,10 @@ TRUE = dict(kappa=2.0, theta=0.04, sigma=0.3, rho=-0.7, v0=0.04)
 GRID = dict(n_spot=100, n_vol=50, n_time=100)
 BOOK_B = 512
 BUDGET = dict(global_maxiter=100, global_popsize=15, local_max_iter=60)
-# kernel vs plain: both float32 with the same step order; only FMA
-# contraction differs (K1; the 1D marches are built without it), and its
-# error grows over the 100 steps
+# kernel vs plain: both float32 with the same step order; K1 and K3 keep
+# FMA contraction (the others are built without it) and compose the values
+# entering each lane's chunk of a sweep in another order; the error grows
+# over the 100 steps
 RTOL, ATOL = 1e-4, 1e-5
 # the local-vol and Black-Scholes rows (bench.py:138-167, bench_full.py:847-863)
 LV_R, LV_Q = 0.04, 0.01
@@ -214,34 +228,50 @@ def book(torch, dev, B, american, grid):
 
 
 def phase_kernel(torch, dev, grid=GRID, B=BOOK_B, plain_reps=3, kernel_reps=20):
-    """The fused march against its plain twin on identical inputs."""
+    """The fused march against its plain twin on identical inputs: the
+    shared-memory route at the bench grid and at ragged batches and grids,
+    the first design where it ran before that route existed (the bench grid,
+    B = 512, 130 and 1) and on a grid too large for that route (200x100).
+    Both designs are timed at the bench shape."""
     from pde_tpu_torch.ops import adi_fused
 
     march = adi_fused.fused_douglas_march_batched
     plain = adi_fused._fused_douglas_march_batched_plain
+    first = lambda *a, use_it=False: adi_fused._launch(*a, use_it, False, False)  # noqa: E731
     size = (grid["n_spot"], grid["n_vol"], grid["n_time"])
-    cases = []
-    for b in (B, 130, 1):
+    cases = [(b, size) for b in (B, 130, 37, 1)]
+    cases += [(b, (nS, nv, size[2])) for nS, nv in ((16, 8), (40, 20)) for b in (130, 37, 1)]
+    worst = 0.0
+    for b, sz in cases + [(37, (200, 100, size[2]))]:
         idx = torch.arange(b)
         mixed = (idx % 3 == 0).float()
-        cases += [(b, "european", torch.zeros(b), False),
-                  (b, "american_projection", mixed, False),
-                  (b, "american_it", mixed, True)]
-    worst = 0.0
-    for b, name, amer, use_it in cases:
-        args = book(torch, dev, b, amer, grid)
-        V = march(*args, *size, use_it=use_it)
-        P = plain(*args, *size, use_it)
-        worst = max(worst, compare(torch, dev, V, P, kernel="K1", B=b, case=name))
+        for name, amer, use_it in (("european", torch.zeros(b), False),
+                                   ("american_projection", mixed, False),
+                                   ("american_it", mixed, True)):
+            smem = adi_fused._smem_plan(sz[0], sz[1], use_it) is not None
+            args = book(torch, dev, b, amer, dict(zip(GRID, sz)))
+            before = march.launches_smem
+            V = march(*args, *sz, use_it=use_it)
+            if (march.launches_smem > before) != smem:
+                raise AssertionError(f"K1 at {sz} did not take the "
+                                     f"{'shared-memory' if smem else 'first'} route")
+            P = plain(*args, *sz, use_it)
+            worst = max(worst, compare(torch, dev, V, P, kernel="K1", B=b, grid=list(sz),
+                                       route="smem" if smem else "first", case=name))
+            if smem and sz == size and b in (B, 130, 1):
+                V = first(*args, *sz, use_it=use_it)
+                worst = max(worst, compare(torch, dev, V, P, kernel="K1", B=b,
+                                           grid=list(sz), route="first", case=name))
 
     args = book(torch, dev, B, torch.zeros(B), grid)
-    before = march.launches
+    before = march.launches_smem
     ms = time_ms(torch, lambda: march(*args, *size), kernel_reps)
-    if march.launches <= before:
-        raise AssertionError("the kernel's launch count did not move")
+    if march.launches_smem <= before:
+        raise AssertionError("the kernel's shared-memory launch count did not move")
+    first_ms = time_ms(torch, lambda: first(*args, *size), kernel_reps)
     plain_ms = time_ms(torch, lambda: plain(*args, *size, False), plain_reps)
     emit(phase="kernel_timing", kernel="K1", B=B, grid=list(size), kernel_ms=ms,
-         plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
+         first_design_ms=first_ms, plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
          plain_options_per_s=B / plain_ms * 1e3)
     # per node and step (csrc/adi_fused_batched.cu): explicit rhs 20, S sweep
     # 5, rhs2 7, v sweep 5, floor 1 = 38 flops
@@ -284,7 +314,10 @@ def lv_book(torch, dev, B):
 
 
 def phase_k3(torch, dev, interp, grid=LV_GRID, B=LV_B, plain_reps=1, kernel_reps=20):
-    """K3 against its plain twin on bands from the port's lattice builder."""
+    """K3 against its plain twin on bands from the port's lattice builder:
+    the warp route at n = 200, 3 and 33, the first design at n = 200 (where
+    it ran before the warp route existed) and on a lattice too long for
+    that route (n = 520).  Both designs are timed at the bench shape."""
     from pde_tpu_torch.ops import cn1d_tv_fused
     from pde_tpu_torch.solvers import local_vol_pde
 
@@ -292,34 +325,53 @@ def phase_k3(torch, dev, interp, grid=LV_GRID, B=LV_B, plain_reps=1, kernel_reps
     plain = cn1d_tv_fused._fused_cn_march_1d_tv_plain
     n, nT = grid["n_space"], grid["n_time"]
 
-    def inputs(b, amer):
+    def inputs(b, amer, m=n):
         K, T, cf = lv_book(torch, dev, b)
-        return local_vol_pde._march_inputs(interp, K, T, cf, amer, LV_R, LV_Q, n, nT,
+        return local_vol_pde._march_inputs(interp, K, T, cf, amer, LV_R, LV_Q, m, nT,
                                            0.2, 5.0)[:3]
 
     worst = 0.0
-    for b in (B, 37, 1):
-        mixed = (torch.arange(b, device=dev) % 3 == 0).float()
-        for name, amer in (("european", torch.zeros(b, device=dev)),
-                           ("american_mixed", mixed)):
-            args = inputs(b, amer)
-            for w in (0.5, 1.0):
-                V = march(*args, n, nT, w)
-                P = plain(*args, n, nT, w)
-                worst = max(worst, compare(torch, dev, V, P, kernel="K3", B=b,
-                                           case=name, w=w))
+    long_n = 520   # over the warp route's 518 rows: the first design
+    for m, batches in ((n, (B, 37, 7, 1)), (3, (B, 37, 7, 1)), (33, (B, 37, 7, 1)),
+                       (long_n, (37,))):
+        warp = cn1d_tv_fused._smem_bytes(m) is not None
+        for b in batches:
+            mixed = (torch.arange(b, device=dev) % 3 == 0).float()
+            for name, amer in (("european", torch.zeros(b, device=dev)),
+                               ("american_mixed", mixed)):
+                args = inputs(b, amer, m)
+                for w in (0.5, 1.0):
+                    before = (march.launches, march.launches_smem)
+                    V = march(*args, m, nT, w)
+                    if (march.launches - before[0], march.launches_smem - before[1]) \
+                            != (1, int(warp)):
+                        raise AssertionError(f"K3 at n={m} did not take the "
+                                             f"{'warp' if warp else 'first'} route")
+                    P = plain(*args, m, nT, w)
+                    worst = max(worst, compare(torch, dev, V, P, kernel="K3", B=b, n=m,
+                                               route="warp" if warp else "first",
+                                               case=name, w=w))
+                    # the first design where it ran before the warp route
+                    # existed: the bench lattice, B = 256, 37 and 1
+                    if m == n and b != 7:
+                        V = cn1d_tv_fused._launch_first(*args, m, nT, w)
+                        worst = max(worst, compare(torch, dev, V, P, kernel="K3", B=b, n=m,
+                                                   route="first", case=name, w=w))
 
     args = inputs(B, torch.zeros(B, device=dev))
-    before = march.launches
+    before = march.launches_smem
     ms = time_ms(torch, lambda: march(*args, n, nT), kernel_reps)
-    if march.launches <= before:
-        raise AssertionError("K3's launch count did not move")
+    if march.launches_smem <= before:
+        raise AssertionError("K3's warp-route launch count did not move")
+    first_ms = time_ms(torch, lambda: cn1d_tv_fused._launch_first(*args, n, nT, 0.5),
+                       kernel_reps)
     plain_ms = time_ms(torch, lambda: plain(*args, n, nT, 0.5), plain_reps)
     emit(phase="kernel_timing", kernel="K3", B=B, grid=[n, nT], kernel_ms=ms,
-         plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
+         first_design_ms=first_ms, plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
          plain_options_per_s=B / plain_ms * 1e3)
-    # per node and step (csrc/cn1d_tv_fused.cu): explicit stencil and rhs 7,
-    # implicit rows 4, pivot 3, c and d 4, back substitution 2, floor 4 = 24
+    # per node and step, as the twin counts them (csrc/cn1d_tv_fused.cu):
+    # explicit stencil and rhs 7, implicit rows 4, pivot 3, c and d 4, back
+    # substitution 2, floor 4 = 24
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound=bound(nbytes(*args) + n * B * 4, 24.0 * n * nT * B))
 
@@ -933,6 +985,54 @@ def phase_heston_surface(torch, dev, reps=5):
         raise AssertionError("the 108-option surface failed its checks")
 
 
+def phase_k1_routes(torch, dev, reps=5):
+    """The 108-option surface and the 512-book through solve_fused_batch,
+    on K1's shared-memory route and on its first design, in turns (shared,
+    first, first, shared): options/s of each turn (median of ``reps`` warm
+    calls), the two routes' prices within 5e-4 of each other; and the host
+    microseconds of one uncached ``_smem_plan``, which the wrapper asks for
+    at every launch."""
+    import contextlib
+    from unittest import mock
+
+    from pde_tpu_torch.ops import adi_fused
+    from pde_tpu_torch.solvers import heston_adi
+
+    march = adi_fused.fused_douglas_march_batched
+    K, T, call = surface(torch, dev)
+    rows = {"heston_surface": (K, T, call.float()),
+            "fused_adi_book": (torch.linspace(85.0, 115.0, BOOK_B, device=dev),
+                               torch.linspace(0.25, 1.5, BOOK_B, device=dev),
+                               (torch.arange(BOOK_B, device=dev) % 2).float())}
+    ok = True
+    for row, (K, T, cf) in rows.items():
+        def run(K=K, T=T, cf=cf):
+            return heston_adi.solve_fused_batch(2.0, 0.04, 0.3, -0.7, 0.04, R, Q, T, K, cf,
+                                                S0, device=dev, **GRID)
+
+        per_s, price, took = {"smem": [], "first": []}, {}, {}
+        for route in ("smem", "first", "first", "smem"):
+            force = (mock.patch.object(adi_fused, "_smem_plan", lambda *a: None)
+                     if route == "first" else contextlib.nullcontext())
+            before = march.launches_smem
+            with force:
+                res, walls = timed_walls(torch, dev, run, reps)
+            took[route] = march.launches_smem > before
+            per_s[route].append(K.shape[0] / statistics.median(walls))
+            price[route] = res.price
+        diff = float((price["smem"] - price["first"]).abs().max())
+        row_ok = took["smem"] and not took["first"] and diff <= FUSED_ATOL
+        ok = ok and row_ok
+        emit(phase="k1_routes", row=row, B=int(K.shape[0]), options_per_s=per_s,
+             max_abs_price_smem_vs_first=diff, ok=row_ok)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        adi_fused._smem_plan.__wrapped__(GRID["n_spot"], GRID["n_vol"], False)
+    emit(phase="k1_smem_plan_host", uncached_us=(time.perf_counter() - t0) * 1e4)
+    if not ok:
+        raise AssertionError("K1's two routes disagree or did not take their routes")
+
+
 def phase_greeks(torch, dev, eps=1e-3):
     """greeks_ad in float64 at 60x30x40 against central differences of
     solve_batch (tests/test_solvers.py:327-344)."""
@@ -1177,16 +1277,24 @@ def main() -> None:
     built = build.load_libraries(*sources)
     emit(phase="build", seconds=time.perf_counter() - t0,
          ptxas={src: [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln]
-                for src, (_, log) in built.items()})
+                      if "entry function" in ln or "registers" in ln or "spill" in ln]
+                for src, (_, log) in built.items()},
+         # dynamic shared memory per block of the redesigned routes at the
+         # bench shapes (ptxas reports static shared memory only)
+         smem_bytes_per_block={
+             "K1 (100x50)": adi_fused._smem_plan(GRID["n_spot"], GRID["n_vol"], False)[3],
+             "K1 (100x50, use_it)": adi_fused._smem_plan(GRID["n_spot"], GRID["n_vol"],
+                                                         True)[3],
+             "K3 (n=200)": cn1d_tv_fused._smem_bytes(LV_GRID["n_space"])})
 
-    # each kernel's launch count: (wrapper, attribute); K1's PCR variants
-    # are counted apart from its launches of every kind
-    k1 = adi_fused.fused_douglas_march_batched
-    counters = {"K1": (k1, "launches"), "K1-pcr_v": (k1, "launches_pcr_v"),
-                "K1-pcr_s": (k1, "launches_pcr_s"),
+    # each kernel's launch count: (wrapper, attribute); the launches of K1's
+    # and K3's redesigned routes and of K1's PCR variants are counted apart
+    # from their launches of every kind
+    k1, k3 = adi_fused.fused_douglas_march_batched, cn1d_tv_fused.fused_cn_march_1d_tv
+    counters = {"K1": (k1, "launches"), "K1-smem": (k1, "launches_smem"),
+                "K1-pcr_v": (k1, "launches_pcr_v"), "K1-pcr_s": (k1, "launches_pcr_s"),
                 "K2": (adi_fused.fused_douglas_march, "launches"),
-                "K3": (cn1d_tv_fused.fused_cn_march_1d_tv, "launches"),
+                "K3": (k3, "launches"), "K3-smem": (k3, "launches_smem"),
                 "K4": (cn1d_fused.fused_cn_march_1d, "launches"),
                 "K5": (tridiag.thomas_batched, "launches"),
                 "K6": (lcp.projected_sor_batched, "launches")}
@@ -1218,15 +1326,16 @@ def main() -> None:
         return counts, out
 
     path(phase_calibration, torch, dev, torch.float32)
-    launches = {"K1": path(phase_book, torch, dev, needs=("K1",))[0]["K1"],
-                "K3": path(phase_local_vol_book, torch, dev, interp, needs=("K3",))[0]["K3"],
+    launches = {"K1": path(phase_book, torch, dev, needs=("K1", "K1-smem"))[0]["K1"],
+                "K3": path(phase_local_vol_book, torch, dev, interp,
+                           needs=("K3", "K3-smem"))[0]["K3"],
                 "K4": path(phase_bs_book, torch, dev, needs=("K4",))[0]["K4"]}
     path(phase_sabr, torch, dev)
     counts, scan = path(phase_heston_scan, torch, dev, needs=("K5",))
     launches["K5"] = counts["K5"]
     launches["K2"] = path(phase_heston_fused, torch, dev, scan, needs=("K2",))[0]["K2"]
     path(phase_heston_lcp, torch, dev, needs=("K5", "K2"))
-    path(phase_heston_surface, torch, dev, needs=("K5", "K1"))
+    path(phase_heston_surface, torch, dev, needs=("K5", "K1", "K1-smem"))
     path(phase_greeks, torch, dev)
     counts = path(phase_pcr_book, torch, dev, needs=("K1-pcr_v", "K1-pcr_s"))[0]
     launches.update({k: counts[k] for k in ("K1-pcr_v", "K1-pcr_s")})
@@ -1237,6 +1346,7 @@ def main() -> None:
     k6_inputs.close()
     measured.update(phase_path_inputs(torch, dev, k5_inputs, k6_inputs,
                                       "phase_heston_scan", "phase_bs_solve"))
+    phase_k1_routes(torch, dev)
     for k, err in bench_err.items():
         measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
 

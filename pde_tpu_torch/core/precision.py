@@ -9,8 +9,9 @@ Two operating modes, as in the reference package:
 
 Library code never flips global torch flags (no ``set_default_dtype``): it
 derives the working dtype from its tensor inputs via :func:`result_dtype`
-and takes the device from them via :func:`device_of`.  Python scalars are
-weakly typed, as in JAX: they never widen a tensor's dtype.
+and takes the device from them via :func:`device_of` (the card when no
+input is a tensor).  Python scalars are weakly typed, as in JAX: they
+never widen a tensor's dtype.
 
 Entry points (calibrators, solvers, surface builders) run on the card
 unless the caller asks for another device: ``device=None`` means
@@ -80,12 +81,15 @@ def resolve_device(device) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-def device_of(*args, default="cpu") -> torch.device:
-    """Device of the first tensor among ``args`` (``default`` if none)."""
+def device_of(*args, default=None) -> torch.device:
+    """Device of the first tensor among ``args``; with none,
+    ``resolve_device(default)``: the card unless ``default`` names another
+    device, so model functions called with plain numbers run on the card
+    (or raise without one) rather than quietly on the CPU."""
     for a in args:
         if isinstance(a, torch.Tensor):
             return a.device
-    return torch.device(default)
+    return resolve_device(default)
 
 
 def to_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:

@@ -10,25 +10,54 @@
 // PyTorch twin with the same step order is
 // pde_tpu_torch/ops/adi_fused.py:_fused_douglas_march_batched_plain.
 //
-// What bounds it on the H100: latency, not bandwidth or arithmetic.  Each
-// step runs two serial recurrences per line (forward sweep and back
-// substitution), nS long along S and nv long along v, and only one thread
-// per line works through them: at 100x50 that is 50 busy threads in the
-// S-sweep and 100 in the v-sweep, each waiting on a load and an FMA per
-// element.  The v-sweep also reads at stride nv (one thread per row i walks
-// j), so its loads do not coalesce.
+// Its least time on the H100 is 0.145 ms at 100x50x100, B = 512 (float32
+// operations; the bytes take less).  Each step runs two serial recurrences
+// per line (forward sweep and back substitution), nS long along S and nv
+// long along v.  Walked by one thread per line through device memory, as
+// the first design does, that is ~300 dependent links a step at ~500 ns
+// each: latency bound, ~100x the bound.
 //
-// What this design does about it: one thread block per option, so a
-// 512-option book puts ~4 independent blocks on each of the 132 SMs and the
-// scheduler hides one block's serial chains behind another's; the running
-// value of each recurrence stays in a register; the factorisation (c and
-// reciprocal pivots) is done once, so each chain element is one load, one
-// FMA-and-multiply and one store, with no division.  The option's state
-// (V, rhs, d, c1, inv1 and, with use_it, lambda: ~20 KB each at 100x50) is
-// device-memory scratch that stays mostly in L1/L2: a v-sweep thread reuses
-// each 128-byte line it touches for the next 31 values of j.  Moving the
-// state to shared memory (227 KB per block) and coalescing the v-sweep are
-// later work.
+// What bounds this design instead (an estimate from the source, not
+// measured): instruction issue.  The stencils and boundary rows cost ~150
+// thread instructions a node and step, ~23k warp instructions a block and
+// step, issued by an SM that two blocks share.
+//
+// What this design does about the latency (douglas_march_smem, the default
+// route):
+// * One 512-thread block per option, with the march state in dynamic shared
+//   memory: V, the right-hand side R, the S-system reciprocal pivots INV1
+//   and, with use_it, the multiplier LAM, each nS x ps floats (rows padded
+//   to a stride ps >= nv that the wrapper picks so that the lanes of a warp
+//   spread over the banks in both sweeps), plus the bands, mix, the
+//   v-system factors, the payoff and the spot grid (15 nv + 2 nS floats).
+//   At 100x50 (ps = 52) that is 66.2 KB, 87.0 KB with use_it; either way
+//   two blocks to an SM, since registers bind first (__launch_bounds__(512,
+//   2): 64 registers x 512 threads x 2 blocks fill the 65,536).  The S factors c1 = u inv1 are recomputed from INV1
+//   (the same product the factorisation stored), so C1 takes no room.
+// * Each tridiagonal sweep spread over a group of g lanes of one warp.  With
+//   the factors known, the forward sweep d_i = (R_i - l_i d_{i-1}) inv_i and
+//   the back substitution y_i = d_i - c_i y_{i+1} are affine recurrences
+//   x_i = A_i x_{i-1} + B_i, and affine maps compose associatively.  Each
+//   lane takes a contiguous chunk of the line, composes its chunk's map in
+//   registers, a log2(g)-level scan with __shfl_up_sync/__shfl_down_sync
+//   (width g) gives each lane the value entering its chunk, and the lane
+//   then walks its chunk again with the sequential arithmetic.  At 100x50
+//   the S sweep runs 50 columns x 8 lanes (chunks of 13 rows), the v sweep
+//   100 rows x 4 lanes (chunks of 13): a chain of ~2 (13 + 3 + 13) links in
+//   shared memory and registers per sweep, against ~2 x 99 before.  The
+//   systems are diagonally dominant (|A_i| < 1), so the scan is stable;
+//   inside a chunk the arithmetic is the twin's, only the values entering
+//   the chunks are composed in another order.
+// * The explicit right-hand side is formed in the S sweep's first pass, the
+//   v sweep's right-hand side in its first pass, and the Ikonen-Toivanen
+//   update, the Dirichlet rows and the floor in its last: two barriers a
+//   step.
+//
+// The first design (douglas_march_batched: one 128-thread block per option,
+// state in device-memory scratch, one thread per line) stays for what the
+// shared-memory route does not take, chosen by the wrapper from the
+// arguments: the PCR variants, and grids whose state exceeds the 227 KB a
+// block can have (200x100 is one: 80 KB a field).
 //
 // PCR variants (pcr_v, pcr_s; the reference's adi_fused.py:396-419,
 // :438-466, :495-546): a sweep becomes parallel cyclic reduction, log2 n
@@ -46,15 +75,17 @@
 // inv2 (c2: (B, 2 levels_v nv) with pcr_v), (B, nS) for the payoff and the
 // spot grid, (B, 8) for the scalars dt, r, q, K, is_call, american;
 // SAB (B, 2 levels_S nS nv) and SINVD (B, nS nv) with pcr_s; WORK
-// (B, 6 nS nv) with pcr_s, else (B, 6 nv) with pcr_v.  The kernel
-// allocates nothing and does not synchronise; it runs on the caller's
-// stream.
+// (B, 6 nS nv) with pcr_s, else (B, 6 nv) with pcr_v.  The shared-memory
+// route takes the inputs and V only.  The kernels allocate nothing and do
+// not synchronise; they run on the caller's stream.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;       // first design: one thread per line
+constexpr int kSmemThreads = 512;   // shared-memory design: g lanes per line
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTheta = 0.5f;  // Douglas parameter
 
 // PCR levels of an n-long sweep: strides 1, 2, 4, ... below n
@@ -345,6 +376,244 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
   }
 }
 
+// Value entering this lane's chunk of a line split over the g lanes of a
+// group (g a power of two, groups aligned within the warp): an inclusive
+// scan of the chunks' affine maps x -> P x + Q, in lane order (forward) or
+// in reverse, applied to 0 and taken from the neighbouring lane.  Every
+// lane of the warp must call it.
+__device__ __forceinline__ float scan_entry(float P, float Q, int g, int lane,
+                                            bool reverse) {
+  for (int off = 1; off < g; off <<= 1) {
+    const float Pn = reverse ? __shfl_down_sync(kFull, P, off, g)
+                             : __shfl_up_sync(kFull, P, off, g);
+    const float Qn = reverse ? __shfl_down_sync(kFull, Q, off, g)
+                             : __shfl_up_sync(kFull, Q, off, g);
+    if (reverse ? lane + off < g : lane >= off) {
+      Q = P * Qn + Q;
+      P = P * Pn;
+    }
+  }
+  const float x = reverse ? __shfl_down_sync(kFull, Q, 1, g)
+                          : __shfl_up_sync(kFull, Q, 1, g);
+  return (reverse ? lane + 1 < g : lane >= 1) ? x : 0.f;
+}
+
+__global__ void __launch_bounds__(kSmemThreads, 2)
+douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
+                   const float* __restrict__ a1, const float* __restrict__ i1,
+                   const float* __restrict__ a2, const float* __restrict__ i2,
+                   const float* __restrict__ mix, const float* __restrict__ sc,
+                   float* __restrict__ Vout, int nS, int nv, int nT, int ps,
+                   int gs, int gv, int use_it) {
+  extern __shared__ float sm[];
+  const int tid = threadIdx.x;
+  const size_t b = blockIdx.x;
+  const int np = nS * ps;
+  float* V = sm;
+  float* R = V + np;
+  float* INV1 = R + np;
+  float* LAM = INV1 + np;  // np floats with use_it, else none
+  float* A1 = LAM + (use_it ? np : 0);
+  float* I1 = A1 + 3 * nv;
+  float* A2 = I1 + 3 * nv;
+  float* I2 = A2 + 3 * nv;
+  float* MIX = I2 + 3 * nv;
+  float* C2 = MIX + nv;
+  float* IV2 = C2 + nv;
+  float* PAY = IV2 + nv;
+  float* SG = PAY + nS;
+
+  for (int k = tid; k < 3 * nv; k += kSmemThreads) {
+    A1[k] = a1[b * 3 * nv + k];
+    I1[k] = i1[b * 3 * nv + k];
+    A2[k] = a2[b * 3 * nv + k];
+    I2[k] = i2[b * 3 * nv + k];
+  }
+  for (int k = tid; k < nv; k += kSmemThreads) MIX[k] = mix[b * nv + k];
+  for (int k = tid; k < nS; k += kSmemThreads) {
+    PAY[k] = pay[b * nS + k];
+    SG[k] = sg[b * nS + k];
+  }
+  const float dt = sc[b * 8 + 0], r = sc[b * 8 + 1], q = sc[b * 8 + 2];
+  const float K = sc[b * 8 + 3];
+  const bool is_call = sc[b * 8 + 4] > 0.5f;
+  const bool amer = sc[b * 8 + 5] > 0.5f;
+  const float *a1L = A1, *a1D = A1 + nv, *a1U = A1 + 2 * nv;
+  const float *i1L = I1, *i1D = I1 + nv, *i1U = I1 + 2 * nv;
+  const float *a2L = A2, *a2D = A2 + nv, *a2U = A2 + 2 * nv;
+  const float *i2L = I2, *i2D = I2 + nv, *i2U = I2 + 2 * nv;
+  __syncthreads();
+
+  // V starts at the payoff (constant along v); lambda at zero
+  for (int k = tid; k < nS * nv; k += kSmemThreads) {
+    const int i = k / nv, j = k - i * nv;
+    V[i * ps + j] = PAY[i];
+    if (use_it) LAM[i * ps + j] = 0.f;
+  }
+  // S-system reciprocal pivots, one thread per column j; rows 0 and nS-1
+  // are identity (inv = 1, c = 0).  v-system factors by one thread of
+  // another warp.  The arithmetic of the first design.
+  for (int j = tid; j < nv; j += kSmemThreads) {
+    INV1[j] = 1.f;
+    float c = 0.f;
+    for (int i = 1; i < nS - 1; ++i) {
+      const float inv = 1.f / (i1D[j] - i1L[j] * c);
+      c = i1U[j] * inv;
+      INV1[i * ps + j] = inv;
+    }
+    INV1[(nS - 1) * ps + j] = 1.f;
+  }
+  if (tid == kSmemThreads - 32) {
+    float c = i2U[0] / i2D[0];
+    C2[0] = c;
+    IV2[0] = 1.f / i2D[0];
+    for (int j = 1; j < nv; ++j) {
+      const float inv = 1.f / (i2D[j] - i2L[j] * c);
+      c = i2U[j] * inv;
+      C2[j] = c;
+      IV2[j] = inv;
+    }
+  }
+  __syncthreads();
+
+  const float dt_a1 = (1.f - kTheta) * dt;
+  const float th_dt = kTheta * dt;
+  const int lane_s = tid % gs, lane_v = tid % gv;
+  const int cs = (nS + gs - 1) / gs, cv = (nv + gv - 1) / gv;
+
+  for (int step = 0; step < nT; ++step) {
+    // 1-2. explicit rhs and the implicit S sweep, gs lanes per column j
+    for (int base = 0; base < nv; base += kSmemThreads / gs) {
+      const int j = base + tid / gs;
+      const bool act = j < nv;
+      const int i_beg = min(nS, lane_s * cs);
+      const int i_end = act ? min(nS, i_beg + cs) : i_beg;
+      const bool lo_j = j > 0, hi_j = j < nv - 1;
+      const float l = act ? i1L[j] : 0.f, u = act ? i1U[j] : 0.f;
+      // pass 1: rhs = V + dt A0 V + (1-th) dt A1 V + dt A2 V (+ dt lambda)
+      // into R, and the chunk's forward-sweep map
+      float P = 1.f, Q = 0.f;
+      for (int i = i_beg; i < i_end; ++i) {
+        const int k = i * ps + j;
+        const float v = V[k];
+        const float a2v = a2D[j] * v + a2L[j] * (lo_j ? V[k - 1] : 0.f) +
+                          a2U[j] * (hi_j ? V[k + 1] : 0.f);
+        float a0v = 0.f, a1v = 0.f;
+        const bool inner = i > 0 && i < nS - 1;
+        if (inner) {  // A1 and A0 act on interior rows only
+          const float* up = V + k + ps;
+          const float* dn = V + k - ps;
+          const float vxv = (hi_j ? up[1] : 0.f) - (lo_j ? up[-1] : 0.f) -
+                            (hi_j ? dn[1] : 0.f) + (lo_j ? dn[-1] : 0.f);
+          a0v = MIX[j] * vxv;
+          a1v = a1D[j] * v + a1L[j] * dn[0] + a1U[j] * up[0];
+        }
+        float acc = v + dt * a0v;
+        acc = acc + dt_a1 * a1v;
+        acc = acc + dt * a2v;
+        if (use_it) acc = acc + dt * LAM[k];
+        R[k] = acc;
+        const float li = inner ? l : 0.f;
+        const float inv = INV1[k];
+        Q = (acc - li * Q) * inv;
+        P = -(li * P) * inv;
+      }
+      // pass 2: the forward sweep d_i = (R_i - l d_{i-1}) inv_i, in place
+      float d = scan_entry(P, Q, gs, lane_s, false);
+      for (int i = i_beg; i < i_end; ++i) {
+        const int k = i * ps + j;
+        const float li = (i > 0 && i < nS - 1) ? l : 0.f;
+        d = (R[k] - li * d) * INV1[k];
+        R[k] = d;
+      }
+      // passes 3-4: the back substitution y_i = d_i - c_i y_{i+1}, in place
+      P = 1.f;
+      Q = 0.f;
+      for (int i = i_end - 1; i >= i_beg; --i) {
+        const int k = i * ps + j;
+        const float ci = (i > 0 && i < nS - 1) ? u * INV1[k] : 0.f;
+        Q = R[k] - ci * Q;
+        P = -(ci * P);
+      }
+      float y = scan_entry(P, Q, gs, lane_s, true);
+      for (int i = i_end - 1; i >= i_beg; --i) {
+        const int k = i * ps + j;
+        const float ci = (i > 0 && i < nS - 1) ? u * INV1[k] : 0.f;
+        y = R[k] - ci * y;
+        R[k] = y;
+      }
+    }
+    __syncthreads();
+
+    // 3-5. rhs2 = Y1 - th dt A2 V, the implicit v sweep, then the
+    // Ikonen-Toivanen update, the Dirichlet rows (i = 0, i = nS-1, then
+    // j = nv-1) at tau and the American floor, gv lanes per row i
+    const float tau = dt * static_cast<float>(step + 1);
+    const float dfr = expf(-r * tau);
+    const float dfq = expf(-q * tau);
+    for (int base = 0; base < nS; base += kSmemThreads / gv) {
+      const int i = base + tid / gv;
+      const bool act = i < nS;
+      const int j_beg = min(nv, lane_v * cv);
+      const int j_end = act ? min(nv, j_beg + cv) : j_beg;
+      float* Vi = V + i * ps;
+      float* Ri = R + i * ps;
+      float P = 1.f, Q = 0.f;
+      for (int j = j_beg; j < j_end; ++j) {
+        const float a2v = a2D[j] * Vi[j] + a2L[j] * (j > 0 ? Vi[j - 1] : 0.f) +
+                          a2U[j] * (j < nv - 1 ? Vi[j + 1] : 0.f);
+        const float rhs = Ri[j] - th_dt * a2v;
+        Ri[j] = rhs;
+        const float lj = j > 0 ? i2L[j] : 0.f;
+        Q = (rhs - lj * Q) * IV2[j];
+        P = -(lj * P) * IV2[j];
+      }
+      float d = scan_entry(P, Q, gv, lane_v, false);
+      for (int j = j_beg; j < j_end; ++j) {
+        const float lj = j > 0 ? i2L[j] : 0.f;
+        d = (Ri[j] - lj * d) * IV2[j];
+        Ri[j] = d;
+      }
+      P = 1.f;
+      Q = 0.f;
+      for (int j = j_end - 1; j >= j_beg; --j) {
+        const float cj = j < nv - 1 ? C2[j] : 0.f;
+        Q = Ri[j] - cj * Q;
+        P = -(cj * P);
+      }
+      float y = scan_entry(P, Q, gv, lane_v, true);
+      __syncwarp();  // every lane has read its row's V before any writes it
+      for (int j = j_end - 1; j >= j_beg; --j) {
+        const float cj = j < nv - 1 ? C2[j] : 0.f;
+        y = Ri[j] - cj * y;
+        const float g = PAY[i];
+        float vn = y;
+        if (use_it && amer) {
+          // V_new - dt lam_new = Vn - dt lam, V_new >= g, lam_new >= 0
+          const float w = vn - dt * LAM[i * ps + j];
+          const float v_it = fmaxf(g, w);
+          LAM[i * ps + j] = (v_it - w) / dt;
+          vn = v_it;
+        }
+        if (i == 0) vn = is_call ? 0.f : K * dfr - SG[0] * dfq;
+        if (i == nS - 1) vn = is_call ? SG[nS - 1] * dfq - K * dfr : 0.f;
+        if (j == nv - 1) vn = is_call ? SG[i] * dfq : K * dfr;
+        // projection: clamp flagged options everywhere; IT: the Dirichlet
+        // edges are European, floor flagged options there
+        const bool edge = i == 0 || i == nS - 1 || j == 0 || j == nv - 1;
+        if (amer && (!use_it || edge)) vn = fmaxf(vn, g);
+        Vi[j] = vn;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int k = tid; k < nS * nv; k += kSmemThreads) {
+    const int i = k / nv, j = k - i * nv;
+    Vout[b * nS * nv + k] = V[i * ps + j];
+  }
+}
+
 }  // namespace
 
 // C interface, bound with ctypes.  Pointers are device pointers of
@@ -365,6 +634,30 @@ extern "C" int pde_adi_fused_batched(const float* pay, const float* sg,
     douglas_march_batched<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         pay, sg, a1, i1, a2, i2, mix, sc, V, R, D, C1, INV1, LAM, C2, INV2, SAB,
         SINVD, WORK, nS, nv, nT, use_it, pcr_v, pcr_s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shared-memory route: inputs as above, V (B, nS, nv) the output;
+// ps the padded row stride, gs and gv the lanes per S column and per v row
+// (powers of two up to 32), smem_bytes the block's dynamic shared memory
+// (at most 227 KB).  Returns the first CUDA error of the attribute call or
+// the launch (0 = launched).
+extern "C" int pde_adi_fused_batched_smem(const float* pay, const float* sg,
+                                          const float* a1, const float* i1,
+                                          const float* a2, const float* i2,
+                                          const float* mix, const float* sc,
+                                          float* V, int B, int nS, int nv,
+                                          int nT, int ps, int gs, int gv,
+                                          int use_it, int smem_bytes,
+                                          void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      douglas_march_smem, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    douglas_march_smem<<<B, kSmemThreads, smem_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+        pay, sg, a1, i1, a2, i2, mix, sc, V, nS, nv, nT, ps, gs, gv, use_it);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,14 +8,17 @@ multiplier update or the American projection, and the In 't Hout-Foulon
 Dirichlet rows.
 
 * :func:`fused_douglas_march_batched` (K1) marches a BOOK on K-scaled log
-  grids.  A CUDA tensor launches ``csrc/adi_fused_batched.cu`` (one thread
-  block per option) or raises; a CPU tensor runs
-  :func:`_fused_douglas_march_batched_plain`, the same step order in tensor
-  ops over (nS, nv, B).  Each sweep is a Thomas recurrence, or with
-  ``pcr_v``/``pcr_s`` parallel cyclic reduction with level coefficients
-  computed once before the march.  The public layout is the reference's
-  ``(…, B)`` (batch last); the CUDA wrapper permutes to option-major
-  ``(B, nS, nv)`` and back.
+  grids.  A CUDA tensor launches ``csrc/adi_fused_batched.cu`` or raises; a
+  CPU tensor runs :func:`_fused_douglas_march_batched_plain`, the same step
+  order in tensor ops over (nS, nv, B).  On the card the Thomas march runs
+  one 512-thread block per option with its state in shared memory, each
+  sweep spread over a group of lanes as a chunked affine scan
+  (:func:`_smem_plan` sizes it); the PCR variants (``pcr_v``/``pcr_s``,
+  level coefficients computed once before the march) and grids whose state
+  exceeds a block's 227 KB run the first design, one 128-thread block per
+  option with its state in device memory.  The public layout is the
+  reference's ``(…, B)`` (batch last); the CUDA wrapper permutes to
+  option-major ``(B, nS, nv)`` and back.
 * :func:`fused_douglas_march` (K2) marches ONE option on a general (nS, nv)
   grid with row-aligned bands.  A CUDA tensor launches ``csrc/adi_fused.cu``
   (one thread block) or raises; a CPU tensor runs
@@ -30,6 +33,7 @@ The tests hold each plain twin against the reference's Pallas kernel, and
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -41,6 +45,8 @@ __all__ = ["fused_douglas_march", "fused_douglas_march_batched"]
 _SOURCE = "adi_fused_batched.cu"
 _SOURCE_SINGLE = "adi_fused.cu"
 _TH = 0.5  # Douglas parameter
+_SMEM_THREADS = 512   # threads of a shared-memory block (csrc kSmemThreads)
+_SMEM_MAX = 232448    # bytes of shared memory one block can have (227 KB)
 
 
 def _levels(n: int) -> int:
@@ -75,8 +81,9 @@ def fused_douglas_march_batched(
     the level coefficients (alpha, beta per level) and the final 1/d are
     computed once, and each step reduces the right-hand side with two
     multiply-adds per level.  ``launches`` counts the CUDA kernel's
-    launches; ``launches_pcr_v`` and ``launches_pcr_s`` count those of
-    them that ran the PCR v or S sweep.
+    launches of either design; ``launches_smem`` those of them that ran
+    the shared-memory design, ``launches_pcr_v`` and ``launches_pcr_s``
+    those that ran the PCR v or S sweep.
     """
     args = (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)
     nS, nv, B = n_spot, n_vol, pay.shape[-1]
@@ -90,6 +97,9 @@ def fused_douglas_march_batched(
     if nS < 3 or nv < 3 or n_time < 1:
         raise ValueError("the march needs nS >= 3, nv >= 3 and n_time >= 1")
     if pay.device.type == "cuda":
+        plan = None if pcr_v or pcr_s else _smem_plan(nS, nv, use_it)
+        if plan is not None:
+            return _launch_smem(*args, nS, nv, n_time, use_it, plan)
         return _launch(*args, nS, nv, n_time, use_it, pcr_v, pcr_s)
     if pay.device.type == "cpu":
         return _fused_douglas_march_batched_plain(*args, nS, nv, n_time, use_it,
@@ -98,6 +108,7 @@ def fused_douglas_march_batched(
 
 
 fused_douglas_march_batched.launches = 0
+fused_douglas_march_batched.launches_smem = 0
 fused_douglas_march_batched.launches_pcr_v = 0
 fused_douglas_march_batched.launches_pcr_s = 0
 
@@ -110,10 +121,74 @@ def _library():
     return fn
 
 
+def _lanes(lines: int, length: int) -> int:
+    """Lanes per line of a sweep on the shared-memory route: a power of two
+    up to 32, as many as keep ``lines`` x lanes within the block and at
+    least one row per lane."""
+    g = 1
+    while g < 32 and 2 * g * lines <= _SMEM_THREADS and 2 * g <= length:
+        g *= 2
+    return g
+
+
+def _bank_degree(words) -> int:
+    """The most distinct 4-byte words that one of the 32 shared-memory
+    banks serves for one warp access (1: no conflict)."""
+    per_bank: dict[int, int] = {}
+    for w in set(words):
+        per_bank[w % 32] = per_bank.get(w % 32, 0) + 1
+    return max(per_bank.values())
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_plan(nS: int, nv: int, use_it: bool):
+    """The shared-memory route's layout for an (nS, nv) grid: ``(ps, gs,
+    gv, n_bytes)`` — the padded row stride, the lanes per S column and per
+    v row, and the block's bytes of shared memory — or None when that
+    exceeds what a block can have.  ``ps`` is the least stride from nv to
+    nv + 31 whose first warp meets the fewest bank conflicts, summed over
+    the S sweep (lanes at rows lane*cs of columns j) and the v sweep (lanes
+    at columns lane*cv of rows i).  Cached: it depends on the shape only,
+    and every launch asks for it."""
+    gs, gv = _lanes(nv, nS), _lanes(nS, nv)
+    cs, cv = -(-nS // gs), -(-nv // gv)
+
+    def conflicts(ps):
+        s_words = [(t % gs) * cs * ps + t // gs for t in range(32)]
+        v_words = [(t // gv) * ps + (t % gv) * cv for t in range(32)]
+        return _bank_degree(s_words) + _bank_degree(v_words)
+
+    ps = min(range(nv, nv + 32), key=lambda p: (conflicts(p), p))
+    n_bytes = 4 * ((3 + int(use_it)) * nS * ps + 15 * nv + 2 * nS)
+    return (ps, gs, gv, n_bytes) if n_bytes <= _SMEM_MAX else None
+
+
+def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, plan):
+    """The shared-memory route: permute to option-major, launch one block
+    per option on the current stream, permute back.  Allocates only V."""
+    lib, _ = load_library(_SOURCE)
+    fn = lib.pde_adi_fused_batched_smem
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ps, gs, gv, n_bytes = plan
+    B = pay.shape[-1]
+    ins = [a.permute(2, 0, 1).contiguous() for a in (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)]
+    V = torch.empty((B, nS, nv), dtype=torch.float32, device=pay.device)
+    stream = torch.cuda.current_stream(pay.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in (*ins, V)), B, nS, nv, nT, ps, gs, gv, int(use_it),
+             n_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
+    fused_douglas_march_batched.launches += 1
+    fused_douglas_march_batched.launches_smem += 1
+    return V.permute(1, 2, 0)
+
+
 def _launch(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_v,
             pcr_s):
-    """Permute to option-major, launch on the current stream, permute back.
-    The PCR variants take their level coefficients in scratch: for v,
+    """The first design (the PCR variants, and grids too large for the
+    shared-memory route): permute to option-major, launch on the current
+    stream, permute back.  The PCR variants take their level coefficients in scratch: for v,
     2 levels_v nv alphas and betas in place of the Thomas c2 (and 1/d in
     place of inv2); for S, 2 levels_S nS nv plus nS nv for 1/d; WORK holds
     the six band arrays the level recurrence reads and writes."""

@@ -30,10 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # per source, on top: these kernels round every product and sum on its
 # own, as their plain twins do (no FMA contraction), so kernel and twin
 # agree bit for bit; for the 1D theta-scheme marches the float32 round-off
-# alone is of the size of the kernel-vs-twin gate
+# alone is of the size of the kernel-vs-twin gate (K4 sat 1.09x past it
+# with contraction).  K1 (adi_fused_batched.cu) and K3 (cn1d_tv_fused.cu)
+# keep nvcc's contraction: their lane-group scans already compose the
+# values entering each chunk in another order than the twins, both ran
+# faster with it in a one-off comparison on one H100, and chip_smoke.py
+# holds them well inside the gate with it
 SOURCE_FLAGS = {src: ("-fmad=false",) for src in (
-    "cn1d_fused.cu", "cn1d_tv_fused.cu", "adi_fused.cu", "thomas_batched.cu",
-    "psor_batched.cu")}
+    "cn1d_fused.cu", "adi_fused.cu", "thomas_batched.cu", "psor_batched.cu")}
 
 
 def _nvcc() -> str:

@@ -9,19 +9,24 @@ forward sweep at level k+1, the back substitution, the Dirichlet rows and
 the American floor.
 
 * On a CUDA tensor, :func:`fused_cn_march_1d_tv` launches the CUDA kernel
-  ``csrc/cn1d_tv_fused.cu`` (one thread per option) or raises.
+  ``csrc/cn1d_tv_fused.cu`` or raises: one warp per option, each step's
+  tridiagonal solve partitioned over the warp's lanes (a shuffle scan of
+  the chunks' pivot maps, then of their affine sweeps), the band levels
+  staged ahead into shared memory; lattices too long for a block's 227 KB
+  (``n > 518``) run the first design, one thread per option.
 * On a CPU tensor it runs :func:`_fused_cn_march_1d_tv_plain`, the same
   step order in tensor ops over the batch with Python loops over the rows.
 
 The layout is the reference's, batch last: ``pay (n, B)``,
-``bands (n_time+1, 3n, B)``, ``sc (8, B)``.  The reference's two variants
-(lattice resident in VMEM, or streamed a level per grid step) are one
-design here: the kernel reads each level from device memory.
+``bands (n_time+1, 3n, B)``, ``sc (8, B)``, read in place.  The
+reference's two variants (lattice resident in VMEM, or streamed a level
+per grid step) are one design here: the kernel streams each level from
+device memory, two levels ahead of the step that uses it.
 
 On the H100 its bound is the band lattice's bytes (62 MB at 200x100,
-B=256: ~19 us at 3.35 TB/s), but what binds it is each option's serial
-chain of 2(n-2) dependent rows per step, walked by one thread; the CUDA
-source's header says what the design does about it.
+B=256: ~19 us at 3.35 TB/s); what binds it is each option's serial
+chain of dependent rows per step; the CUDA source's header says what the
+design does about it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from .build import load_library
 __all__ = ["fused_cn_march_1d_tv"]
 
 _SOURCE = "cn1d_tv_fused.cu"
+_TILE = 8             # options (warps) per block of the warp route (csrc kTile)
+_SMEM_MAX = 232448    # bytes of shared memory one block can have (227 KB)
 
 
 def fused_cn_march_1d_tv(
@@ -47,7 +54,8 @@ def fused_cn_march_1d_tv(
     w: float = 0.5,   # theta-scheme weight: CN = 1/2, implicit Euler = 1
 ) -> torch.Tensor:
     """March the whole book backward ``n_time`` steps; returns V(t=0) as
-    (n, B) float32.  ``launches`` counts the CUDA kernel's launches."""
+    (n, B) float32.  ``launches`` counts the CUDA kernel's launches of
+    either design, ``launches_smem`` those of the warp design."""
     n, B = n_space, pay.shape[-1]
     for a, shape in ((pay, (n, B)), (bands, (n_time + 1, 3 * n, B)), (sc, (8, B))):
         if tuple(a.shape) != shape:
@@ -66,6 +74,15 @@ def fused_cn_march_1d_tv(
 
 
 fused_cn_march_1d_tv.launches = 0
+fused_cn_march_1d_tv.launches_smem = 0
+
+
+def _smem_bytes(n: int):
+    """Shared memory of a warp-route block: a ring of three band levels of
+    its options and five rows per option (V, rhs, c, 1/pivot, payoff); None
+    when that exceeds what a block can have."""
+    n_bytes = 4 * (3 * _TILE * 3 * n + _TILE * 5 * n)
+    return n_bytes if n_bytes <= _SMEM_MAX else None
 
 
 def _library():
@@ -78,6 +95,15 @@ def _library():
 
 
 def _launch(pay, bands, sc, n, n_time, w):
+    n_bytes = _smem_bytes(n)
+    if n_bytes is not None:
+        return _launch_warp(pay, bands, sc, n, n_time, w, n_bytes)
+    return _launch_first(pay, bands, sc, n, n_time, w)
+
+
+def _launch_first(pay, bands, sc, n, n_time, w):
+    """The first design, for lattices too long for the warp route: one
+    thread per option, the factors c and d in device-memory scratch."""
     fn = _library()
     B = pay.shape[-1]
     V, C, D = (torch.empty((n, B), dtype=torch.float32, device=pay.device)
@@ -88,6 +114,24 @@ def _launch(pay, bands, sc, n, n_time, w):
     if err != 0:
         raise RuntimeError(f"fused CN march launch failed: CUDA error {err}")
     fused_cn_march_1d_tv.launches += 1
+    return V
+
+
+def _launch_warp(pay, bands, sc, n, n_time, w, n_bytes):
+    lib, _ = load_library(_SOURCE)
+    fn = lib.pde_cn1d_tv_fused_warp
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B = pay.shape[-1]
+    V = torch.empty((n, B), dtype=torch.float32, device=pay.device)
+    stream = torch.cuda.current_stream(pay.device).cuda_stream
+    err = fn(pay.data_ptr(), bands.data_ptr(), sc.data_ptr(), V.data_ptr(), B, n, n_time,
+             float(w), n_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"fused CN march launch failed: CUDA error {err}")
+    fused_cn_march_1d_tv.launches += 1
+    fused_cn_march_1d_tv.launches_smem += 1
     return V
 
 

@@ -13,8 +13,9 @@ from pde_tpu_torch.models import local_vol
 from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused, tridiag
 from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
 
-# kernel vs plain twin: both float32 with the same step order; only FMA
-# contraction differs
+# kernel vs plain twin: both float32 with the same step order; FMA
+# contraction (K1, K3) and the order in which K1's and K3's lane scans
+# compose the values entering each chunk differ
 GATE = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -259,3 +260,107 @@ def test_bs_solve_psor_on_card_matches_cpu():
     for f in ("price", "delta", "gamma", "theta"):
         np.testing.assert_allclose(float(getattr(on_card, f)), float(getattr(on_cpu, f)),
                                    err_msg=f, **GATE)
+
+
+def _k1_inputs(B, n_spot, n_vol, n_time, seed):
+    """K1's inputs for a seeded book on ``n_spot`` x ``n_vol`` on the card."""
+    args = heston_adi._broadcast_batch(*_book(B, seed).values(), "cuda")
+    kappa, theta, sigma, rho, _, r, q, T, K, call, _, amer = args
+    ins, _ = heston_adi._march_inputs(kappa, theta, sigma, rho, r, q, T, K, call, amer,
+                                      n_spot, n_vol, n_time, 0.2, 5.0, 1.0)
+    return ins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["european", "projection", "it"])
+@pytest.mark.parametrize("grid", [(16, 8), (40, 20), (100, 50)])
+@pytest.mark.parametrize("B", [1, 37, 130])
+def test_k1_smem_route_matches_plain(B, grid, mode):
+    """K1's shared-memory route (lane-group scans) against the plain twin
+    at ragged batch sizes and grids; the projection and IT books mix
+    American and European options."""
+    _need_cuda()
+    nS, nv = grid
+    ins = list(_k1_inputs(B, nS, nv, 20, 11))
+    if mode == "european":
+        ins[7] = ins[7].clone()
+        ins[7][5] = 0.0
+    k1 = adi_fused.fused_douglas_march_batched
+    before, before_smem = k1.launches, k1.launches_smem
+    got = k1(*ins, nS, nv, 20, use_it=mode == "it")
+    want = adi_fused._fused_douglas_march_batched_plain(*ins, nS, nv, 20, mode == "it")
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_smem) == (before + 1, before_smem + 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_it", [False, True])
+def test_k1_large_grid_takes_first_design(use_it):
+    """A grid whose state exceeds a block's shared memory (200x100: 80 KB
+    a field) runs the first design, and agrees with the twin."""
+    _need_cuda()
+    assert adi_fused._smem_plan(200, 100, use_it) is None
+    ins = _k1_inputs(5, 200, 100, 10, 12)
+    k1 = adi_fused.fused_douglas_march_batched
+    before, before_smem = k1.launches, k1.launches_smem
+    got = k1(*ins, 200, 100, 10, use_it=use_it)
+    want = adi_fused._fused_douglas_march_batched_plain(*ins, 200, 100, 10, use_it)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_smem) == (before + 1, before_smem)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [0.5, 1.0])
+@pytest.mark.parametrize("B", [1, 7, 37, 256])
+@pytest.mark.parametrize("n", [3, 33, 200])
+def test_k3_warp_route_matches_plain(n, B, w):
+    """K3's warp route against its twin where a lane's chunk holds one row
+    or none (n = 3, 33) and at the bench width, at ragged batch sizes
+    (partial blocks of eight options)."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    book = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in _lv_book(B, 13).items()}
+    pay, bands, sc, _ = local_vol_pde._march_inputs(
+        _surface(dev), book["K"], book["T"], book["is_call"], book["american"], 0.04,
+        0.01, n, 24, 0.2, 5.0)
+    k3 = cn1d_tv_fused.fused_cn_march_1d_tv
+    before = k3.launches_smem
+    got = k3(pay, bands, sc, n, 24, w)
+    want = cn1d_tv_fused._fused_cn_march_1d_tv_plain(pay, bands, sc, n, 24, w)
+    torch.cuda.synchronize()
+    assert k3.launches_smem == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+def test_k3_long_lattice_takes_first_design():
+    """A lattice too long for the warp route's shared memory (n = 600)
+    runs the first design, and agrees with the twin."""
+    _need_cuda()
+    assert cn1d_tv_fused._smem_bytes(600) is None
+    dev = torch.device("cuda")
+    book = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in _lv_book(5, 14).items()}
+    pay, bands, sc, _ = local_vol_pde._march_inputs(
+        _surface(dev), book["K"], book["T"], book["is_call"], book["american"], 0.04,
+        0.01, 600, 6, 0.2, 5.0)
+    k3 = cn1d_tv_fused.fused_cn_march_1d_tv
+    before, before_smem = k3.launches, k3.launches_smem
+    got = k3(pay, bands, sc, 600, 6)
+    want = cn1d_tv_fused._fused_cn_march_1d_tv_plain(pay, bands, sc, 600, 6, 0.5)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.launches_smem) == (before + 1, before_smem)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+def test_model_function_on_plain_numbers_runs_on_the_card():
+    """With no tensor argument a model function takes the card."""
+    _need_cuda()
+    from pde_tpu_torch.models import black_scholes
+
+    assert black_scholes.price(100.0, 100.0, 0.05, 0.0, 1.0, 0.2).device == \
+        torch.device("cuda", 0)

@@ -13,7 +13,7 @@ import torch
 from pde_tpu_torch.calibrate.heston import HestonCalibrator
 from pde_tpu_torch.calibrate.sabr import SABRCalibrator
 from pde_tpu_torch.core import grids, precision
-from pde_tpu_torch.models import heston, local_vol
+from pde_tpu_torch.models import black_scholes, heston, local_vol, sabr
 from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
 
 
@@ -59,6 +59,14 @@ ENTRY_POINTS = {
     "dupire_surface": lambda: local_vol.dupire_surface(
         heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04), np.array([90.0, 110.0]),
         np.array([0.5, 1.0]), 100.0),
+    # model functions called with plain numbers take the card as well
+    "black_scholes.price": lambda: black_scholes.price(100.0, 100.0, 0.05, 0.0, 1.0, 0.2),
+    "black_scholes.implied_vol": lambda: black_scholes.implied_vol(
+        10.45, 100.0, 100.0, 0.05, 0.0, 1.0),
+    "sabr.implied_volatility": lambda: sabr.implied_volatility(
+        100.0, 100.0, 1.0, sabr.SABRParams(0.25, 0.5, -0.35, 0.45)),
+    "heston.price_accurate": lambda: heston.price_accurate(
+        heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04), 100.0, 1.0, 100.0),
 }
 
 

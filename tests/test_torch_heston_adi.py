@@ -150,3 +150,31 @@ def test_kernel_variant_resolves_from_callers_flags():
     assert ta.np_any_flag(np.array([0.0, 1.0]))
     assert not ta.np_any_flag(torch.zeros(3))
     assert not ta.np_any_flag(False)
+
+
+@pytest.mark.parametrize("use_it", [False, True])
+@pytest.mark.parametrize("grid,lanes", [((100, 50), (8, 4)), ((40, 20), (16, 8)),
+                                        ((16, 8), (16, 8)), ((50, 100), (4, 8))])
+def test_k1_smem_plan(grid, lanes, use_it):
+    """The shared-memory route's layout (csrc/adi_fused_batched.cu): lanes
+    per S column and per v row are powers of two within the 512-thread
+    block and at most one per row; the padded stride keeps the bench grid's
+    first warp free of bank conflicts in both sweeps; the block's bytes are
+    V, R, 1/pivot (and lambda with IT) on the padded grid plus the bands."""
+    nS, nv = grid
+    ps, gs, gv, n_bytes = tops._smem_plan(nS, nv, use_it)
+    assert (gs, gv) == lanes
+    assert nv * gs <= 512 and nS * gv <= 512 and gs <= nS and gv <= nv
+    assert nv <= ps < nv + 32
+    assert n_bytes == 4 * ((3 + use_it) * nS * ps + 15 * nv + 2 * nS) <= 232448
+    if grid == (100, 50):
+        cs, cv = -(-nS // gs), -(-nv // gv)
+        assert tops._bank_degree([(t % gs) * cs * ps + t // gs for t in range(32)]) == 1
+        assert tops._bank_degree([(t // gv) * ps + (t % gv) * cv for t in range(32)]) == 1
+
+
+@pytest.mark.parametrize("use_it", [False, True])
+def test_k1_large_grid_has_no_smem_plan(use_it):
+    """200x100 needs 80 KB a field: more than a block's 227 KB, so the
+    wrapper sends it to the first design (the reference takes such grids)."""
+    assert tops._smem_plan(200, 100, use_it) is None

@@ -208,3 +208,11 @@ def test_solve_differentiates_in_s0_and_r(rng):
     got = torch.autograd.grad(price, (s0, r))
     np.testing.assert_allclose([float(g) for g in got], [float(w) for w in want], rtol=1e-8)
     assert float(got[0]) < 0  # a put falls with the spot
+
+
+@pytest.mark.parametrize("n,n_bytes", [(3, 1344), (200, 89600), (518, 232064), (519, None)])
+def test_k3_warp_route_shared_memory(n, n_bytes):
+    """The warp route's block holds a ring of three band levels of its
+    eight options and five rows per option: 112 n floats, up to the 227 KB
+    a block can have; longer lattices run the first design."""
+    assert tops._smem_bytes(n) == n_bytes

@@ -86,11 +86,10 @@ def test_tridiagonal_solve_dispatch(rng):
                                   tt.thomas(*_t(*sys_)).numpy())
 
 
-def test_k5_branch_is_not_ported(rng):
+def test_k5_twin_matches_thomas_pallas(rng):
     """The batched Thomas kernel branch (the reference's thomas_pallas, K5)
     runs its plain twin on a CPU tensor, held against thomas_pallas in
-    interpret mode (tests/test_tridiag.py:179-190) and counting no launch.
-    The name dates from when this branch raised, before K5 was ported."""
+    interpret mode (tests/test_tridiag.py:179-190) and counting no launch."""
     B, n = 70, 40
     f32 = lambda a: a.astype(np.float32)  # noqa: E731
     sys_ = (f32(rng.uniform(-1, 1, (B, n - 1))), f32(4.0 + rng.uniform(0, 1, (B, n))),
