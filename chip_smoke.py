@@ -8,7 +8,8 @@ checks every result:
 2. build: every CUDA kernel of the paths, compiled from
    ``pde_tpu_torch/csrc`` (one ``nvcc`` per source, all started together),
    with each kernel's registers and spills, and the dynamic shared memory
-   per block of K1's and K3's redesigned routes at the bench shapes;
+   per block of the redesigned routes of K1 (Thomas and PCR S sweep), K2
+   and K3 at the bench shapes;
 3. kernel vs plain, each kernel against its plain PyTorch twin on the same
    inputs on the card, and both timed at the bench shape:
    - K1, the fused Douglas march (European, American projection, American
@@ -16,9 +17,15 @@ checks every result:
      and 1) and at 16x8 and 40x20 (B = 130, 37 and 1), its first design at
      100x50 (B = 512, 130 and 1) and on a grid too large for the other route
      (200x100, B = 37), each public call checked to have taken its route;
-     and its PCR sweeps (pcr_v, pcr_s, both; B = 512);
-   - K2, the single-option fused march at 100x50x100 (European call,
-     American put by projection and by Ikonen-Toivanen);
+   - K1's PCR sweeps (European and Ikonen-Toivanen books): the S sweep on
+     the shared-memory route (B = 512, 130, 37 and 1) and on the first
+     design (B = 512), the v sweep alone and with the S sweep on the first
+     design (B = 512), each public call checked to have taken its route;
+   - K2, the single-option fused march (European call, American put by
+     projection and by Ikonen-Toivanen): its shared-memory route at 16x8,
+     40x20, 100x50 and 160x50 (where the bands are read in place), its
+     first design at 100x50 and on a grid too large for the other route
+     (200x100), each public call checked to have taken its route;
    - K3, the time-varying CN march, on bands from the port's own lattice
      builder on the bench's Dupire surface: its warp route at n = 200, 3
      and 33 (so that a lane's chunk may hold one row or none; B = 256, 37,
@@ -62,7 +69,9 @@ checks every result:
 Each main path (4-10) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails,
 and so do the two books and the 108-option surface if K1's or K3's
-redesigned route (``launches_smem``) never launched.
+redesigned route (``launches_smem``) never launched, ``solve_fused`` and
+the Ikonen-Toivanen put if K2's did not, and the PCR books if the PCR S
+sweep's (``launches_pcr_s_smem``) did not.
 While they run, the first input set of each shape that each path hands K5
 and K6 is kept; afterwards both kernels are held against their plain twins
 on those very inputs, and timed at the shapes of the path whose launches
@@ -97,10 +106,10 @@ TRUE = dict(kappa=2.0, theta=0.04, sigma=0.3, rho=-0.7, v0=0.04)
 GRID = dict(n_spot=100, n_vol=50, n_time=100)
 BOOK_B = 512
 BUDGET = dict(global_maxiter=100, global_popsize=15, local_max_iter=60)
-# kernel vs plain: both float32 with the same step order; K1 and K3 keep
-# FMA contraction (the others are built without it) and compose the values
-# entering each lane's chunk of a sweep in another order; the error grows
-# over the 100 steps
+# kernel vs plain: both float32 with the same step order; K1, K2 and K3
+# keep FMA contraction (the others are built without it) and compose the
+# values entering each lane's chunk of a sweep in another order; the error
+# grows over the 100 steps
 RTOL, ATOL = 1e-4, 1e-5
 # the local-vol and Black-Scholes rows (bench.py:138-167, bench_full.py:847-863)
 LV_R, LV_Q = 0.04, 0.01
@@ -174,6 +183,29 @@ def time_ms(torch, fn, reps):
     by CUDA events on the card."""
     fn()
     torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(torch, fn, reps):
+    """Mean milliseconds of the card's time per call over ``reps`` calls
+    after one warm-up, by CUDA events, with a spin kernel holding the
+    stream while the host enqueues the calls: a call whose host work
+    outlasts its kernels is then timed by the card's work alone, not by
+    the host's (which varies between machines)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # clock cycles at ~2 GHz, four times the host's enqueue time of the calls
+    torch.cuda._sleep(int(4 * reps * host_s * 2e9))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -265,10 +297,10 @@ def phase_kernel(torch, dev, grid=GRID, B=BOOK_B, plain_reps=3, kernel_reps=20):
 
     args = book(torch, dev, B, torch.zeros(B), grid)
     before = march.launches_smem
-    ms = time_ms(torch, lambda: march(*args, *size), kernel_reps)
+    ms = kernel_ms(torch, lambda: march(*args, *size), kernel_reps)
     if march.launches_smem <= before:
         raise AssertionError("the kernel's shared-memory launch count did not move")
-    first_ms = time_ms(torch, lambda: first(*args, *size), kernel_reps)
+    first_ms = kernel_ms(torch, lambda: first(*args, *size), kernel_reps)
     plain_ms = time_ms(torch, lambda: plain(*args, *size, False), plain_reps)
     emit(phase="kernel_timing", kernel="K1", B=B, grid=list(size), kernel_ms=ms,
          first_design_ms=first_ms, plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
@@ -360,11 +392,11 @@ def phase_k3(torch, dev, interp, grid=LV_GRID, B=LV_B, plain_reps=1, kernel_reps
 
     args = inputs(B, torch.zeros(B, device=dev))
     before = march.launches_smem
-    ms = time_ms(torch, lambda: march(*args, n, nT), kernel_reps)
+    ms = kernel_ms(torch, lambda: march(*args, n, nT), kernel_reps)
     if march.launches_smem <= before:
         raise AssertionError("K3's warp-route launch count did not move")
-    first_ms = time_ms(torch, lambda: cn1d_tv_fused._launch_first(*args, n, nT, 0.5),
-                       kernel_reps)
+    first_ms = kernel_ms(torch, lambda: cn1d_tv_fused._launch_first(*args, n, nT, 0.5),
+                         kernel_reps)
     plain_ms = time_ms(torch, lambda: plain(*args, n, nT, 0.5), plain_reps)
     emit(phase="kernel_timing", kernel="K3", B=B, grid=[n, nT], kernel_ms=ms,
          first_design_ms=first_ms, plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
@@ -410,7 +442,7 @@ def phase_k4(torch, dev, grid=BS_GRID, B=BS_B, plain_reps=1, kernel_reps=20):
 
     args = bs_inputs(torch, dev, B, torch.ones(B, device=dev), grid)
     before = march.launches
-    ms = time_ms(torch, lambda: march(*args, n, nT), kernel_reps)
+    ms = kernel_ms(torch, lambda: march(*args, n, nT), kernel_reps)
     if march.launches <= before:
         raise AssertionError("K4's launch count did not move")
     plain_ms = time_ms(torch, lambda: plain(*args, n, nT, 0.5), plain_reps)
@@ -662,26 +694,48 @@ def k2_inputs(torch, dev, p):
 
 
 def phase_k2(torch, dev, plain_reps=1, kernel_reps=20):
-    """K2 against its plain twin at the bench grid, three cases."""
+    """K2 against its plain twin, three cases a grid: the shared-memory
+    route at 16x8, 40x20, the bench grid and 160x50 (bands read in place),
+    the first design at the bench grid (where it ran before that route
+    existed) and on a grid too large for that route (200x100), each public
+    call checked to have taken its route.  Both designs are timed at the
+    bench grid, each launched on inputs stacked once."""
     from pde_tpu_torch.ops import adi_fused
 
     march, plain = adi_fused.fused_douglas_march, adi_fused._fused_douglas_march_plain
-    size = (GRID["n_spot"], GRID["n_vol"], GRID["n_time"])
+    nT = GRID["n_time"]
+    size = (GRID["n_spot"], GRID["n_vol"], nT)
     worst = 0.0
-    for name, over in K2_CASES:
-        args = k2_inputs(torch, dev, heston_params(**over))
-        V = march(*args, *size)
-        P = plain(*adi_fused._stack_single(*args), *size)
-        worst = max(worst, compare(torch, dev, V, P, kernel="K2", case=name))
+    for nS, nv in ((16, 8), (40, 20), size[:2], (160, 50), (200, 100)):
+        plan = adi_fused._smem_plan_single(nS, nv)
+        for name, over in K2_CASES:
+            args = k2_inputs(torch, dev, heston_params(n_spot=nS, n_vol=nv, **over))
+            stacked = adi_fused._stack_single(*args)
+            before = march.launches_smem
+            V = march(*args, nS, nv, nT)
+            if (march.launches_smem > before) != (plan is not None):
+                raise AssertionError(f"K2 at {nS}x{nv} did not take the "
+                                     f"{'shared-memory' if plan else 'first'} route")
+            P = plain(*stacked, nS, nv, nT)
+            route = "first" if plan is None else "smem" if plan[3] else "smem_bands_in_place"
+            worst = max(worst, compare(torch, dev, V, P, kernel="K2", grid=[nS, nv],
+                                       route=route, case=name))
+            if (nS, nv) == size[:2]:
+                V = adi_fused._launch_single(*stacked, nS, nv, nT)
+                worst = max(worst, compare(torch, dev, V, P, kernel="K2", grid=[nS, nv],
+                                           route="first", case=name))
     args = k2_inputs(torch, dev, heston_params())
     stacked = adi_fused._stack_single(*args)
-    before = march.launches
-    ms = time_ms(torch, lambda: march(*args, *size), kernel_reps)
-    if march.launches <= before:
-        raise AssertionError("K2's launch count did not move")
+    plan = adi_fused._smem_plan_single(*size[:2])
+    before = march.launches_smem
+    ms = kernel_ms(torch, lambda: adi_fused._launch_single_smem(*stacked, *size, plan),
+                   kernel_reps)
+    if march.launches_smem <= before:
+        raise AssertionError("K2's shared-memory launch count did not move")
+    first_ms = kernel_ms(torch, lambda: adi_fused._launch_single(*stacked, *size), kernel_reps)
     plain_ms = time_ms(torch, lambda: plain(*stacked, *size), plain_reps)
     emit(phase="kernel_timing", kernel="K2", grid=list(size), kernel_ms=ms,
-         plain_ms=plain_ms)
+         first_design_ms=first_ms, plain_ms=plain_ms)
     # per node and step (csrc/adi_fused.cu): stencils and explicit rhs 22,
     # S sweep 5, rhs2 7, v sweep 5, floor 1 = 40
     nodes = size[0] * size[1]
@@ -690,29 +744,60 @@ def phase_k2(torch, dev, plain_reps=1, kernel_reps=20):
 
 
 def phase_k1_pcr(torch, dev, grid=GRID, B=BOOK_B, plain_reps=1, kernel_reps=20):
-    """K1's PCR sweeps against the plain twin's on the 512-book."""
+    """K1's PCR sweeps against the plain twin's, European and IT books: the
+    S sweep on the shared-memory route at B = 512, 130, 37 and 1 and on the
+    first design (where it ran before that route existed: B = 512), the v
+    sweep alone and with the S sweep on the first design (B = 512), each
+    public call checked to have taken its route.  Each variant is timed at
+    B = 512, the S sweep on both designs."""
     from pde_tpu_torch.ops import adi_fused
 
     march = adi_fused.fused_douglas_march_batched
     plain = adi_fused._fused_douglas_march_batched_plain
     size = (grid["n_spot"], grid["n_vol"], grid["n_time"])
-    mixed = (torch.arange(B) % 3 == 0).float()
     lev_s, lev_v = adi_fused._levels(size[0]), adi_fused._levels(size[1])
     out = {}
     for key, variant in (("K1-pcr_v", dict(pcr_v=True)), ("K1-pcr_s", dict(pcr_s=True)),
                          ("K1-pcr_v+s", dict(pcr_v=True, pcr_s=True))):
         worst = 0.0
-        for name, amer, use_it in (("european", torch.zeros(B), False),
-                                   ("american_it", mixed, True)):
-            args = book(torch, dev, B, amer, grid)
-            V = march(*args, *size, use_it=use_it, **variant)
-            P = plain(*args, *size, use_it, **variant)
-            worst = max(worst, compare(torch, dev, V, P, kernel=key, B=B, case=name))
+        pcr_v, pcr_s = variant.get("pcr_v", False), variant.get("pcr_s", False)
+        for b in (B, 130, 37, 1) if key == "K1-pcr_s" else (B,):
+            mixed = (torch.arange(b) % 3 == 0).float()
+            for name, amer, use_it in (("european", torch.zeros(b), False),
+                                       ("american_it", mixed, True)):
+                smem = adi_fused._route_plan(*size[:2], use_it, pcr_v, pcr_s) is not None
+                args = book(torch, dev, b, amer, grid)
+                before = (march.launches_smem, march.launches_pcr_s_smem)
+                V = march(*args, *size, use_it=use_it, **variant)
+                moved = (march.launches_smem > before[0], march.launches_pcr_s_smem > before[1])
+                if moved != (smem, smem):
+                    raise AssertionError(f"{key} did not take the "
+                                         f"{'shared-memory' if smem else 'first'} route")
+                P = plain(*args, *size, use_it, **variant)
+                worst = max(worst, compare(torch, dev, V, P, kernel=key, B=b,
+                                           route="smem" if smem else "first", case=name))
+                if smem and b == B:
+                    V = adi_fused._launch(*args, *size, use_it, False, True)
+                    worst = max(worst, compare(torch, dev, V, P, kernel=key, B=b,
+                                               route="first", case=name))
         args = book(torch, dev, B, torch.zeros(B), grid)
-        ms = time_ms(torch, lambda: march(*args, *size, **variant), kernel_reps)
+        ms = kernel_ms(torch, lambda: march(*args, *size, **variant), kernel_reps)
+        first_ms, wave_ms = None, {}
+        if key == "K1-pcr_s":
+            first_ms = kernel_ms(torch,
+                                 lambda: adi_fused._launch(*args, *size, False, False, True),
+                                 kernel_reps)
+            # one wave of the shared-memory route (one block an SM) and a
+            # quarter wave: equal times mean each SM's own work binds, a
+            # shorter quarter wave the stream through device memory
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            for b in (sms, sms // 4):
+                sub = book(torch, dev, b, torch.zeros(b), grid)
+                wave_ms[b] = kernel_ms(torch, lambda: march(*sub, *size, **variant), kernel_reps)
         plain_ms = time_ms(torch, lambda: plain(*args, *size, False, **variant), plain_reps)
         emit(phase="kernel_timing", kernel=key, B=B, grid=list(size), kernel_ms=ms,
-             plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3)
+             first_design_ms=first_ms, plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
+             kernel_ms_at_B=wave_ms)
         # K1's 38 flops a node and step with a PCR sweep in place of a
         # Thomas sweep (5): 4 a level and 1 for the final 1/d
         flops = 38.0 + sum(4.0 * lev + 1.0 - 5.0 for lev, on in
@@ -796,7 +881,7 @@ def k5_timing(torch, dev, lower, diag, upper, rhs, kernel_reps=20, plain_reps=3,
     x, C = (torch.empty((n, B), device=dev) for _ in range(2))
     ptrs = [t.data_ptr() for t in (*ins, x, C)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = time_ms(torch, lambda: fn(*ptrs, B, n, stream), kernel_reps)
+    ms = kernel_ms(torch, lambda: fn(*ptrs, B, n, stream), kernel_reps)
     plain_ms = time_ms(torch, lambda: tridiag._thomas_batched_plain(*system), plain_reps)
     torch.backends.cuda.matmul.allow_tf32 = False
     A, b = dense(torch, lower, diag, upper), rhs[..., None]
@@ -826,7 +911,7 @@ def k6_timing(torch, dev, lower, diag, upper, b, g, x0=None, omega=1.5,
     ptrs = [t.data_ptr() for t in ins] + [None if x0c is None else x0c.data_ptr(),
                                           x.data_ptr()]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = time_ms(torch, lambda: fn(*ptrs, B, n, n_iter, float(omega), stream), kernel_reps)
+    ms = kernel_ms(torch, lambda: fn(*ptrs, B, n, n_iter, float(omega), stream), kernel_reps)
     plain_ms = time_ms(torch, lambda: lcp._projected_sor(lower, diag, upper, b, g, x0,
                                                          omega, n_iter), plain_reps)
     # per row and sweep: neighbours 3, Gauss-Seidel value 2, relaxation 3,
@@ -1275,6 +1360,7 @@ def main() -> None:
     t0 = time.perf_counter()
     sources = dict.fromkeys(k["source"].rsplit("/", 1)[1] for k in KERNELS.values())
     built = build.load_libraries(*sources)
+    nS_nv = (GRID["n_spot"], GRID["n_vol"])
     emit(phase="build", seconds=time.perf_counter() - t0,
          ptxas={src: [ln.strip() for ln in log.splitlines()
                       if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -1282,18 +1368,22 @@ def main() -> None:
          # dynamic shared memory per block of the redesigned routes at the
          # bench shapes (ptxas reports static shared memory only)
          smem_bytes_per_block={
-             "K1 (100x50)": adi_fused._smem_plan(GRID["n_spot"], GRID["n_vol"], False)[3],
-             "K1 (100x50, use_it)": adi_fused._smem_plan(GRID["n_spot"], GRID["n_vol"],
-                                                         True)[3],
+             "K1 (100x50)": adi_fused._smem_plan(*nS_nv, False)[3],
+             "K1 (100x50, use_it)": adi_fused._smem_plan(*nS_nv, True)[3],
+             "K1-pcr_s (100x50)": adi_fused._smem_plan(*nS_nv, False, True)[3],
+             "K1-pcr_s (100x50, use_it)": adi_fused._smem_plan(*nS_nv, True, True)[3],
+             "K2 (100x50)": adi_fused._smem_plan_single(*nS_nv)[4],
              "K3 (n=200)": cn1d_tv_fused._smem_bytes(LV_GRID["n_space"])})
 
-    # each kernel's launch count: (wrapper, attribute); the launches of K1's
-    # and K3's redesigned routes and of K1's PCR variants are counted apart
-    # from their launches of every kind
-    k1, k3 = adi_fused.fused_douglas_march_batched, cn1d_tv_fused.fused_cn_march_1d_tv
+    # each kernel's launch count: (wrapper, attribute); the launches of the
+    # redesigned routes of K1 (Thomas and PCR S sweep), K2 and K3 and of
+    # K1's PCR variants are counted apart from their launches of every kind
+    k1, k2 = adi_fused.fused_douglas_march_batched, adi_fused.fused_douglas_march
+    k3 = cn1d_tv_fused.fused_cn_march_1d_tv
     counters = {"K1": (k1, "launches"), "K1-smem": (k1, "launches_smem"),
                 "K1-pcr_v": (k1, "launches_pcr_v"), "K1-pcr_s": (k1, "launches_pcr_s"),
-                "K2": (adi_fused.fused_douglas_march, "launches"),
+                "K1-pcr_s-smem": (k1, "launches_pcr_s_smem"),
+                "K2": (k2, "launches"), "K2-smem": (k2, "launches_smem"),
                 "K3": (k3, "launches"), "K3-smem": (k3, "launches_smem"),
                 "K4": (cn1d_fused.fused_cn_march_1d, "launches"),
                 "K5": (tridiag.thomas_batched, "launches"),
@@ -1333,11 +1423,13 @@ def main() -> None:
     path(phase_sabr, torch, dev)
     counts, scan = path(phase_heston_scan, torch, dev, needs=("K5",))
     launches["K5"] = counts["K5"]
-    launches["K2"] = path(phase_heston_fused, torch, dev, scan, needs=("K2",))[0]["K2"]
-    path(phase_heston_lcp, torch, dev, needs=("K5", "K2"))
+    launches["K2"] = path(phase_heston_fused, torch, dev, scan,
+                          needs=("K2", "K2-smem"))[0]["K2"]
+    path(phase_heston_lcp, torch, dev, needs=("K5", "K2", "K2-smem"))
     path(phase_heston_surface, torch, dev, needs=("K5", "K1", "K1-smem"))
     path(phase_greeks, torch, dev)
-    counts = path(phase_pcr_book, torch, dev, needs=("K1-pcr_v", "K1-pcr_s"))[0]
+    counts = path(phase_pcr_book, torch, dev,
+                  needs=("K1-pcr_v", "K1-pcr_s", "K1-pcr_s-smem"))[0]
     launches.update({k: counts[k] for k in ("K1-pcr_v", "K1-pcr_s")})
     launches["K6"] = path(phase_bs_solve, torch, dev, needs=("K5", "K6"))[0]["K6"]
     path(phase_tridiagonal_solve, torch, dev, needs=("K5",))

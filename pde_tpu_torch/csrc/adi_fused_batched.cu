@@ -53,22 +53,46 @@
 //   update, the Dirichlet rows and the floor in its last: two barriers a
 //   step.
 //
+// The PCR S sweep on the shared-memory route (douglas_march_smem<true>,
+// pcr_s without pcr_v; the reference's adi_fused.py:396-419, :495-504):
+// the S sweep becomes parallel cyclic reduction, levels_S (7 at nS = 100)
+// levels rr_i += alpha_i rr_{i-s} + beta_i rr_{i+s}, then one multiply by
+// 1/d.  The level coefficients depend only on the time-independent bands;
+// the identity rows couple in, so they are not i-independent: 2 levels_S
+// nS nv floats an option, 300 KB at 100x50, too many for shared memory.
+// * Each column's rows belong to one lane group inside a warp (8 lanes,
+//   chunks of 13 rows at 100x50), so a level needs only __syncwarp.  R and
+//   a ping-pong grid PP hold rr in shared memory, the final 1/d sits in
+//   INV1's place.
+// * Before the march each lane group computes its column's levels in
+//   shared memory (the arithmetic of pcr_factor) and writes alpha and beta
+//   to TAB in device memory in the order the march reads them: level,
+//   alpha/beta, row of the chunk, S-sweep thread.  A warp's reads of one
+//   row then take 32 consecutive floats.
+// * During the march each thread streams its own rows of the next level
+//   (after the last level, the next step's first) into a double buffer in
+//   shared memory with cp.async while the level before runs; a thread
+//   reads only what it copied, so the copy needs no barrier.
+// * What bounds it: the coefficient stream, 15.4 GB over the march at
+//   B = 512, 100x50x100: 4.6 ms at the HBM rate, less where the resident
+//   blocks' tables (132 x 291 KB = 38 MB) stay in the 50 MB L2.  The block
+//   holds 170.2 KB (191.0 KB with use_it) at 100x50: one block an SM.
+//
 // The first design (douglas_march_batched: one 128-thread block per option,
 // state in device-memory scratch, one thread per line) stays for what the
 // shared-memory route does not take, chosen by the wrapper from the
-// arguments: the PCR variants, and grids whose state exceeds the 227 KB a
-// block can have (200x100 is one: 80 KB a field).
+// arguments: the PCR v sweep (pcr_v, alone or with pcr_s), and grids whose
+// state exceeds the 227 KB a block can have (200x100 is one: 80 KB a field).
 //
-// PCR variants (pcr_v, pcr_s; the reference's adi_fused.py:396-419,
-// :438-466, :495-546): a sweep becomes parallel cyclic reduction, log2 n
-// levels of whole-grid updates rr = rr + alpha rr[-s] + beta rr[+s] with
-// all threads busy and a barrier per level, then one multiply by 1/d.  The
-// level coefficients depend only on the time-independent bands, so they
-// are computed once before the march: alpha and beta for each level and
-// the final 1/d, per (j, option) for v (2 levels_v nv + nv floats, in the
-// c2/inv2 slots) and per (i, j, option) for S (2 levels_S nS nv + nS nv:
-// the identity rows couple in, so they do not stay i-independent).  The
-// level recurrence itself ping-pongs six band arrays through WORK.
+// PCR variants of the first design (pcr_v, pcr_s; the reference's
+// adi_fused.py:396-419, :438-466, :495-546): a sweep becomes parallel
+// cyclic reduction, log2 n levels of whole-grid updates
+// rr = rr + alpha rr[-s] + beta rr[+s] with all threads busy and a barrier
+// per level, then one multiply by 1/d.  The level coefficients are computed
+// once before the march: alpha and beta for each level and the final 1/d,
+// per (j, option) for v (2 levels_v nv + nv floats, in the c2/inv2 slots)
+// and per (i, j, option) for S (2 levels_S nS nv + nS nv).  The level
+// recurrence itself ping-pongs six band arrays through WORK.
 //
 // Layout: option-major and contiguous, (B, nS, nv) for every grid field,
 // (B, 3, nv) for the band triples [lo, di, up], (B, nv) for mix, c2 and
@@ -76,16 +100,18 @@
 // spot grid, (B, 8) for the scalars dt, r, q, K, is_call, american;
 // SAB (B, 2 levels_S nS nv) and SINVD (B, nS nv) with pcr_s; WORK
 // (B, 6 nS nv) with pcr_s, else (B, 6 nv) with pcr_v.  The shared-memory
-// route takes the inputs and V only.  The kernels allocate nothing and do
-// not synchronise; they run on the caller's stream.
+// route takes the inputs, V and, with pcr_s, TAB.  The kernels allocate
+// nothing and do not synchronise; they run on the caller's stream.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "lane_scan.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;       // first design: one thread per line
 constexpr int kSmemThreads = 512;   // shared-memory design: g lanes per line
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTheta = 0.5f;  // Douglas parameter
 
 // PCR levels of an n-long sweep: strides 1, 2, 4, ... below n
@@ -376,44 +402,52 @@ douglas_march_batched(const float* __restrict__ pay, const float* __restrict__ s
   }
 }
 
-// Value entering this lane's chunk of a line split over the g lanes of a
-// group (g a power of two, groups aligned within the warp): an inclusive
-// scan of the chunks' affine maps x -> P x + Q, in lane order (forward) or
-// in reverse, applied to 0 and taken from the neighbouring lane.  Every
-// lane of the warp must call it.
-__device__ __forceinline__ float scan_entry(float P, float Q, int g, int lane,
-                                            bool reverse) {
-  for (int off = 1; off < g; off <<= 1) {
-    const float Pn = reverse ? __shfl_down_sync(kFull, P, off, g)
-                             : __shfl_up_sync(kFull, P, off, g);
-    const float Qn = reverse ? __shfl_down_sync(kFull, Q, off, g)
-                             : __shfl_up_sync(kFull, Q, off, g);
-    if (reverse ? lane + off < g : lane >= off) {
-      Q = P * Qn + Q;
-      P = P * Pn;
-    }
-  }
-  const float x = reverse ? __shfl_down_sync(kFull, Q, 1, g)
-                          : __shfl_up_sync(kFull, Q, 1, g);
-  return (reverse ? lane + 1 < g : lane >= 1) ? x : 0.f;
+// Floats of the PCR S sweep's coefficient double buffer: two levels of
+// alpha and beta for each S-sweep thread's chunk of cs rows, and room for
+// the three bands the factorisation ping-pongs before the march (wrapper:
+// ops/adi_fused._pcr_buffer).
+__device__ __forceinline__ int pcr_buffer_floats(int nS, int ps, int cs, int nthr) {
+  return max(4 * cs * nthr, 3 * nS * ps);
 }
 
-__global__ void __launch_bounds__(kSmemThreads, 2)
+// Stream this thread's alpha and beta of one level (rows r < rows of its
+// chunk) from the table into a slot of the double buffer, 4 bytes a copy;
+// a warp's copies of one row read 32 consecutive floats.
+__device__ __forceinline__ void fetch_level(float* slot, const float* level, int rows,
+                                            int cs, int nthr, int tid) {
+  for (int r = 0; r < rows; ++r) {
+    __pipeline_memcpy_async(slot + r * nthr + tid, level + r * nthr + tid, sizeof(float));
+    __pipeline_memcpy_async(slot + (cs + r) * nthr + tid, level + (cs + r) * nthr + tid,
+                            sizeof(float));
+  }
+}
+
+// kPcrS: the S sweep is PCR (the reference's adi_fused.py:396-419,
+// :495-504) on the level coefficients in TAB, else the lane-group Thomas
+// scan.  The stencil, the v sweep and the boundary update are shared.
+template <bool kPcrS>
+__global__ void __launch_bounds__(kSmemThreads, kPcrS ? 1 : 2)
 douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
                    const float* __restrict__ a1, const float* __restrict__ i1,
                    const float* __restrict__ a2, const float* __restrict__ i2,
                    const float* __restrict__ mix, const float* __restrict__ sc,
-                   float* __restrict__ Vout, int nS, int nv, int nT, int ps,
-                   int gs, int gv, int use_it) {
+                   float* __restrict__ Vout, float* __restrict__ TAB, int nS, int nv,
+                   int nT, int ps, int gs, int gv, int use_it) {
   extern __shared__ float sm[];
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x;
   const int np = nS * ps;
+  const int cs = (nS + gs - 1) / gs, cv = (nv + gv - 1) / gv;
+  const int nthr = nv * gs;  // threads of the S sweep (one round with kPcrS)
+  const int levels = pcr_levels(nS);
+  const int lev_floats = 2 * cs * nthr;  // alpha and beta of one level
   float* V = sm;
   float* R = V + np;
-  float* INV1 = R + np;
+  float* INV1 = R + np;    // 1/pivot of the S system; with kPcrS the final 1/d
   float* LAM = INV1 + np;  // np floats with use_it, else none
-  float* A1 = LAM + (use_it ? np : 0);
+  float* PP = LAM + (use_it ? np : 0);  // kPcrS: the ping-pong grid
+  float* CB = PP + (kPcrS ? np : 0);    // kPcrS: the coefficient double buffer
+  float* A1 = CB + (kPcrS ? pcr_buffer_floats(nS, ps, cs, nthr) : 0);
   float* I1 = A1 + 3 * nv;
   float* A2 = I1 + 3 * nv;
   float* I2 = A2 + 3 * nv;
@@ -422,6 +456,7 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
   float* IV2 = C2 + nv;
   float* PAY = IV2 + nv;
   float* SG = PAY + nS;
+  if (kPcrS) TAB += b * levels * lev_floats;
 
   for (int k = tid; k < 3 * nv; k += kSmemThreads) {
     A1[k] = a1[b * 3 * nv + k];
@@ -442,7 +477,65 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
   const float *i1L = I1, *i1D = I1 + nv, *i1U = I1 + 2 * nv;
   const float *a2L = A2, *a2D = A2 + nv, *a2U = A2 + 2 * nv;
   const float *i2L = I2, *i2D = I2 + nv, *i2U = I2 + 2 * nv;
+  const int lane_s = tid % gs, lane_v = tid % gv;
   __syncthreads();
+
+  if (kPcrS) {
+    // S-system PCR levels, each column's by its lane group (the arithmetic
+    // of pcr_factor), rows 0 and nS-1 identity.  lo, up, di ping-pong
+    // through V, R, PP and CB, free until the march; alpha and beta go to
+    // TAB in the order the march streams them, 1/d to INV1.
+    const int j = tid / gs;
+    const int i_beg = min(nS, lane_s * cs);
+    const int i_end = j < nv ? min(nS, i_beg + cs) : i_beg;
+    float *lo = V, *up = R, *di = PP, *lo2 = CB, *up2 = CB + np, *di2 = CB + 2 * np;
+    for (int i = i_beg; i < i_end; ++i) {
+      const float mi = (i > 0 && i < nS - 1) ? 1.f : 0.f;
+      lo[i * ps + j] = i1L[j] * mi;
+      up[i * ps + j] = i1U[j] * mi;
+      di[i * ps + j] = i1D[j] * mi + (1.f - mi);
+    }
+    __syncwarp();
+    for (int lev = 0; lev < levels; ++lev) {
+      const int s = 1 << lev, sp = s * ps;
+      float* tab = TAB + lev * lev_floats;
+      for (int i = i_beg; i < i_end; ++i) {
+        const int k = i * ps + j, row = i - i_beg;
+        const bool has_lo = i >= s, has_hi = i < nS - s;
+        const float in_lo = has_lo ? 1.f : 0.f, in_hi = has_hi ? 1.f : 0.f;
+        const float d_dn = (has_lo ? di[k - sp] : 0.f) + (1.f - in_lo);
+        const float d_up = (has_hi ? di[k + sp] : 0.f) + (1.f - in_hi);
+        const float alpha = -(lo[k] * in_lo) / d_dn;
+        const float beta = -(up[k] * in_hi) / d_up;
+        tab[row * nthr + tid] = alpha;
+        tab[(cs + row) * nthr + tid] = beta;
+        lo2[k] = alpha * (has_lo ? lo[k - sp] : 0.f);
+        up2[k] = beta * (has_hi ? up[k + sp] : 0.f);
+        di2[k] = di[k] + alpha * (has_lo ? up[k - sp] : 0.f) +
+                 beta * (has_hi ? lo[k + sp] : 0.f);
+      }
+      __syncwarp();
+      float* t;
+      t = lo; lo = lo2; lo2 = t;
+      t = up; up = up2; up2 = t;
+      t = di; di = di2; di2 = t;
+    }
+    for (int i = i_beg; i < i_end; ++i) INV1[i * ps + j] = 1.f / di[i * ps + j];
+    __syncthreads();  // the scratch is free again; TAB is written
+  } else {
+    // S-system reciprocal pivots, one thread per column j; rows 0 and nS-1
+    // are identity (inv = 1, c = 0).  The arithmetic of the first design.
+    for (int j = tid; j < nv; j += kSmemThreads) {
+      INV1[j] = 1.f;
+      float c = 0.f;
+      for (int i = 1; i < nS - 1; ++i) {
+        const float inv = 1.f / (i1D[j] - i1L[j] * c);
+        c = i1U[j] * inv;
+        INV1[i * ps + j] = inv;
+      }
+      INV1[(nS - 1) * ps + j] = 1.f;
+    }
+  }
 
   // V starts at the payoff (constant along v); lambda at zero
   for (int k = tid; k < nS * nv; k += kSmemThreads) {
@@ -450,19 +543,7 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
     V[i * ps + j] = PAY[i];
     if (use_it) LAM[i * ps + j] = 0.f;
   }
-  // S-system reciprocal pivots, one thread per column j; rows 0 and nS-1
-  // are identity (inv = 1, c = 0).  v-system factors by one thread of
-  // another warp.  The arithmetic of the first design.
-  for (int j = tid; j < nv; j += kSmemThreads) {
-    INV1[j] = 1.f;
-    float c = 0.f;
-    for (int i = 1; i < nS - 1; ++i) {
-      const float inv = 1.f / (i1D[j] - i1L[j] * c);
-      c = i1U[j] * inv;
-      INV1[i * ps + j] = inv;
-    }
-    INV1[(nS - 1) * ps + j] = 1.f;
-  }
+  // v-system factors by one thread of the last warp, as the first design
   if (tid == kSmemThreads - 32) {
     float c = i2U[0] / i2D[0];
     C2[0] = c;
@@ -474,12 +555,18 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
       IV2[j] = inv;
     }
   }
+  // kPcrS: this thread's rows of level 0 on their way to slot 0
+  const int s_rows = max(0, min(nS - lane_s * cs, cs));
+  const int my_rows = kPcrS && tid < nthr ? s_rows : 0;
+  if (kPcrS) {
+    fetch_level(CB, TAB, my_rows, cs, nthr, tid);
+    __pipeline_commit();
+  }
   __syncthreads();
 
   const float dt_a1 = (1.f - kTheta) * dt;
   const float th_dt = kTheta * dt;
-  const int lane_s = tid % gs, lane_v = tid % gv;
-  const int cs = (nS + gs - 1) / gs, cv = (nv + gv - 1) / gv;
+  int seq = 0;  // kPcrS: levels streamed so far; level seq sits in slot seq % 2
 
   for (int step = 0; step < nT; ++step) {
     // 1-2. explicit rhs and the implicit S sweep, gs lanes per column j
@@ -491,7 +578,7 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
       const bool lo_j = j > 0, hi_j = j < nv - 1;
       const float l = act ? i1L[j] : 0.f, u = act ? i1U[j] : 0.f;
       // pass 1: rhs = V + dt A0 V + (1-th) dt A1 V + dt A2 V (+ dt lambda)
-      // into R, and the chunk's forward-sweep map
+      // into R, and (Thomas) the chunk's forward-sweep map
       float P = 1.f, Q = 0.f;
       for (int i = i_beg; i < i_end; ++i) {
         const int k = i * ps + j;
@@ -513,34 +600,68 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
         acc = acc + dt * a2v;
         if (use_it) acc = acc + dt * LAM[k];
         R[k] = acc;
-        const float li = inner ? l : 0.f;
-        const float inv = INV1[k];
-        Q = (acc - li * Q) * inv;
-        P = -(li * P) * inv;
+        if (!kPcrS) {
+          const float li = inner ? l : 0.f;
+          const float inv = INV1[k];
+          Q = (acc - li * Q) * inv;
+          P = -(li * P) * inv;
+        }
       }
-      // pass 2: the forward sweep d_i = (R_i - l d_{i-1}) inv_i, in place
-      float d = scan_entry(P, Q, gs, lane_s, false);
-      for (int i = i_beg; i < i_end; ++i) {
-        const int k = i * ps + j;
-        const float li = (i > 0 && i < nS - 1) ? l : 0.f;
-        d = (R[k] - li * d) * INV1[k];
-        R[k] = d;
-      }
-      // passes 3-4: the back substitution y_i = d_i - c_i y_{i+1}, in place
-      P = 1.f;
-      Q = 0.f;
-      for (int i = i_end - 1; i >= i_beg; --i) {
-        const int k = i * ps + j;
-        const float ci = (i > 0 && i < nS - 1) ? u * INV1[k] : 0.f;
-        Q = R[k] - ci * Q;
-        P = -(ci * P);
-      }
-      float y = scan_entry(P, Q, gs, lane_s, true);
-      for (int i = i_end - 1; i >= i_beg; --i) {
-        const int k = i * ps + j;
-        const float ci = (i > 0 && i < nS - 1) ? u * INV1[k] : 0.f;
-        y = R[k] - ci * y;
-        R[k] = y;
+      if (kPcrS) {
+        // the PCR levels rr_i += alpha_i rr_{i-s} + beta_i rr_{i+s}, R and
+        // PP in turns, the lanes of the column in one warp; each level's
+        // coefficients arrived while the level before ran, and the next
+        // level's (after the last, the next step's first) start now
+        __syncwarp();
+        float *src = R, *dst = PP;
+        for (int lev = 0; lev < levels; ++lev, ++seq) {
+          if (seq + 1 < nT * levels) {
+            const int nxt = lev + 1 < levels ? lev + 1 : 0;
+            fetch_level(CB + ((seq + 1) & 1) * lev_floats, TAB + nxt * lev_floats, my_rows,
+                        cs, nthr, tid);
+          }
+          __pipeline_commit();
+          __pipeline_wait_prior(1);
+          const float* alpha = CB + (seq & 1) * lev_floats;
+          const float* beta = alpha + cs * nthr;
+          const int s = 1 << lev, sp = s * ps;
+          for (int i = i_beg; i < i_end; ++i) {
+            const int k = i * ps + j, e = (i - i_beg) * nthr + tid;
+            const float dn = i >= s ? src[k - sp] : 0.f;
+            const float up = i < nS - s ? src[k + sp] : 0.f;
+            dst[k] = src[k] + alpha[e] * dn + beta[e] * up;
+          }
+          __syncwarp();
+          float* t = src;
+          src = dst;
+          dst = t;
+        }
+        for (int i = i_beg; i < i_end; ++i) R[i * ps + j] = src[i * ps + j] * INV1[i * ps + j];
+      } else {
+        // pass 2: the forward sweep d_i = (R_i - l d_{i-1}) inv_i, in place
+        float d = scan_entry(P, Q, gs, lane_s, false);
+        for (int i = i_beg; i < i_end; ++i) {
+          const int k = i * ps + j;
+          const float li = (i > 0 && i < nS - 1) ? l : 0.f;
+          d = (R[k] - li * d) * INV1[k];
+          R[k] = d;
+        }
+        // passes 3-4: the back substitution y_i = d_i - c_i y_{i+1}, in place
+        P = 1.f;
+        Q = 0.f;
+        for (int i = i_end - 1; i >= i_beg; --i) {
+          const int k = i * ps + j;
+          const float ci = (i > 0 && i < nS - 1) ? u * INV1[k] : 0.f;
+          Q = R[k] - ci * Q;
+          P = -(ci * P);
+        }
+        float y = scan_entry(P, Q, gs, lane_s, true);
+        for (int i = i_end - 1; i >= i_beg; --i) {
+          const int k = i * ps + j;
+          const float ci = (i > 0 && i < nS - 1) ? u * INV1[k] : 0.f;
+          y = R[k] - ci * y;
+          R[k] = y;
+        }
       }
     }
     __syncthreads();
@@ -614,6 +735,22 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
   }
 }
 
+template <bool kPcrS>
+int launch_smem(const float* pay, const float* sg, const float* a1, const float* i1,
+                const float* a2, const float* i2, const float* mix, const float* sc,
+                float* V, float* TAB, int B, int nS, int nv, int nT, int ps, int gs,
+                int gv, int use_it, int smem_bytes, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(douglas_march_smem<kPcrS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 0) {
+    douglas_march_smem<kPcrS><<<B, kSmemThreads, smem_bytes, stream>>>(
+        pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, nS, nv, nT, ps, gs, gv, use_it);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C interface, bound with ctypes.  Pointers are device pointers of
@@ -638,26 +775,24 @@ extern "C" int pde_adi_fused_batched(const float* pay, const float* sg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The shared-memory route: inputs as above, V (B, nS, nv) the output;
-// ps the padded row stride, gs and gv the lanes per S column and per v row
-// (powers of two up to 32), smem_bytes the block's dynamic shared memory
-// (at most 227 KB).  Returns the first CUDA error of the attribute call or
-// the launch (0 = launched).
+// The shared-memory route: inputs as above, V (B, nS, nv) the output; with
+// pcr_s the S sweep is PCR and TAB (B, levels_S, 2, cs, nv gs) receives the
+// level coefficients (null without pcr_s); ps the padded row stride, gs and
+// gv the lanes per S column and per v row (powers of two up to 32; with
+// pcr_s nv gs <= 512), smem_bytes the block's dynamic shared memory (at
+// most 227 KB).  Returns the first CUDA error of the attribute call or the
+// launch (0 = launched).
 extern "C" int pde_adi_fused_batched_smem(const float* pay, const float* sg,
                                           const float* a1, const float* i1,
                                           const float* a2, const float* i2,
                                           const float* mix, const float* sc,
-                                          float* V, int B, int nS, int nv,
-                                          int nT, int ps, int gs, int gv,
-                                          int use_it, int smem_bytes,
+                                          float* V, float* TAB, int B, int nS,
+                                          int nv, int nT, int ps, int gs, int gv,
+                                          int use_it, int pcr_s, int smem_bytes,
                                           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      douglas_march_smem, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0) {
-    douglas_march_smem<<<B, kSmemThreads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-        pay, sg, a1, i1, a2, i2, mix, sc, V, nS, nv, nT, ps, gs, gv, use_it);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pcr_s ? launch_smem<true>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv,
+                                   nT, ps, gs, gv, use_it, smem_bytes, s)
+               : launch_smem<false>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv,
+                                    nT, ps, gs, gv, use_it, smem_bytes, s);
 }

@@ -10,21 +10,25 @@ Dirichlet rows.
 * :func:`fused_douglas_march_batched` (K1) marches a BOOK on K-scaled log
   grids.  A CUDA tensor launches ``csrc/adi_fused_batched.cu`` or raises; a
   CPU tensor runs :func:`_fused_douglas_march_batched_plain`, the same step
-  order in tensor ops over (nS, nv, B).  On the card the Thomas march runs
-  one 512-thread block per option with its state in shared memory, each
+  order in tensor ops over (nS, nv, B).  On the card the march runs one
+  512-thread block per option with its state in shared memory, each Thomas
   sweep spread over a group of lanes as a chunked affine scan
-  (:func:`_smem_plan` sizes it); the PCR variants (``pcr_v``/``pcr_s``,
-  level coefficients computed once before the march) and grids whose state
-  exceeds a block's 227 KB run the first design, one 128-thread block per
-  option with its state in device memory.  The public layout is the
-  reference's ``(…, B)`` (batch last); the CUDA wrapper permutes to
-  option-major ``(B, nS, nv)`` and back.
+  (:func:`_smem_plan` sizes it); with ``pcr_s`` the S sweep is PCR on the
+  same route, its level coefficients computed once before the march and
+  streamed a level ahead into shared memory.  The PCR v sweep (``pcr_v``,
+  alone or with ``pcr_s``) and grids whose state exceeds a block's 227 KB
+  run the first design, one 128-thread block per option with its state in
+  device memory.  The public layout is the reference's ``(…, B)`` (batch
+  last); the CUDA wrapper permutes to option-major ``(B, nS, nv)`` and back.
 * :func:`fused_douglas_march` (K2) marches ONE option on a general (nS, nv)
   grid with row-aligned bands.  A CUDA tensor launches ``csrc/adi_fused.cu``
-  (one thread block) or raises; a CPU tensor runs
-  :func:`_fused_douglas_march_plain`.  Its step order is the reference
-  kernel's own, not K1's: ``Y0 = V + dt (A0 V + A1 V + A2 V + lam)``, then
-  ``Y0 - th dt A1 V`` into the S sweep.
+  or raises: one 1024-thread block with its state in shared memory and
+  lane-group scans (:func:`_smem_plan_single`), or, for grids too large
+  for that, the first design, one 256-thread block with its state in
+  device memory.  A CPU tensor runs :func:`_fused_douglas_march_plain`.
+  Its step order is the reference kernel's own, not K1's:
+  ``Y0 = V + dt (A0 V + A1 V + A2 V + lam)``, then ``Y0 - th dt A1 V`` into
+  the S sweep.
 
 The tests hold each plain twin against the reference's Pallas kernel, and
 ``chip_smoke.py`` holds each CUDA kernel against its twin on the card.
@@ -45,7 +49,8 @@ __all__ = ["fused_douglas_march", "fused_douglas_march_batched"]
 _SOURCE = "adi_fused_batched.cu"
 _SOURCE_SINGLE = "adi_fused.cu"
 _TH = 0.5  # Douglas parameter
-_SMEM_THREADS = 512   # threads of a shared-memory block (csrc kSmemThreads)
+_SMEM_THREADS = 512   # threads of K1's shared-memory block (csrc kSmemThreads)
+_K2_THREADS = 1024    # threads of K2's shared-memory block (adi_fused.cu kSmemThreads)
 _SMEM_MAX = 232448    # bytes of shared memory one block can have (227 KB)
 
 
@@ -83,7 +88,8 @@ def fused_douglas_march_batched(
     multiply-adds per level.  ``launches`` counts the CUDA kernel's
     launches of either design; ``launches_smem`` those of them that ran
     the shared-memory design, ``launches_pcr_v`` and ``launches_pcr_s``
-    those that ran the PCR v or S sweep.
+    those that ran the PCR v or S sweep, ``launches_pcr_s_smem`` those
+    that ran the PCR S sweep on the shared-memory design.
     """
     args = (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)
     nS, nv, B = n_spot, n_vol, pay.shape[-1]
@@ -97,9 +103,9 @@ def fused_douglas_march_batched(
     if nS < 3 or nv < 3 or n_time < 1:
         raise ValueError("the march needs nS >= 3, nv >= 3 and n_time >= 1")
     if pay.device.type == "cuda":
-        plan = None if pcr_v or pcr_s else _smem_plan(nS, nv, use_it)
+        plan = _route_plan(nS, nv, use_it, pcr_v, pcr_s)
         if plan is not None:
-            return _launch_smem(*args, nS, nv, n_time, use_it, plan)
+            return _launch_smem(*args, nS, nv, n_time, use_it, pcr_s, plan)
         return _launch(*args, nS, nv, n_time, use_it, pcr_v, pcr_s)
     if pay.device.type == "cpu":
         return _fused_douglas_march_batched_plain(*args, nS, nv, n_time, use_it,
@@ -111,6 +117,7 @@ fused_douglas_march_batched.launches = 0
 fused_douglas_march_batched.launches_smem = 0
 fused_douglas_march_batched.launches_pcr_v = 0
 fused_douglas_march_batched.launches_pcr_s = 0
+fused_douglas_march_batched.launches_pcr_s_smem = 0
 
 
 def _library():
@@ -121,12 +128,12 @@ def _library():
     return fn
 
 
-def _lanes(lines: int, length: int) -> int:
-    """Lanes per line of a sweep on the shared-memory route: a power of two
-    up to 32, as many as keep ``lines`` x lanes within the block and at
-    least one row per lane."""
+def _lanes(lines: int, length: int, threads: int = _SMEM_THREADS) -> int:
+    """Lanes per line of a sweep on a shared-memory route: a power of two
+    up to 32, as many as keep ``lines`` x lanes within the block of
+    ``threads`` and at least one row per lane."""
     g = 1
-    while g < 32 and 2 * g * lines <= _SMEM_THREADS and 2 * g <= length:
+    while g < 32 and 2 * g * lines <= threads and 2 * g <= length:
         g *= 2
     return g
 
@@ -140,17 +147,11 @@ def _bank_degree(words) -> int:
     return max(per_bank.values())
 
 
-@functools.lru_cache(maxsize=None)
-def _smem_plan(nS: int, nv: int, use_it: bool):
-    """The shared-memory route's layout for an (nS, nv) grid: ``(ps, gs,
-    gv, n_bytes)`` — the padded row stride, the lanes per S column and per
-    v row, and the block's bytes of shared memory — or None when that
-    exceeds what a block can have.  ``ps`` is the least stride from nv to
-    nv + 31 whose first warp meets the fewest bank conflicts, summed over
-    the S sweep (lanes at rows lane*cs of columns j) and the v sweep (lanes
-    at columns lane*cv of rows i).  Cached: it depends on the shape only,
-    and every launch asks for it."""
-    gs, gv = _lanes(nv, nS), _lanes(nS, nv)
+def _stride(nS: int, nv: int, gs: int, gv: int) -> int:
+    """The padded row stride of a shared-memory route: the least stride
+    from nv to nv + 31 whose first warp meets the fewest bank conflicts,
+    summed over the S sweep (lanes at rows lane*cs of columns j) and the v
+    sweep (lanes at columns lane*cv of rows i)."""
     cs, cv = -(-nS // gs), -(-nv // gv)
 
     def conflicts(ps):
@@ -158,35 +159,81 @@ def _smem_plan(nS: int, nv: int, use_it: bool):
         v_words = [(t // gv) * ps + (t % gv) * cv for t in range(32)]
         return _bank_degree(s_words) + _bank_degree(v_words)
 
-    ps = min(range(nv, nv + 32), key=lambda p: (conflicts(p), p))
-    n_bytes = 4 * ((3 + int(use_it)) * nS * ps + 15 * nv + 2 * nS)
+    return min(range(nv, nv + 32), key=lambda p: (conflicts(p), p))
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_plan(nS: int, nv: int, use_it: bool, pcr_s: bool = False):
+    """The shared-memory route's layout for an (nS, nv) grid: ``(ps, gs,
+    gv, n_bytes)`` — the padded row stride (:func:`_stride`), the lanes per
+    S column and per v row, and the block's bytes of shared memory — or
+    None when that exceeds what a block can have.  With ``pcr_s`` the S
+    sweep is PCR: the block also holds the ping-pong grid and a double
+    buffer of level coefficients (:func:`_pcr_buffer`), and every column's
+    lane group must fit the block at once.  Cached: it depends on the shape
+    only, and every launch asks for it."""
+    gs, gv = _lanes(nv, nS), _lanes(nS, nv)
+    ps = _stride(nS, nv, gs, gv)
+    fields = 3 + int(use_it)           # V, R, 1/pivot (1/d with pcr_s), lambda
+    extra = 0
+    if pcr_s:
+        if nv * gs > _SMEM_THREADS:
+            return None
+        fields += 1                    # the ping-pong grid
+        extra = _pcr_buffer(nS, nv, ps, gs)
+    n_bytes = 4 * (fields * nS * ps + extra + 15 * nv + 2 * nS)
     return (ps, gs, gv, n_bytes) if n_bytes <= _SMEM_MAX else None
 
 
-def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, plan):
+def _pcr_buffer(nS: int, nv: int, ps: int, gs: int) -> int:
+    """Floats of the PCR S sweep's coefficient double buffer (csrc
+    ``pcr_buffer_floats``): two levels of alpha and beta for each S-sweep
+    thread's chunk of rows, and room for the three bands the factorisation
+    ping-pongs before the march."""
+    cs = -(-nS // gs)
+    return max(4 * cs * nv * gs, 3 * nS * ps)
+
+
+def _route_plan(nS: int, nv: int, use_it: bool, pcr_v: bool, pcr_s: bool):
+    """The plan of the shared-memory route that the flags and the grid take
+    (:func:`_smem_plan`), or None for the first design: the PCR v sweep, and
+    grids too large for a block."""
+    return None if pcr_v else _smem_plan(nS, nv, use_it, pcr_s)
+
+
+def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_s, plan):
     """The shared-memory route: permute to option-major, launch one block
-    per option on the current stream, permute back.  Allocates only V."""
+    per option on the current stream, permute back.  Allocates V and, with
+    ``pcr_s``, the table of S-sweep level coefficients (alpha and beta per
+    level, in the order the march streams them: level, alpha/beta, row of
+    the chunk, S-sweep thread)."""
     lib, _ = load_library(_SOURCE)
     fn = lib.pde_adi_fused_batched_smem
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ps, gs, gv, n_bytes = plan
     B = pay.shape[-1]
     ins = [a.permute(2, 0, 1).contiguous() for a in (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)]
     V = torch.empty((B, nS, nv), dtype=torch.float32, device=pay.device)
+    TAB = None
+    if pcr_s:
+        TAB = torch.empty(B * 2 * _levels(nS) * -(-nS // gs) * nv * gs, dtype=torch.float32,
+                          device=pay.device)
     stream = torch.cuda.current_stream(pay.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (*ins, V)), B, nS, nv, nT, ps, gs, gv, int(use_it),
-             n_bytes, stream)
+    err = fn(*(t.data_ptr() for t in (*ins, V)), None if TAB is None else TAB.data_ptr(),
+             B, nS, nv, nT, ps, gs, gv, int(use_it), int(pcr_s), n_bytes, stream)
     if err != 0:
         raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
     fused_douglas_march_batched.launches += 1
     fused_douglas_march_batched.launches_smem += 1
+    fused_douglas_march_batched.launches_pcr_s += int(pcr_s)
+    fused_douglas_march_batched.launches_pcr_s_smem += int(pcr_s)
     return V.permute(1, 2, 0)
 
 
 def _launch(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_v,
             pcr_s):
-    """The first design (the PCR variants, and grids too large for the
+    """The first design (the PCR v sweep, and grids too large for the
     shared-memory route): permute to option-major, launch on the current
     stream, permute back.  The PCR variants take their level coefficients in scratch: for v,
     2 levels_v nv alphas and betas in place of the Thomas c2 (and 1/d in
@@ -414,7 +461,8 @@ def fused_douglas_march(
     is set.  Inputs of any float dtype are cast to float32.  A CUDA tensor
     launches ``csrc/adi_fused.cu`` or raises; a CPU tensor runs
     :func:`_fused_douglas_march_plain`.  ``launches`` counts the kernel's
-    launches.
+    launches of either design, ``launches_smem`` those that ran the
+    shared-memory design.
     """
     nS, nv = n_spot, n_vol
     grid, vec, sg, sc = _stack_single(payoff, a1_bands, i1_bands, a2_bands, i2_bands,
@@ -427,6 +475,9 @@ def fused_douglas_march(
     if nS < 3 or nv < 3 or n_time < 1:
         raise ValueError("the march needs nS >= 3, nv >= 3 and n_time >= 1")
     if grid.device.type == "cuda":
+        plan = _smem_plan_single(nS, nv)
+        if plan is not None:
+            return _launch_single_smem(grid, vec, sg, sc, nS, nv, n_time, plan)
         return _launch_single(grid, vec, sg, sc, nS, nv, n_time)
     if grid.device.type == "cpu":
         return _fused_douglas_march_plain(grid, vec, sg, sc, nS, nv, n_time)
@@ -434,6 +485,49 @@ def fused_douglas_march(
 
 
 fused_douglas_march.launches = 0
+fused_douglas_march.launches_smem = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_plan_single(nS: int, nv: int):
+    """K2's shared-memory route for an (nS, nv) grid: ``(ps, gs, gv,
+    bands_smem, n_bytes)`` — the padded row stride (:func:`_stride`), the
+    lanes per S column and per v row of a 1024-thread block, whether the
+    (nS, nv) bands and the payoff also sit in shared memory, and the
+    block's bytes — or None when the state alone exceeds what a block can
+    have.  The state is V, R, 1/pivot and lambda on the padded grid (lambda
+    always: the it_lcp flag lies on the device) plus the v bands, mix, the
+    v factors, row 0's S factor (10 nv) and the spot grid; the six band
+    fields join it where they fit.  Cached per shape."""
+    gs, gv = _lanes(nv, nS, _K2_THREADS), _lanes(nS, nv, _K2_THREADS)
+    ps = _stride(nS, nv, gs, gv)
+    state = 4 * (4 * nS * ps + 10 * nv + nS)
+    if state > _SMEM_MAX:
+        return None
+    with_bands = state + 4 * 6 * nS * ps
+    if with_bands <= _SMEM_MAX:
+        return (ps, gs, gv, True, with_bands)
+    return (ps, gs, gv, False, state)
+
+
+def _launch_single_smem(grid, vec, sg, sc, nS, nv, nT, plan):
+    """K2's shared-memory route: one block on the current stream.
+    Allocates only V."""
+    lib, _ = load_library(_SOURCE_SINGLE)
+    fn = lib.pde_adi_fused_smem
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ps, gs, gv, bands_smem, n_bytes = plan
+    V = torch.empty((nS, nv), dtype=torch.float32, device=grid.device)
+    ins = [t.contiguous() for t in (grid, vec, sg, sc)]
+    stream = torch.cuda.current_stream(grid.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in (*ins, V)), nS, nv, nT, ps, gs, gv, int(bands_smem),
+             n_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
+    fused_douglas_march.launches += 1
+    fused_douglas_march.launches_smem += 1
+    return V
 
 
 def _stack_single(payoff, a1_bands, i1_bands, a2_bands, i2_bands, mix_coef, s_grid,
@@ -447,6 +541,8 @@ def _stack_single(payoff, a1_bands, i1_bands, a2_bands, i2_bands, mix_coef, s_gr
 
 
 def _launch_single(grid, vec, sg, sc, nS, nv, nT):
+    """K2's first design (grids too large for the shared-memory route):
+    one block on the current stream, its state in device-memory scratch."""
     lib, _ = load_library(_SOURCE_SINGLE)
     fn = lib.pde_adi_fused
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]

@@ -4,7 +4,8 @@ The one module of the port without a twin in ``pde_tpu``: JAX's Pallas
 kernels compile inside XLA, while the port's kernels are CUDA C++ for
 Hopper (``sm_90a``) with a plain C interface.  ``nvcc`` compiles them into
 ``build/pde_tpu_torch/`` beside the package, keyed by a hash of the
-sources and flags, and ``ctypes`` loads the result.  A missing ``nvcc`` or
+sources, the shared headers (``csrc/*.cuh``) and the flags, and ``ctypes``
+loads the result.  A missing ``nvcc`` or
 a failed build raises; nothing falls back.
 """
 
@@ -31,13 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # own, as their plain twins do (no FMA contraction), so kernel and twin
 # agree bit for bit; for the 1D theta-scheme marches the float32 round-off
 # alone is of the size of the kernel-vs-twin gate (K4 sat 1.09x past it
-# with contraction).  K1 (adi_fused_batched.cu) and K3 (cn1d_tv_fused.cu)
-# keep nvcc's contraction: their lane-group scans already compose the
-# values entering each chunk in another order than the twins, both ran
-# faster with it in a one-off comparison on one H100, and chip_smoke.py
-# holds them well inside the gate with it
+# with contraction).  K1 (adi_fused_batched.cu), K2 (adi_fused.cu) and K3
+# (cn1d_tv_fused.cu) keep nvcc's contraction: their lane-group scans
+# already compose the values entering each chunk in another order than the
+# twins, each ran faster with it in a one-off comparison of both builds in
+# one call on one H100 (K2: its shared-memory route, in turns), and
+# chip_smoke.py holds them well inside the gate with it
 SOURCE_FLAGS = {src: ("-fmad=false",) for src in (
-    "cn1d_fused.cu", "adi_fused.cu", "thomas_batched.cu", "psor_batched.cu")}
+    "cn1d_fused.cu", "thomas_batched.cu", "psor_batched.cu")}
 
 
 def _nvcc() -> str:
@@ -63,12 +65,15 @@ def load_libraries(*sources: str) -> dict[str, tuple[ctypes.CDLL, str]]:
     found already built).
     """
     todo = []
+    # every source may include the shared headers: they join each key
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     for source in sources:
         if source in _LOADED:
             continue
         src = CSRC / source
         flags = NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
-        key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        key = hashlib.sha256(src.read_bytes() + headers
+                             + " ".join(flags).encode()).hexdigest()[:16]
         lib_path = BUILD_DIR / f"{src.stem}-{key}.so"
         todo.append((source, src, lib_path, flags))
     jobs = []

@@ -14,8 +14,9 @@ from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused, tridiag
 from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
 
 # kernel vs plain twin: both float32 with the same step order; FMA
-# contraction (K1, K3) and the order in which K1's and K3's lane scans
-# compose the values entering each chunk differ
+# contraction (K1, K3) and the order in which the lane scans of K1, K2 and
+# K3 (and K1's PCR S sweep on its shared-memory route) compose the values
+# entering each chunk differ
 GATE = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -178,7 +179,7 @@ def test_k1_pcr_matches_plain(variant):
                                   dict(is_call=False, american=True, r=0.08, q=0.0,
                                        american_method="it_lcp")])
 def test_k2_matches_plain(case):
-    """K2 against its plain twin; both round every operation alike."""
+    """K2 against its plain twin at 40x20 (the shared-memory route)."""
     _need_cuda()
     p = heston_adi.HestonPDEParams(q=0.02, n_spot=40, n_vol=20, n_time=20)._replace(**case)
     t = lambda k: torch.tensor(float(getattr(p, k)), device="cuda")  # noqa: E731
@@ -353,6 +354,97 @@ def test_k3_long_lattice_takes_first_design():
     want = cn1d_tv_fused._fused_cn_march_1d_tv_plain(pay, bands, sc, 600, 6, 0.5)
     torch.cuda.synchronize()
     assert (k3.launches, k3.launches_smem) == (before + 1, before_smem)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+K2_MODES = {"european": {}, "projection": dict(is_call=False, american=True, r=0.08, q=0.0),
+            "it_lcp": dict(is_call=False, american=True, r=0.08, q=0.0,
+                           american_method="it_lcp")}
+
+
+def _k2_inputs(n_spot, n_vol, n_time, mode):
+    """K2's public inputs for bench_full.py's option at ``n_spot`` x
+    ``n_vol`` on the card, in one of the three exercise modes."""
+    p = heston_adi.HestonPDEParams(q=0.02, n_spot=n_spot, n_vol=n_vol,
+                                   n_time=n_time)._replace(**K2_MODES[mode])
+    t = lambda k: torch.tensor(float(getattr(p, k)), device="cuda")  # noqa: E731
+    return heston_adi._fused_inputs(p, *(t(k) for k in ("kappa", "theta", "sigma", "rho",
+                                                        "r", "q", "T", "K")))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(K2_MODES))
+@pytest.mark.parametrize("grid", [(16, 8), (40, 20), (100, 50), (160, 50)])
+def test_k2_smem_route_matches_plain(grid, mode):
+    """K2's shared-memory route (lane-group scans) against its twin; at
+    160x50 the bands no longer fit beside the state and are read in place."""
+    _need_cuda()
+    nS, nv = grid
+    plan = adi_fused._smem_plan_single(nS, nv)
+    assert plan is not None and plan[3] == (grid != (160, 50))
+    args = _k2_inputs(nS, nv, 20, mode)
+    k2 = adi_fused.fused_douglas_march
+    before, before_smem = k2.launches, k2.launches_smem
+    got = k2(*args, nS, nv, 20)
+    want = adi_fused._fused_douglas_march_plain(*adi_fused._stack_single(*args), nS, nv, 20)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_smem) == (before + 1, before_smem + 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+def test_k2_large_grid_takes_first_design():
+    """A grid whose state exceeds a block's shared memory (200x100) runs
+    K2's first design, and agrees with the twin."""
+    _need_cuda()
+    assert adi_fused._smem_plan_single(200, 100) is None
+    args = _k2_inputs(200, 100, 10, "it_lcp")
+    k2 = adi_fused.fused_douglas_march
+    before, before_smem = k2.launches, k2.launches_smem
+    got = k2(*args, 200, 100, 10)
+    want = adi_fused._fused_douglas_march_plain(*adi_fused._stack_single(*args), 200, 100, 10)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_smem) == (before + 1, before_smem)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_it", [False, True])
+@pytest.mark.parametrize("grid", [(40, 20), (100, 50)])
+@pytest.mark.parametrize("B", [1, 37, 130, 512])
+def test_k1_pcr_s_smem_route_matches_plain(B, grid, use_it):
+    """K1's PCR S sweep on the shared-memory route (levels streamed a level
+    ahead) against the twin's, European and IT-LCP books (mixed American
+    and European options)."""
+    _need_cuda()
+    nS, nv = grid
+    ins = list(_k1_inputs(B, nS, nv, 20, 15))
+    if not use_it:
+        ins[7] = ins[7].clone()
+        ins[7][5] = 0.0
+    k1 = adi_fused.fused_douglas_march_batched
+    before = (k1.launches_smem, k1.launches_pcr_s, k1.launches_pcr_s_smem)
+    got = k1(*ins, nS, nv, 20, use_it=use_it, pcr_s=True)
+    want = adi_fused._fused_douglas_march_batched_plain(*ins, nS, nv, 20, use_it, pcr_s=True)
+    torch.cuda.synchronize()
+    assert (k1.launches_smem, k1.launches_pcr_s, k1.launches_pcr_s_smem) == \
+        tuple(n + 1 for n in before)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [dict(pcr_v=True), dict(pcr_v=True, pcr_s=True)])
+def test_k1_pcr_v_takes_first_design(variant):
+    """The PCR v sweep, alone or with the PCR S sweep, runs the first design."""
+    _need_cuda()
+    ins = _k1_inputs(37, 100, 50, 20, 16)
+    k1 = adi_fused.fused_douglas_march_batched
+    before = (k1.launches, k1.launches_smem, k1.launches_pcr_s_smem)
+    got = k1(*ins, 100, 50, 20, use_it=True, **variant)
+    want = adi_fused._fused_douglas_march_batched_plain(*ins, 100, 50, 20, True, **variant)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_smem, k1.launches_pcr_s_smem) == \
+        (before[0] + 1, before[1], before[2])
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
 
 

@@ -178,3 +178,42 @@ def test_k1_large_grid_has_no_smem_plan(use_it):
     """200x100 needs 80 KB a field: more than a block's 227 KB, so the
     wrapper sends it to the first design (the reference takes such grids)."""
     assert tops._smem_plan(200, 100, use_it) is None
+
+
+@pytest.mark.parametrize("use_it", [False, True])
+def test_k1_pcr_s_smem_plan(use_it):
+    """The PCR S sweep on the shared-memory route: the Thomas route's lanes
+    and stride; V, R, 1/d, the ping-pong grid (and lambda with IT) on the
+    padded grid, the double buffer of two levels of alpha and beta for each
+    S-sweep thread's chunk (or the factorisation's three bands, if more)
+    and the bands, within a block's 227 KB at 100x50.  None where the state
+    outgrows a block (200x100) or the columns' lane groups outgrow the
+    512-thread block (nv = 600)."""
+    ps, gs, gv, n_bytes = tops._smem_plan(100, 50, use_it, True)
+    assert (ps, gs, gv) == tops._smem_plan(100, 50, use_it)[:3] == (52, 8, 4)
+    cs = -(-100 // gs)
+    buffer = max(4 * cs * 50 * gs, 3 * 100 * ps)
+    assert buffer == tops._pcr_buffer(100, 50, ps, gs) == 20800
+    assert n_bytes == 4 * ((4 + use_it) * 100 * ps + buffer + 15 * 50 + 2 * 100) <= 232448
+    assert n_bytes == (191000 if use_it else 170200)
+    assert tops._smem_plan(200, 100, use_it, True) is None
+    assert tops._smem_plan(4, 600, use_it) is not None
+    assert tops._smem_plan(4, 600, use_it, True) is None
+
+
+@pytest.mark.parametrize("pcr_v,pcr_s", [(False, False), (False, True), (True, False),
+                                         (True, True)])
+def test_k1_route_resolves_from_flags(pcr_v, pcr_s):
+    """The wrapper's route: the Thomas march and the PCR S sweep take the
+    shared-memory design, each with its own plan; the PCR v sweep, alone or
+    with the PCR S sweep, and a grid too large for a block take the first
+    design (no plan)."""
+    for use_it in (False, True):
+        plan = tops._route_plan(100, 50, use_it, pcr_v, pcr_s)
+        if pcr_v:
+            assert plan is None
+        else:
+            assert plan == tops._smem_plan(100, 50, use_it, pcr_s) is not None
+            assert plan[3] == {(False, False): 66200, (True, False): 87000,
+                               (False, True): 170200, (True, True): 191000}[use_it, pcr_s]
+        assert tops._route_plan(200, 100, use_it, pcr_v, pcr_s) is None

@@ -139,6 +139,38 @@ def test_solve_fused_matches_reference(variant):
     np.testing.assert_allclose(got.prices.numpy(), scan.prices.numpy(), atol=5e-4)
 
 
+@pytest.mark.parametrize("grid,lanes,bands", [((100, 50), (16, 8), True),
+                                              ((40, 20), (32, 16), True),
+                                              ((16, 8), (16, 8), True),
+                                              ((160, 50), (16, 4), False)])
+def test_k2_smem_plan(grid, lanes, bands):
+    """K2's shared-memory route (csrc/adi_fused.cu): lanes per S column and
+    per v row are powers of two within the 1024-thread block and at most
+    one per row; the block holds V, R, 1/pivot and lambda on the padded
+    grid, in every exercise mode (it_lcp is a flag on the device, so
+    lambda's room is always there), plus the v vectors and the spot grid;
+    the six (nS, nv) band fields join them where they fit, within a block's
+    227 KB (at 100x50 they do; at 160x50 they are read in place)."""
+    nS, nv = grid
+    ps, gs, gv, bands_smem, n_bytes = tops._smem_plan_single(nS, nv)
+    assert (gs, gv) == lanes and bands_smem == bands
+    assert nv * gs <= 1024 and nS * gv <= 1024 and gs <= nS and gv <= nv
+    assert nv <= ps < nv + 32
+    assert n_bytes == 4 * ((10 if bands else 4) * nS * ps + 10 * nv + nS) <= 232448
+    if grid == (100, 50):
+        assert n_bytes == 218400
+        cs, cv = -(-nS // gs), -(-nv // gv)
+        s_words = [(t % gs) * cs * ps + t // gs for t in range(32)]
+        v_words = [(t // gv) * ps + (t % gv) * cv for t in range(32)]
+        assert tops._bank_degree(s_words) + tops._bank_degree(v_words) <= 3
+
+
+def test_k2_large_grid_has_no_smem_plan():
+    """At 200x100 K2's state alone (V, R, 1/pivot, lambda: 80 KB a field)
+    exceeds a block's 227 KB: the wrapper sends it to the first design."""
+    assert tops._smem_plan_single(200, 100) is None
+
+
 def test_rejections():
     p = ta.HestonPDEParams(n_spot=16, n_vol=8, n_time=4)
     for bad in (dict(kappa=0.0), dict(rho=1.0), dict(v0=-0.1), dict(scheme="ftcs")):
