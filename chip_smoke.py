@@ -8,8 +8,8 @@ checks every result:
 2. build: every CUDA kernel of the paths, compiled from
    ``pde_tpu_torch/csrc`` (one ``nvcc`` per source, all started together),
    with each kernel's registers and spills, and the dynamic shared memory
-   per block of the redesigned routes of K1 (Thomas and PCR S sweep), K2
-   and K3 at the bench shapes;
+   per block of the redesigned routes of K1 (Thomas and PCR sweeps), K2,
+   K3 and K5 at the bench shapes;
 3. kernel vs plain, each kernel against its plain PyTorch twin on the same
    inputs on the card, and both timed at the bench shape:
    - K1, the fused Douglas march (European, American projection, American
@@ -18,9 +18,12 @@ checks every result:
      100x50 (B = 512, 130 and 1) and on a grid too large for the other route
      (200x100, B = 37), each public call checked to have taken its route;
    - K1's PCR sweeps (European and Ikonen-Toivanen books): the S sweep on
-     the shared-memory route (B = 512, 130, 37 and 1) and on the first
-     design (B = 512), the v sweep alone and with the S sweep on the first
-     design (B = 512), each public call checked to have taken its route;
+     the shared-memory route (B = 512, 130, 37 and 1), the v sweep alone
+     and with the S sweep on the shared-memory route (B = 512, 130, 37 and
+     1 at 100x50, 40x20 and 16x8), each variant on the first design at
+     100x50 (B = 512) and, through the public wrapper, on a grid too large
+     for the other route (200x100, B = 37), each public call checked to
+     have taken its route;
    - K2, the single-option fused march (European call, American put by
      projection and by Ikonen-Toivanen): its shared-memory route at 16x8,
      40x20, 100x50 and 160x50 (where the bands are read in place), its
@@ -35,9 +38,13 @@ checks every result:
      and 1;
    - K4, the constant-coefficient CN march (B = 512, 130 and 1; European
      and mixed American; w = 0.5 and 1);
-   - K5, the batched Thomas solve, on the Black-Scholes book's per-step
-     system (512, 200) and the fused-ADI book's v sweep (51200, 50), with
-     ``torch.linalg.solve`` on the same systems as its yardstick;
+   - K5, the batched Thomas solve: its lane-group route at the shapes of
+     the scan paths ((50, 100), (100, 50) with bands shared by every
+     system, (1, 200)), at a ragged batch (37, 100), on the Black-Scholes
+     book's per-step system (512, 200) and the fused-ADI book's v sweep
+     (51200, 50), each call checked to have taken its route, its first
+     design timed beside it, ``torch.linalg.solve`` on the same systems as
+     its yardstick, and one wrapper call profiled: it launches one kernel;
    - K6, the batched projected SOR, on the Black-Scholes book's LCP
      (512, 200) at 60 and 120 sweeps;
 4. headline calibration: bench.py's 108-quote surface through
@@ -66,12 +73,19 @@ checks every result:
     PSOR (K6) and Brennan-Schwartz; ``ops.tridiagonal_solve`` on a 2D
     float32 batch (K5); ``lcp.projected_sor_batched`` (K6).
 
+Before the paths, each of the six kernel wrappers is called on the card
+with an input that requires grad: each must raise (the kernels have no
+backward) and launch nothing, and run under ``torch.no_grad()``; the
+fused-ADI book entry point must raise too, and ``tridiagonal_solve``
+under grad must take the differentiable ``thomas``.
+
 Each main path (4-10) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails,
 and so do the two books and the 108-option surface if K1's or K3's
 redesigned route (``launches_smem``) never launched, ``solve_fused`` and
-the Ikonen-Toivanen put if K2's did not, and the PCR books if the PCR S
-sweep's (``launches_pcr_s_smem``) did not.
+the Ikonen-Toivanen put if K2's did not, the scan solves if K5's did not,
+and each PCR book if its sweeps' (``launches_pcr_v_smem``,
+``launches_pcr_s_smem``) did not.
 While they run, the first input set of each shape that each path hands K5
 and K6 is kept; afterwards both kernels are held against their plain twins
 on those very inputs, and timed at the shapes of the path whose launches
@@ -143,6 +157,9 @@ KERNELS = {
     "K1-pcr_s": dict(name="fused_douglas_march_batched(pcr_s=True)", route="cuda",
                      source="pde_tpu_torch/csrc/adi_fused_batched.cu",
                      replaces="pde_tpu/ops/adi_fused.py:396"),
+    "K1-pcr_v+s": dict(name="fused_douglas_march_batched(pcr_v=True, pcr_s=True)",
+                       route="cuda", source="pde_tpu_torch/csrc/adi_fused_batched.cu",
+                       replaces="pde_tpu/ops/adi_fused.py:438"),
     "K2": dict(name="fused_douglas_march", route="cuda",
                source="pde_tpu_torch/csrc/adi_fused.cu",
                replaces="pde_tpu/ops/adi_fused.py:38"),
@@ -743,50 +760,58 @@ def phase_k2(torch, dev, plain_reps=1, kernel_reps=20):
                 bound=bound(nbytes(*stacked) + nodes * 4, 40.0 * nodes * size[2]))
 
 
+PCR_VARIANTS = {"K1-pcr_v": dict(pcr_v=True), "K1-pcr_s": dict(pcr_s=True),
+                "K1-pcr_v+s": dict(pcr_v=True, pcr_s=True)}
+
+
 def phase_k1_pcr(torch, dev, grid=GRID, B=BOOK_B, plain_reps=1, kernel_reps=20):
     """K1's PCR sweeps against the plain twin's, European and IT books: the
-    S sweep on the shared-memory route at B = 512, 130, 37 and 1 and on the
-    first design (where it ran before that route existed: B = 512), the v
-    sweep alone and with the S sweep on the first design (B = 512), each
+    S sweep on the shared-memory route at B = 512, 130, 37 and 1, the v
+    sweep alone and with the S sweep on the same route at B = 512, 130, 37
+    and 1 on 100x50, 40x20 and 16x8; each variant on the first design at
+    100x50 (B = 512, through its launcher) and on a grid too large for the
+    shared-memory route (200x100, B = 37, through the public wrapper); each
     public call checked to have taken its route.  Each variant is timed at
-    B = 512, the S sweep on both designs."""
+    B = 512 on both designs."""
     from pde_tpu_torch.ops import adi_fused
 
     march = adi_fused.fused_douglas_march_batched
     plain = adi_fused._fused_douglas_march_batched_plain
     size = (grid["n_spot"], grid["n_vol"], grid["n_time"])
+    nT = size[2]
     lev_s, lev_v = adi_fused._levels(size[0]), adi_fused._levels(size[1])
     out = {}
-    for key, variant in (("K1-pcr_v", dict(pcr_v=True)), ("K1-pcr_s", dict(pcr_s=True)),
-                         ("K1-pcr_v+s", dict(pcr_v=True, pcr_s=True))):
+    for key, variant in PCR_VARIANTS.items():
         worst = 0.0
         pcr_v, pcr_s = variant.get("pcr_v", False), variant.get("pcr_s", False)
-        for b in (B, 130, 37, 1) if key == "K1-pcr_s" else (B,):
+        sizes = [size[:2]] if key == "K1-pcr_s" else [size[:2], (40, 20), (16, 8)]
+        cases = [(b, sz) for sz in sizes for b in (B, 130, 37, 1)] + [(37, (200, 100))]
+        for b, (nS, nv) in cases:
             mixed = (torch.arange(b) % 3 == 0).float()
             for name, amer, use_it in (("european", torch.zeros(b), False),
                                        ("american_it", mixed, True)):
-                smem = adi_fused._route_plan(*size[:2], use_it, pcr_v, pcr_s) is not None
-                args = book(torch, dev, b, amer, grid)
-                before = (march.launches_smem, march.launches_pcr_s_smem)
-                V = march(*args, *size, use_it=use_it, **variant)
-                moved = (march.launches_smem > before[0], march.launches_pcr_s_smem > before[1])
-                if moved != (smem, smem):
-                    raise AssertionError(f"{key} did not take the "
+                smem = adi_fused._route_plan(nS, nv, use_it, pcr_v, pcr_s) is not None
+                args = book(torch, dev, b, amer, dict(n_spot=nS, n_vol=nv, n_time=nT))
+                counts = ("launches_smem", "launches_pcr_v_smem", "launches_pcr_s_smem")
+                before = [getattr(march, c) for c in counts]
+                V = march(*args, nS, nv, nT, use_it=use_it, **variant)
+                moved = tuple(getattr(march, c) > n for c, n in zip(counts, before))
+                if moved != (smem, smem and pcr_v, smem and pcr_s):
+                    raise AssertionError(f"{key} at {nS}x{nv} did not take the "
                                          f"{'shared-memory' if smem else 'first'} route")
-                P = plain(*args, *size, use_it, **variant)
-                worst = max(worst, compare(torch, dev, V, P, kernel=key, B=b,
+                P = plain(*args, nS, nv, nT, use_it, **variant)
+                worst = max(worst, compare(torch, dev, V, P, kernel=key, B=b, grid=[nS, nv],
                                            route="smem" if smem else "first", case=name))
-                if smem and b == B:
-                    V = adi_fused._launch(*args, *size, use_it, False, True)
+                if smem and b == B and (nS, nv) == size[:2]:
+                    V = adi_fused._launch(*args, *size, use_it, pcr_v, pcr_s)
                     worst = max(worst, compare(torch, dev, V, P, kernel=key, B=b,
-                                               route="first", case=name))
+                                               grid=list(size[:2]), route="first", case=name))
         args = book(torch, dev, B, torch.zeros(B), grid)
         ms = kernel_ms(torch, lambda: march(*args, *size, **variant), kernel_reps)
-        first_ms, wave_ms = None, {}
+        first_ms = kernel_ms(torch, lambda: adi_fused._launch(*args, *size, False, pcr_v, pcr_s),
+                             kernel_reps)
+        wave_ms = {}
         if key == "K1-pcr_s":
-            first_ms = kernel_ms(torch,
-                                 lambda: adi_fused._launch(*args, *size, False, False, True),
-                                 kernel_reps)
             # one wave of the shared-memory route (one block an SM) and a
             # quarter wave: equal times mean each SM's own work binds, a
             # shorter quarter wave the stream through device memory
@@ -801,7 +826,7 @@ def phase_k1_pcr(torch, dev, grid=GRID, B=BOOK_B, plain_reps=1, kernel_reps=20):
         # K1's 38 flops a node and step with a PCR sweep in place of a
         # Thomas sweep (5): 4 a level and 1 for the final 1/d
         flops = 38.0 + sum(4.0 * lev + 1.0 - 5.0 for lev, on in
-                           ((lev_v, variant.get("pcr_v")), (lev_s, variant.get("pcr_s"))) if on)
+                           ((lev_v, pcr_v), (lev_s, pcr_s)) if on)
         nodes = size[0] * size[1] * B
         out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                         bound=bound(nbytes(*args) + nodes * 4, flops * nodes * size[2]))
@@ -866,10 +891,18 @@ def median_ms(torch, fn, reps, warmup=3):
     return statistics.median(times), min(times), max(times)
 
 
-def k5_timing(torch, dev, lower, diag, upper, rhs, kernel_reps=20, plain_reps=3,
+def operand_bytes(*tensors):
+    """Bytes of operands read once each: a band expanded over the batch
+    (batch stride 0) is one row."""
+    return sum((t[0] if t.dim() == 2 and t.shape[0] > 1 and t.stride(0) == 0 else t).numel()
+               * t.element_size() for t in tensors)
+
+
+def k5_timing(torch, dev, lower, diag, upper, rhs, kernel_reps=200, plain_reps=3,
               library_reps=10):
-    """K5 on one batch of systems: the kernel alone (its launch on operands
-    laid out once, without the wrapper's layout copies), its plain twin,
+    """K5 on one batch of systems: the kernel alone on both routes (the
+    lane-group route on the operands where they lie, the first design on
+    batch-last copies laid out once, without the wrapper), its plain twin,
     and the yardstick torch.linalg.solve on the same systems as dense
     matrices, TF32 off, the solve alone (median of single warmed calls,
     with its spread); plus the bytes and flops of the bound."""
@@ -877,22 +910,31 @@ def k5_timing(torch, dev, lower, diag, upper, rhs, kernel_reps=20, plain_reps=3,
 
     B, n = rhs.shape
     system = (lower, diag, upper, rhs)
-    fn, ins = tridiag._thomas_library(), tridiag._row_major(*system)
-    x, C = (torch.empty((n, B), device=dev) for _ in range(2))
-    ptrs = [t.data_ptr() for t in (*ins, x, C)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = kernel_ms(torch, lambda: fn(*ptrs, B, n, stream), kernel_reps)
+    g, ch, cp, n_bytes = tridiag._lane_plan(n)
+    ops = [tridiag._batch_stride(a) for a in system]
+    x = torch.empty((B, n), device=dev)
+    lanes = tridiag._lanes_library()
+    ms = kernel_ms(torch, lambda: lanes(*(a.data_ptr() for a, _ in ops), x.data_ptr(),
+                                        *(st for _, st in ops), B, n, g, ch, cp, n_bytes,
+                                        stream), kernel_reps)
+    first, ins = tridiag._thomas_library(), tridiag._row_major(*system)
+    xt, C = (torch.empty((n, B), device=dev) for _ in range(2))
+    ptrs = [t.data_ptr() for t in (*ins, xt, C)]
+    first_ms = kernel_ms(torch, lambda: first(*ptrs, B, n, stream), kernel_reps)
+    first_diff = float((xt.T - x).abs().max())
     plain_ms = time_ms(torch, lambda: tridiag._thomas_batched_plain(*system), plain_reps)
     torch.backends.cuda.matmul.allow_tf32 = False
     A, b = dense(torch, lower, diag, upper), rhs[..., None]
     lib_ms, lib_min, lib_max = median_ms(torch, lambda: torch.linalg.solve(A, b),
                                          library_reps)
-    lib_diff = float((torch.linalg.solve(A, b)[..., 0] - x.T).abs().max())
+    lib_diff = float((torch.linalg.solve(A, b)[..., 0] - x).abs().max())
     del A
     # per row: forward 7 (pivot 2, reciprocal 1, c 1, dp 3), back 2
-    return dict(B=B, n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    return dict(B=B, n=n, lanes=g, rows_per_lane=ch, ms=ms, first_design_ms=first_ms,
+                max_abs_first_vs_lanes=first_diff, plain_ms=plain_ms, library_ms=lib_ms,
                 library_min_max_ms=[lib_min, lib_max], max_abs_vs_library=lib_diff,
-                n_bytes=nbytes(*system) + B * n * 4, n_flops=9.0 * B * n)
+                n_bytes=operand_bytes(*system) + B * n * 4, n_flops=9.0 * B * n)
 
 
 def k6_timing(torch, dev, lower, diag, upper, b, g, x0=None, omega=1.5,
@@ -923,26 +965,75 @@ def k6_timing(torch, dev, lower, diag, upper, b, g, x0=None, omega=1.5,
                 n_flops=(9.0 * n_iter + start) * B * n)
 
 
+def seeded_system(torch, dev, B, n, shared_bands=False, seed=0):
+    """Seeded diagonally dominant (B, n) float32 systems on ``dev``; with
+    ``shared_bands`` the three bands are one row expanded over the batch
+    (batch stride 0), as the scan's v sweep and ``tridiagonal_solve`` give
+    them."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = 1 if shared_bands else B
+    rand = lambda m: torch.rand((rows, m), generator=gen, device=dev)  # noqa: E731
+    lower, diag, upper = -rand(n - 1), 2.5 + rand(n), -rand(n - 1)
+    rhs = torch.randn((B, n), generator=gen, device=dev)
+    return (lower.expand(B, n - 1), diag.expand(B, n), upper.expand(B, n - 1), rhs)
+
+
+def profiled(torch, dev, fn):
+    """One warm call of ``fn`` under torch.profiler: (wall seconds, {kernel
+    name: device microseconds}), device-side events only (the CPU ops that
+    launched them carry the same time again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    return wall, {e.key[:60]: e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def phase_k5(torch, dev):
-    """K5 against its plain twin and beside torch.linalg.solve at the bench
-    shapes: the BS book's per-step system and the fused-ADI book's v sweep.
+    """K5 against its plain twin, each call checked to have taken the
+    lane-group route: at the scan paths' shapes, a ragged batch, the BS
+    book's per-step system and the fused-ADI book's v sweep; both routes
+    timed alone beside torch.linalg.solve; one wrapper call profiled.
     Returns the worst |kernel - plain|."""
     from pde_tpu_torch.ops import tridiag
 
     solve = tridiag.thomas_batched
     worst = 0.0
-    for name, system in (("bs_book_step", bs_system(torch, dev)[:4]),
-                         ("adi_v_sweep", adi_v_system(torch, dev))):
+    cases = (("scan_s_sweep", seeded_system(torch, dev, 50, 100)),
+             ("scan_v_sweep", seeded_system(torch, dev, 100, 50, shared_bands=True)),
+             ("projection_step", seeded_system(torch, dev, 1, 200, shared_bands=True)),
+             ("ragged", seeded_system(torch, dev, 37, 100)),
+             ("bs_book_step", bs_system(torch, dev)[:4]),
+             ("adi_v_sweep", adi_v_system(torch, dev)))
+    for name, system in cases:
         B, n = system[3].shape
+        before = (solve.launches, solve.launches_smem)
         X = solve(*system)
+        if (solve.launches - before[0], solve.launches_smem - before[1]) != (1, 1):
+            raise AssertionError(f"K5 at ({B}, {n}) did not take the lane-group route")
         worst = max(worst, compare(torch, dev, X, tridiag._thomas_batched_plain(*system),
-                                   kernel="K5", case=name, B=B, n=n))
-        before = solve.launches
+                                   kernel="K5", case=name, B=B, n=n, route="lanes"))
+        V = tridiag._launch_thomas_first(*system)
+        worst = max(worst, compare(torch, dev, V, tridiag._thomas_batched_plain(*system),
+                                   kernel="K5", case=name, B=B, n=n, route="first"))
         wrapper_ms = time_ms(torch, lambda: solve(*system), 20)
-        if solve.launches <= before:
-            raise AssertionError("K5's launch count did not move")
         emit(phase="kernel_timing", kernel="K5", case=name, wrapper_ms=wrapper_ms,
              **k5_timing(torch, dev, *system))
+    system = cases[0][1]
+    _, kernels = profiled(torch, dev, lambda: solve(*system))
+    ok = len(kernels) == 1
+    emit(phase="k5_wrapper_profile", B=50, n=100, n_kernels=len(kernels), kernels=kernels,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"one K5 wrapper call launched {len(kernels)} kernels, not 1")
     return worst
 
 
@@ -1147,9 +1238,10 @@ def phase_greeks(torch, dev, eps=1e-3):
         raise AssertionError("greeks_ad disagrees with central differences")
 
 
-def phase_pcr_book(torch, dev, grid=GRID, B=BOOK_B):
-    """The 512-book through solve_fused_batch with the PCR sweeps, held
-    against the Thomas book at 1e-4 relative + 1e-4 absolute."""
+def phase_pcr_book(torch, dev, variant, grid=GRID, B=BOOK_B):
+    """The 512-book through solve_fused_batch with the PCR sweeps of
+    ``variant`` (a key of PCR_VARIANTS), held against the Thomas book at
+    1e-4 relative + 1e-4 absolute."""
     from pde_tpu_torch.solvers import heston_adi
 
     K = torch.linspace(85.0, 115.0, B, device=dev)
@@ -1158,15 +1250,11 @@ def phase_pcr_book(torch, dev, grid=GRID, B=BOOK_B):
     run = lambda **kw: heston_adi.solve_fused_batch(  # noqa: E731
         2.0, 0.04, 0.3, -0.7, 0.04, R, Q, T, K, cf, S0, device=dev, **grid, **kw).price
     base = run()
-    worst = {}
-    for name, kw in (("pcr_v", dict(pcr_v=True)), ("pcr_s", dict(pcr_s=True)),
-                     ("pcr_v+s", dict(pcr_v=True, pcr_s=True))):
-        over = (run(**kw) - base).abs() / (1e-4 + 1e-4 * base.abs())
-        worst[name] = float(over.max())
-    ok = max(worst.values()) <= 1.0
-    emit(phase="pcr_book", B=B, max_over_bound_vs_thomas=worst, ok=ok)
+    over = float(((run(**PCR_VARIANTS[variant]) - base).abs() / (1e-4 + 1e-4 * base.abs())).max())
+    ok = over <= 1.0
+    emit(phase="pcr_book", variant=variant, B=B, max_over_bound_vs_thomas=over, ok=ok)
     if not ok:
-        raise AssertionError("a PCR book disagrees with the Thomas book")
+        raise AssertionError(f"the {variant} book disagrees with the Thomas book")
 
 
 def phase_bs_solve(torch, dev, reps=2):
@@ -1216,6 +1304,93 @@ def phase_projected_sor(torch, dev):
         raise AssertionError("projected_sor_batched failed its checks")
 
 
+def phase_grad_guard(torch, dev):
+    """Each kernel wrapper on the card, given an input that requires grad:
+    it raises (the kernels have no backward; the reference's pallas_call
+    raises under jax.grad) and launches nothing; under torch.no_grad() it
+    launches.  The fused-ADI book's entry point raises alike; and
+    tridiagonal_solve under grad takes the differentiable thomas, whose
+    gradient agrees with central differences."""
+    from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused, tridiag
+    from pde_tpu_torch.solvers import heston_adi, lcp, local_vol_pde
+
+    small = dict(n_spot=16, n_vol=8, n_time=4)
+    k1_args = book(torch, dev, 4, torch.zeros(4), small)
+    k2_args = k2_inputs(torch, dev, heston_params(**small))
+    K, T, cf = lv_book(torch, dev, 4)
+    flat = lambda s, t: torch.full_like(s, 0.2)  # noqa: E731
+    k3_args = local_vol_pde._march_inputs(flat, K, T, cf, torch.zeros(4, device=dev), LV_R,
+                                          LV_Q, 33, 4, 0.2, 5.0)[:3]
+    k4_args = bs_inputs(torch, dev, 4, torch.zeros(4, device=dev), dict(n_space=32, n_time=4))
+    system = seeded_system(torch, dev, 8, 32)
+    psor = bs_system(torch, dev, 4, dict(n_space=32, n_time=4))
+    wrappers = {
+        "K1": (adi_fused.fused_douglas_march_batched,
+               lambda a: adi_fused.fused_douglas_march_batched(a, *k1_args[1:], 16, 8, 4)),
+        "K2": (adi_fused.fused_douglas_march,
+               lambda a: adi_fused.fused_douglas_march(a, *k2_args[1:], 16, 8, 4)),
+        "K3": (cn1d_tv_fused.fused_cn_march_1d_tv,
+               lambda a: cn1d_tv_fused.fused_cn_march_1d_tv(a, *k3_args[1:], 33, 4)),
+        "K4": (cn1d_fused.fused_cn_march_1d,
+               lambda a: cn1d_fused.fused_cn_march_1d(a, k4_args[1], 32, 4)),
+        "K5": (tridiag.thomas_batched, lambda a: tridiag.thomas_batched(*system[:3], a)),
+        "K6": (lcp.projected_sor_batched,
+               lambda a: lcp.projected_sor_batched(*psor[:3], a, psor[4])),
+    }
+    firsts = {"K1": k1_args[0], "K2": k2_args[0], "K3": k3_args[0], "K4": k4_args[0],
+              "K5": system[3], "K6": psor[3]}
+    result = {}
+    for key, (wrapper, call) in wrappers.items():
+        leaf = firsts[key].detach().clone().requires_grad_()
+        before = wrapper.launches
+        try:
+            call(leaf)
+            raised = False
+        except RuntimeError as exc:
+            raised = "no backward" in str(exc)
+        refused = raised and wrapper.launches == before
+        with torch.no_grad():
+            call(leaf)
+        sync(torch, dev)
+        result[key] = refused and wrapper.launches == before + 1
+    kappa = torch.tensor([2.0, 1.5], device=dev, requires_grad=True)
+    try:
+        heston_adi.solve_fused_batch(kappa, 0.04, 0.3, -0.7, 0.04, R, Q, 1.0, 100.0, 1.0,
+                                     S0, device=dev, **small)
+        result["solve_fused_batch"] = False
+    except RuntimeError as exc:
+        result["solve_fused_batch"] = "no backward" in str(exc)
+    # tridiagonal_solve under grad: thomas, no launch, the gradient of
+    # sum(x) by rhs against central differences in float32
+    lower, diag, upper, rhs = (t.contiguous() for t in system)
+    leaf = rhs.clone().requires_grad_()
+    before = tridiag.thomas_batched.launches
+    grad, = torch.autograd.grad(tridiag.tridiagonal_solve(lower, diag, upper, leaf).sum(),
+                                leaf)
+    eps = 1e-2
+    bump = torch.zeros_like(rhs)
+    bump[0, 5] = eps
+    with torch.no_grad():
+        fd = (tridiag.thomas(lower, diag, upper, rhs + bump).sum()
+              - tridiag.thomas(lower, diag, upper, rhs - bump).sum()) / (2 * eps)
+    fd_err = abs(float(grad[0, 5]) - float(fd))
+    result["tridiagonal_solve"] = tridiag.thomas_batched.launches == before and fd_err < 1e-3
+    ok = all(result.values())
+    emit(phase="grad_guard", ok_by_wrapper=result, tridiagonal_solve_grad_vs_fd=fd_err, ok=ok)
+    if not ok:
+        raise AssertionError(f"the grad guard failed: {result}")
+
+
+def keep(a):
+    """A copy of a launcher's argument in its own layout: a band expanded
+    over the batch stays one row expanded."""
+    if not hasattr(a, "clone"):
+        return a
+    if a.dim() == 2 and a.shape[0] > 1 and a.stride(0) == 0:
+        return a[:1].clone().expand_as(a)
+    return a.clone()
+
+
 class LaunchInputs:
     """Stands in for a kernel's launcher ``module.name`` while the main
     paths run: it keeps, for each path, a clone of the first argument set
@@ -1230,7 +1405,7 @@ class LaunchInputs:
         key = (self.path,) + tuple(tuple(a.shape) if hasattr(a, "shape") else a
                                    for a in args)
         if key not in self.kept:
-            self.kept[key] = [a.clone() if hasattr(a, "clone") else a for a in args]
+            self.kept[key] = [keep(a) for a in args]
         return self.launch(*args)
 
     def on(self, path):
@@ -1274,7 +1449,8 @@ def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path):
         out[key] = dict(max_abs_err=worst[key], ms=mean("ms"), plain_ms=mean("plain_ms"),
                         bound=bound(mean("n_bytes"), mean("n_flops")))
         if key == "K5":
-            out[key]["library_ms"] = mean("library_ms")
+            out[key].update(library_ms=mean("library_ms"),
+                            first_design_ms=mean("first_design_ms"))
         emit(phase="kernel_timing", kernel=key, case=path, per_launch_mean=out[key]["ms"],
              shapes=rows)
     return out
@@ -1285,8 +1461,6 @@ def profile_rows(torch, dev, interp, top=4):
     the card's busy time (device time of its kernels), the idle share and
     the kernels that took most of the device time."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pde_tpu_torch.calibrate.sabr import SABRCalibrator
     from pde_tpu_torch.models import sabr
@@ -1323,21 +1497,11 @@ def profile_rows(torch, dev, interp, top=4):
         "k5_thomas_batched": lambda: tridiag.thomas_batched(*system[:4]),
     }
     for name, fn in rows.items():
-        fn()
-        sync(torch, dev)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            sync(torch, dev)
-            wall = time.perf_counter() - t0
-        # device-side events only: the CPU ops that launched them carry the
-        # same time again
-        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        wall, dev_us = profiled(torch, dev, fn)
         busy = sum(dev_us.values()) * 1e-6
         emit(phase="profile", row=name, wall_s=wall, device_busy_s=busy,
              idle_share=1.0 - busy / wall, n_kernels=len(dev_us),
-             top=sorted(((k[:60], v * 1e-3) for k, v in dev_us.items()),
+             top=sorted(((k, v * 1e-3) for k, v in dev_us.items()),
                         key=lambda kv: -kv[1])[:top])
 
 
@@ -1358,7 +1522,8 @@ def main() -> None:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    sources = dict.fromkeys(k["source"].rsplit("/", 1)[1] for k in KERNELS.values())
+    sources = dict.fromkeys([k["source"].rsplit("/", 1)[1] for k in KERNELS.values()]
+                            + list(build.VARIANTS))
     built = build.load_libraries(*sources)
     nS_nv = (GRID["n_spot"], GRID["n_vol"])
     emit(phase="build", seconds=time.perf_counter() - t0,
@@ -1370,23 +1535,27 @@ def main() -> None:
          smem_bytes_per_block={
              "K1 (100x50)": adi_fused._smem_plan(*nS_nv, False)[3],
              "K1 (100x50, use_it)": adi_fused._smem_plan(*nS_nv, True)[3],
-             "K1-pcr_s (100x50)": adi_fused._smem_plan(*nS_nv, False, True)[3],
-             "K1-pcr_s (100x50, use_it)": adi_fused._smem_plan(*nS_nv, True, True)[3],
+             **{f"{key} (100x50{it})": adi_fused._route_plan(
+                 *nS_nv, bool(it), variant.get("pcr_v", False),
+                 variant.get("pcr_s", False))[3]
+                for key, variant in PCR_VARIANTS.items() for it in ("", ", use_it")},
              "K2 (100x50)": adi_fused._smem_plan_single(*nS_nv)[4],
-             "K3 (n=200)": cn1d_tv_fused._smem_bytes(LV_GRID["n_space"])})
+             "K3 (n=200)": cn1d_tv_fused._smem_bytes(LV_GRID["n_space"]),
+             **{f"K5 (n={n})": tridiag._lane_plan(n)[3] for n in (50, 100, 200)}})
 
     # each kernel's launch count: (wrapper, attribute); the launches of the
-    # redesigned routes of K1 (Thomas and PCR S sweep), K2 and K3 and of
+    # redesigned routes of K1 (Thomas and PCR sweeps), K2, K3 and K5 and of
     # K1's PCR variants are counted apart from their launches of every kind
     k1, k2 = adi_fused.fused_douglas_march_batched, adi_fused.fused_douglas_march
-    k3 = cn1d_tv_fused.fused_cn_march_1d_tv
+    k3, k5 = cn1d_tv_fused.fused_cn_march_1d_tv, tridiag.thomas_batched
     counters = {"K1": (k1, "launches"), "K1-smem": (k1, "launches_smem"),
                 "K1-pcr_v": (k1, "launches_pcr_v"), "K1-pcr_s": (k1, "launches_pcr_s"),
+                "K1-pcr_v-smem": (k1, "launches_pcr_v_smem"),
                 "K1-pcr_s-smem": (k1, "launches_pcr_s_smem"),
                 "K2": (k2, "launches"), "K2-smem": (k2, "launches_smem"),
                 "K3": (k3, "launches"), "K3-smem": (k3, "launches_smem"),
                 "K4": (cn1d_fused.fused_cn_march_1d, "launches"),
-                "K5": (tridiag.thomas_batched, "launches"),
+                "K5": (k5, "launches"), "K5-smem": (k5, "launches_smem"),
                 "K6": (lcp.projected_sor_batched, "launches")}
     interp = lv_surface(torch, dev)
     if "--profile" in sys.argv[1:]:
@@ -1396,6 +1565,7 @@ def main() -> None:
                 "K2": phase_k2(torch, dev), "K3": phase_k3(torch, dev, interp),
                 "K4": phase_k4(torch, dev)}
     bench_err = {"K5": phase_k5(torch, dev), "K6": phase_k6(torch, dev)}
+    phase_grad_guard(torch, dev)
 
     # the main paths: every count is 0 just before a path and read just
     # after; a path that never launched a kernel it needs fails.  K5's and
@@ -1421,18 +1591,22 @@ def main() -> None:
                            needs=("K3", "K3-smem"))[0]["K3"],
                 "K4": path(phase_bs_book, torch, dev, needs=("K4",))[0]["K4"]}
     path(phase_sabr, torch, dev)
-    counts, scan = path(phase_heston_scan, torch, dev, needs=("K5",))
+    counts, scan = path(phase_heston_scan, torch, dev, needs=("K5", "K5-smem"))
     launches["K5"] = counts["K5"]
     launches["K2"] = path(phase_heston_fused, torch, dev, scan,
                           needs=("K2", "K2-smem"))[0]["K2"]
-    path(phase_heston_lcp, torch, dev, needs=("K5", "K2", "K2-smem"))
-    path(phase_heston_surface, torch, dev, needs=("K5", "K1", "K1-smem"))
+    path(phase_heston_lcp, torch, dev, needs=("K5", "K5-smem", "K2", "K2-smem"))
+    path(phase_heston_surface, torch, dev, needs=("K5", "K5-smem", "K1", "K1-smem"))
     path(phase_greeks, torch, dev)
-    counts = path(phase_pcr_book, torch, dev,
-                  needs=("K1-pcr_v", "K1-pcr_s", "K1-pcr_s-smem"))[0]
-    launches.update({k: counts[k] for k in ("K1-pcr_v", "K1-pcr_s")})
-    launches["K6"] = path(phase_bs_solve, torch, dev, needs=("K5", "K6"))[0]["K6"]
-    path(phase_tridiagonal_solve, torch, dev, needs=("K5",))
+    # each PCR book on its own, so that each variant's launches are its own;
+    # K1-pcr_v+s counts its launches of both sweeps
+    for key, variant in PCR_VARIANTS.items():
+        needs = tuple(f"K1-{v}{tail}" for v in ("pcr_v", "pcr_s") if variant.get(v)
+                      for tail in ("", "-smem"))
+        counts = path(phase_pcr_book, torch, dev, key, needs=needs)[0]
+        launches[key] = counts["K1-pcr_v" if "pcr_v" in variant else "K1-pcr_s"]
+    launches["K6"] = path(phase_bs_solve, torch, dev, needs=("K5", "K5-smem", "K6"))[0]["K6"]
+    path(phase_tridiagonal_solve, torch, dev, needs=("K5", "K5-smem"))
     path(phase_projected_sor, torch, dev, needs=("K6",))
     k5_inputs.close()
     k6_inputs.close()

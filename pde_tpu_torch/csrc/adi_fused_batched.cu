@@ -78,11 +78,39 @@
 //   blocks' tables (132 x 291 KB = 38 MB) stay in the 50 MB L2.  The block
 //   holds 170.2 KB (191.0 KB with use_it) at 100x50: one block an SM.
 //
+// The PCR v sweep on the shared-memory route (douglas_march_smem<., true>,
+// pcr_v alone or with pcr_s; the reference's adi_fused.py:438-466,
+// :536-546): the v sweep becomes levels_v (6 at nv = 50) levels
+// rr_j += alpha_j rr_{j-s} + beta_j rr_{j+s}, then one multiply by 1/d.
+// * The level coefficients depend on j only: 2 levels_v nv + nv floats an
+//   option (2.6 KB at nv = 50).  The block computes them before the march
+//   with pcr_factor's arithmetic (lo, up, di ping-pong through V and R, free
+//   until then) into shared memory, in the place of the Thomas factors C2
+//   and IV2, and keeps them there for the whole march.
+// * Each v row's nodes belong to one lane group inside a warp (gv lanes, 4
+//   at 100x50, chunks of 13), so a level is a __syncwarp, not a block
+//   barrier.  rr ping-pongs between the row of R and a second row: with
+//   pcr_s the ping-pong grid PP the S sweep already has; alone, the row of
+//   V itself, which no other row reads in the v phase and which is free
+//   once the row's right-hand side is formed, so the route needs no fifth
+//   field.
+// * The right-hand side R - th dt A2 V is formed in a pass of its own into
+//   R (the levels read neighbours s rows away, so a level that formed it as
+//   it read would let one lane overwrite V or R where its neighbour still
+//   reads them); the final multiply by 1/d carries the Ikonen-Toivanen
+//   update, the Dirichlet rows and the floor into V, as the Thomas sweep's
+//   last pass does.
+// * At 100x50 the block holds 68.4 KB (89.2 KB with use_it) alone: two
+//   blocks an SM, as the Thomas route; 172.4 KB (193.2 KB) with pcr_s.
+//
 // The first design (douglas_march_batched: one 128-thread block per option,
 // state in device-memory scratch, one thread per line) stays for what the
 // shared-memory route does not take, chosen by the wrapper from the
-// arguments: the PCR v sweep (pcr_v, alone or with pcr_s), and grids whose
-// state exceeds the 227 KB a block can have (200x100 is one: 80 KB a field).
+// arguments: grids whose state exceeds the 227 KB a block can have (200x100
+// is one: 80 KB a field).  It takes every flag.  It launches from a second
+// build of this source without FMA contraction (ops/build.py VARIANTS), so
+// that it rounds every product and sum as the plain twin does and equals it
+// bit for bit; the shared-memory routes keep nvcc's contraction.
 //
 // PCR variants of the first design (pcr_v, pcr_s; the reference's
 // adi_fused.py:396-419, :438-466, :495-546): a sweep becomes parallel
@@ -126,7 +154,9 @@ __host__ __device__ int pcr_levels(int n) {
 // stride 1, one system).  lo/di/up hold the row-aligned bands of level 0 in
 // W[0..2] and are ping-ponged with W[3..5]; alpha and beta of level lev go
 // to AB[2 lev][.] and AB[2 lev + 1][.], the final 1/d to INVD.  Same
-// arithmetic as the reference (adi_fused.py:396-419, :438-466).
+// arithmetic as the reference (adi_fused.py:396-419, :438-466).  Every
+// thread of the block calls it (the first design's 128, or the
+// shared-memory route's 512 for the v system).
 __device__ void pcr_factor(float* W, int m, int n, int stride, float* AB,
                            float* INVD) {
   const int tid = threadIdx.x;
@@ -135,7 +165,7 @@ __device__ void pcr_factor(float* W, int m, int n, int stride, float* AB,
   const int levels = pcr_levels(n);
   for (int lev = 0; lev < levels; ++lev) {
     const int s = 1 << lev;
-    for (int k = tid; k < m; k += kThreads) {
+    for (int k = tid; k < m; k += blockDim.x) {
       const int i = (k / stride) % n;  // row within its system
       const bool has_lo = i >= s, has_hi = i < n - s;
       const float in_lo = has_lo ? 1.f : 0.f, in_hi = has_hi ? 1.f : 0.f;
@@ -156,7 +186,7 @@ __device__ void pcr_factor(float* W, int m, int n, int stride, float* AB,
     t = up; up = up2; up2 = t;
     t = di; di = di2; di2 = t;
   }
-  for (int k = tid; k < m; k += kThreads) INVD[k] = 1.f / di[k];
+  for (int k = tid; k < m; k += blockDim.x) INVD[k] = 1.f / di[k];
   __syncthreads();
 }
 
@@ -424,8 +454,10 @@ __device__ __forceinline__ void fetch_level(float* slot, const float* level, int
 
 // kPcrS: the S sweep is PCR (the reference's adi_fused.py:396-419,
 // :495-504) on the level coefficients in TAB, else the lane-group Thomas
-// scan.  The stencil, the v sweep and the boundary update are shared.
-template <bool kPcrS>
+// scan.  kPcrV: the v sweep is PCR (:438-466, :536-546) on level
+// coefficients in shared memory, else the lane-group Thomas scan.  The
+// stencil and the boundary update are shared.
+template <bool kPcrS, bool kPcrV>
 __global__ void __launch_bounds__(kSmemThreads, kPcrS ? 1 : 2)
 douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
                    const float* __restrict__ a1, const float* __restrict__ i1,
@@ -452,8 +484,9 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
   float* A2 = I1 + 3 * nv;
   float* I2 = A2 + 3 * nv;
   float* MIX = I2 + 3 * nv;
-  float* C2 = MIX + nv;
-  float* IV2 = C2 + nv;
+  const int levels_v = pcr_levels(nv);
+  float* C2 = MIX + nv;   // kPcrV: alpha, beta of each v level (pcr_factor's AB)
+  float* IV2 = C2 + (kPcrV ? 2 * levels_v * nv : nv);  // kPcrV: the final 1/d
   float* PAY = IV2 + nv;
   float* SG = PAY + nS;
   if (kPcrS) TAB += b * levels * lev_floats;
@@ -537,14 +570,27 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
     }
   }
 
+  if (kPcrV) {
+    // v-system PCR levels, kept in shared memory for the march; lo, up, di
+    // ping-pong through V and R (6 nv floats), free until the march
+    for (int j = tid; j < nv; j += kSmemThreads) {
+      V[j] = i2L[j];
+      V[nv + j] = i2U[j];
+      V[2 * nv + j] = i2D[j];
+    }
+    __syncthreads();
+    pcr_factor(V, nv, nv, 1, C2, IV2);
+  }
+
   // V starts at the payoff (constant along v); lambda at zero
   for (int k = tid; k < nS * nv; k += kSmemThreads) {
     const int i = k / nv, j = k - i * nv;
     V[i * ps + j] = PAY[i];
     if (use_it) LAM[i * ps + j] = 0.f;
   }
-  // v-system factors by one thread of the last warp, as the first design
-  if (tid == kSmemThreads - 32) {
+  // v-system Thomas factors by one thread of the last warp, as the first
+  // design
+  if (!kPcrV && tid == kSmemThreads - 32) {
     float c = i2U[0] / i2D[0];
     C2[0] = c;
     IV2[0] = 1.f / i2D[0];
@@ -672,6 +718,27 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
     const float tau = dt * static_cast<float>(step + 1);
     const float dfr = expf(-r * tau);
     const float dfq = expf(-q * tau);
+    // V's new value at (i, j) from the sweep's solution y: the
+    // Ikonen-Toivanen update, the Dirichlet rows, the American floor
+    auto settle = [&](int i, int j, float y) {
+      const float g = PAY[i];
+      float vn = y;
+      if (use_it && amer) {
+        // V_new - dt lam_new = Vn - dt lam, V_new >= g, lam_new >= 0
+        const float w = vn - dt * LAM[i * ps + j];
+        const float v_it = fmaxf(g, w);
+        LAM[i * ps + j] = (v_it - w) / dt;
+        vn = v_it;
+      }
+      if (i == 0) vn = is_call ? 0.f : K * dfr - SG[0] * dfq;
+      if (i == nS - 1) vn = is_call ? SG[nS - 1] * dfq - K * dfr : 0.f;
+      if (j == nv - 1) vn = is_call ? SG[i] * dfq : K * dfr;
+      // projection: clamp flagged options everywhere; IT: the Dirichlet
+      // edges are European, floor flagged options there
+      const bool edge = i == 0 || i == nS - 1 || j == 0 || j == nv - 1;
+      if (amer && (!use_it || edge)) vn = fmaxf(vn, g);
+      return vn;
+    };
     for (int base = 0; base < nS; base += kSmemThreads / gv) {
       const int i = base + tid / gv;
       const bool act = i < nS;
@@ -679,6 +746,35 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
       const int j_end = act ? min(nv, j_beg + cv) : j_beg;
       float* Vi = V + i * ps;
       float* Ri = R + i * ps;
+      if (kPcrV) {
+        // the right-hand side into R; then the levels, R and the row of PP
+        // (with kPcrS) or of V in turns, the row's lanes in one warp; then
+        // 1/d and the boundary update into V
+        for (int j = j_beg; j < j_end; ++j) {
+          const float a2v = a2D[j] * Vi[j] + a2L[j] * (j > 0 ? Vi[j - 1] : 0.f) +
+                            a2U[j] * (j < nv - 1 ? Vi[j + 1] : 0.f);
+          Ri[j] = Ri[j] - th_dt * a2v;
+        }
+        __syncwarp();  // every lane has read its row's V before any writes it
+        float* src = Ri;
+        float* dst = (kPcrS ? PP : V) + i * ps;
+        for (int lev = 0; lev < levels_v; ++lev) {
+          const int s = 1 << lev;
+          const float* alpha = C2 + 2 * lev * nv;
+          const float* beta = alpha + nv;
+          for (int j = j_beg; j < j_end; ++j) {
+            const float dn = j >= s ? src[j - s] : 0.f;
+            const float up = j < nv - s ? src[j + s] : 0.f;
+            dst[j] = src[j] + alpha[j] * dn + beta[j] * up;
+          }
+          __syncwarp();
+          float* t = src;
+          src = dst;
+          dst = t;
+        }
+        for (int j = j_beg; j < j_end; ++j) Vi[j] = settle(i, j, src[j] * IV2[j]);
+        continue;
+      }
       float P = 1.f, Q = 0.f;
       for (int j = j_beg; j < j_end; ++j) {
         const float a2v = a2D[j] * Vi[j] + a2L[j] * (j > 0 ? Vi[j - 1] : 0.f) +
@@ -707,23 +803,7 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
       for (int j = j_end - 1; j >= j_beg; --j) {
         const float cj = j < nv - 1 ? C2[j] : 0.f;
         y = Ri[j] - cj * y;
-        const float g = PAY[i];
-        float vn = y;
-        if (use_it && amer) {
-          // V_new - dt lam_new = Vn - dt lam, V_new >= g, lam_new >= 0
-          const float w = vn - dt * LAM[i * ps + j];
-          const float v_it = fmaxf(g, w);
-          LAM[i * ps + j] = (v_it - w) / dt;
-          vn = v_it;
-        }
-        if (i == 0) vn = is_call ? 0.f : K * dfr - SG[0] * dfq;
-        if (i == nS - 1) vn = is_call ? SG[nS - 1] * dfq - K * dfr : 0.f;
-        if (j == nv - 1) vn = is_call ? SG[i] * dfq : K * dfr;
-        // projection: clamp flagged options everywhere; IT: the Dirichlet
-        // edges are European, floor flagged options there
-        const bool edge = i == 0 || i == nS - 1 || j == 0 || j == nv - 1;
-        if (amer && (!use_it || edge)) vn = fmaxf(vn, g);
-        Vi[j] = vn;
+        Vi[j] = settle(i, j, y);
       }
     }
     __syncthreads();
@@ -735,17 +815,17 @@ douglas_march_smem(const float* __restrict__ pay, const float* __restrict__ sg,
   }
 }
 
-template <bool kPcrS>
+template <bool kPcrS, bool kPcrV>
 int launch_smem(const float* pay, const float* sg, const float* a1, const float* i1,
                 const float* a2, const float* i2, const float* mix, const float* sc,
                 float* V, float* TAB, int B, int nS, int nv, int nT, int ps, int gs,
                 int gv, int use_it, int smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(douglas_march_smem<kPcrS>,
+  cudaError_t err = cudaFuncSetAttribute(douglas_march_smem<kPcrS, kPcrV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B > 0) {
-    douglas_march_smem<kPcrS><<<B, kSmemThreads, smem_bytes, stream>>>(
+    douglas_march_smem<kPcrS, kPcrV><<<B, kSmemThreads, smem_bytes, stream>>>(
         pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, nS, nv, nT, ps, gs, gv, use_it);
   }
   return static_cast<int>(cudaGetLastError());
@@ -777,22 +857,29 @@ extern "C" int pde_adi_fused_batched(const float* pay, const float* sg,
 
 // The shared-memory route: inputs as above, V (B, nS, nv) the output; with
 // pcr_s the S sweep is PCR and TAB (B, levels_S, 2, cs, nv gs) receives the
-// level coefficients (null without pcr_s); ps the padded row stride, gs and
-// gv the lanes per S column and per v row (powers of two up to 32; with
-// pcr_s nv gs <= 512), smem_bytes the block's dynamic shared memory (at
-// most 227 KB).  Returns the first CUDA error of the attribute call or the
-// launch (0 = launched).
+// level coefficients (null without pcr_s); with pcr_v the v sweep is PCR;
+// ps the padded row stride, gs and gv the lanes per S column and per v row
+// (powers of two up to 32; with pcr_s nv gs <= 512), smem_bytes the
+// block's dynamic shared memory (at most 227 KB).  Returns the first CUDA
+// error of the attribute call or the launch (0 = launched).
 extern "C" int pde_adi_fused_batched_smem(const float* pay, const float* sg,
                                           const float* a1, const float* i1,
                                           const float* a2, const float* i2,
                                           const float* mix, const float* sc,
                                           float* V, float* TAB, int B, int nS,
                                           int nv, int nT, int ps, int gs, int gv,
-                                          int use_it, int pcr_s, int smem_bytes,
-                                          void* stream) {
+                                          int use_it, int pcr_s, int pcr_v,
+                                          int smem_bytes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pcr_s ? launch_smem<true>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv,
-                                   nT, ps, gs, gv, use_it, smem_bytes, s)
-               : launch_smem<false>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv,
-                                    nT, ps, gs, gv, use_it, smem_bytes, s);
+  if (pcr_s && pcr_v)
+    return launch_smem<true, true>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv, nT,
+                                   ps, gs, gv, use_it, smem_bytes, s);
+  if (pcr_s)
+    return launch_smem<true, false>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv, nT,
+                                    ps, gs, gv, use_it, smem_bytes, s);
+  if (pcr_v)
+    return launch_smem<false, true>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv, nT,
+                                    ps, gs, gv, use_it, smem_bytes, s);
+  return launch_smem<false, false>(pay, sg, a1, i1, a2, i2, mix, sc, V, TAB, B, nS, nv, nT,
+                                   ps, gs, gv, use_it, smem_bytes, s);
 }

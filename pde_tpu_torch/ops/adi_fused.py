@@ -15,11 +15,12 @@ Dirichlet rows.
   sweep spread over a group of lanes as a chunked affine scan
   (:func:`_smem_plan` sizes it); with ``pcr_s`` the S sweep is PCR on the
   same route, its level coefficients computed once before the march and
-  streamed a level ahead into shared memory.  The PCR v sweep (``pcr_v``,
-  alone or with ``pcr_s``) and grids whose state exceeds a block's 227 KB
-  run the first design, one 128-thread block per option with its state in
-  device memory.  The public layout is the reference's ``(…, B)`` (batch
-  last); the CUDA wrapper permutes to option-major ``(B, nS, nv)`` and back.
+  streamed a level ahead into shared memory; with ``pcr_v`` the v sweep is
+  PCR on the same route, its level coefficients kept in shared memory.
+  Grids whose state exceeds a block's 227 KB run the first design, one
+  128-thread block per option with its state in device memory.  The public
+  layout is the reference's ``(…, B)`` (batch last); the CUDA wrapper
+  permutes to option-major ``(B, nS, nv)`` and back.
 * :func:`fused_douglas_march` (K2) marches ONE option on a general (nS, nv)
   grid with row-aligned bands.  A CUDA tensor launches ``csrc/adi_fused.cu``
   or raises: one 1024-thread block with its state in shared memory and
@@ -42,11 +43,12 @@ import math
 
 import torch
 
-from .build import load_library
+from .build import load_library, refuse_autograd
 
 __all__ = ["fused_douglas_march", "fused_douglas_march_batched"]
 
 _SOURCE = "adi_fused_batched.cu"
+_SOURCE_EXACT = "adi_fused_batched.cu@exact"   # the first design's build (build.VARIANTS)
 _SOURCE_SINGLE = "adi_fused.cu"
 _TH = 0.5  # Douglas parameter
 _SMEM_THREADS = 512   # threads of K1's shared-memory block (csrc kSmemThreads)
@@ -88,10 +90,13 @@ def fused_douglas_march_batched(
     multiply-adds per level.  ``launches`` counts the CUDA kernel's
     launches of either design; ``launches_smem`` those of them that ran
     the shared-memory design, ``launches_pcr_v`` and ``launches_pcr_s``
-    those that ran the PCR v or S sweep, ``launches_pcr_s_smem`` those
-    that ran the PCR S sweep on the shared-memory design.
+    those that ran the PCR v or S sweep, ``launches_pcr_v_smem`` and
+    ``launches_pcr_s_smem`` those that ran the PCR v or S sweep on the
+    shared-memory design.  Under autograd it raises: the kernel has no
+    backward (nor has the reference's ``pallas_call``).
     """
     args = (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)
+    refuse_autograd("fused_douglas_march_batched", *args)
     nS, nv, B = n_spot, n_vol, pay.shape[-1]
     shapes = ((nS, 1, B), (nS, 1, B), (3, nv, B), (3, nv, B), (3, nv, B),
               (3, nv, B), (1, nv, B), (8, 1, B))
@@ -105,7 +110,7 @@ def fused_douglas_march_batched(
     if pay.device.type == "cuda":
         plan = _route_plan(nS, nv, use_it, pcr_v, pcr_s)
         if plan is not None:
-            return _launch_smem(*args, nS, nv, n_time, use_it, pcr_s, plan)
+            return _launch_smem(*args, nS, nv, n_time, use_it, pcr_v, pcr_s, plan)
         return _launch(*args, nS, nv, n_time, use_it, pcr_v, pcr_s)
     if pay.device.type == "cpu":
         return _fused_douglas_march_batched_plain(*args, nS, nv, n_time, use_it,
@@ -117,11 +122,14 @@ fused_douglas_march_batched.launches = 0
 fused_douglas_march_batched.launches_smem = 0
 fused_douglas_march_batched.launches_pcr_v = 0
 fused_douglas_march_batched.launches_pcr_s = 0
+fused_douglas_march_batched.launches_pcr_v_smem = 0
 fused_douglas_march_batched.launches_pcr_s_smem = 0
 
 
 def _library():
-    lib, _ = load_library(_SOURCE)
+    """The first design's launcher, from the build without FMA contraction:
+    it rounds as the plain twin does."""
+    lib, _ = load_library(_SOURCE_EXACT)
     fn = lib.pde_adi_fused_batched
     fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -163,15 +171,21 @@ def _stride(nS: int, nv: int, gs: int, gv: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_plan(nS: int, nv: int, use_it: bool, pcr_s: bool = False):
+def _smem_plan(nS: int, nv: int, use_it: bool, pcr_s: bool = False, pcr_v: bool = False):
     """The shared-memory route's layout for an (nS, nv) grid: ``(ps, gs,
     gv, n_bytes)`` — the padded row stride (:func:`_stride`), the lanes per
     S column and per v row, and the block's bytes of shared memory — or
-    None when that exceeds what a block can have.  With ``pcr_s`` the S
-    sweep is PCR: the block also holds the ping-pong grid and a double
-    buffer of level coefficients (:func:`_pcr_buffer`), and every column's
-    lane group must fit the block at once.  Cached: it depends on the shape
-    only, and every launch asks for it."""
+    None when that exceeds what a block can have.  The block holds the
+    fields on the padded grid and the bands, mix, the v factors, the payoff
+    and the spot grid (15 nv + 2 nS floats).  With ``pcr_s`` the S sweep
+    is PCR: the block also holds the ping-pong grid and a double buffer of
+    level coefficients (:func:`_pcr_buffer`), and every column's lane group
+    must fit the block at once.  With ``pcr_v`` the v sweep is PCR: its
+    level coefficients (alpha and beta of each level, then 1/d) take the
+    place of the two Thomas factors, 2 levels_v nv + nv floats for 2 nv; it
+    ping-pongs through V's own row (or, with ``pcr_s``, the ping-pong
+    grid), so it adds no field.  Cached: it depends on the shape only, and
+    every launch asks for it."""
     gs, gv = _lanes(nv, nS), _lanes(nS, nv)
     ps = _stride(nS, nv, gs, gv)
     fields = 3 + int(use_it)           # V, R, 1/pivot (1/d with pcr_s), lambda
@@ -181,6 +195,8 @@ def _smem_plan(nS: int, nv: int, use_it: bool, pcr_s: bool = False):
             return None
         fields += 1                    # the ping-pong grid
         extra = _pcr_buffer(nS, nv, ps, gs)
+    if pcr_v:
+        extra += (2 * _levels(nv) - 1) * nv
     n_bytes = 4 * (fields * nS * ps + extra + 15 * nv + 2 * nS)
     return (ps, gs, gv, n_bytes) if n_bytes <= _SMEM_MAX else None
 
@@ -196,12 +212,13 @@ def _pcr_buffer(nS: int, nv: int, ps: int, gs: int) -> int:
 
 def _route_plan(nS: int, nv: int, use_it: bool, pcr_v: bool, pcr_s: bool):
     """The plan of the shared-memory route that the flags and the grid take
-    (:func:`_smem_plan`), or None for the first design: the PCR v sweep, and
-    grids too large for a block."""
-    return None if pcr_v else _smem_plan(nS, nv, use_it, pcr_s)
+    (:func:`_smem_plan`), or None for the first design: grids too large for
+    a block."""
+    return _smem_plan(nS, nv, use_it, pcr_s, pcr_v)
 
 
-def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_s, plan):
+def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_v, pcr_s,
+                 plan):
     """The shared-memory route: permute to option-major, launch one block
     per option on the current stream, permute back.  Allocates V and, with
     ``pcr_s``, the table of S-sweep level coefficients (alpha and beta per
@@ -209,7 +226,7 @@ def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_
     the chunk, S-sweep thread)."""
     lib, _ = load_library(_SOURCE)
     fn = lib.pde_adi_fused_batched_smem
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ps, gs, gv, n_bytes = plan
     B = pay.shape[-1]
@@ -221,20 +238,22 @@ def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_
                           device=pay.device)
     stream = torch.cuda.current_stream(pay.device).cuda_stream
     err = fn(*(t.data_ptr() for t in (*ins, V)), None if TAB is None else TAB.data_ptr(),
-             B, nS, nv, nT, ps, gs, gv, int(use_it), int(pcr_s), n_bytes, stream)
+             B, nS, nv, nT, ps, gs, gv, int(use_it), int(pcr_s), int(pcr_v), n_bytes, stream)
     if err != 0:
         raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
     fused_douglas_march_batched.launches += 1
     fused_douglas_march_batched.launches_smem += 1
+    fused_douglas_march_batched.launches_pcr_v += int(pcr_v)
     fused_douglas_march_batched.launches_pcr_s += int(pcr_s)
+    fused_douglas_march_batched.launches_pcr_v_smem += int(pcr_v)
     fused_douglas_march_batched.launches_pcr_s_smem += int(pcr_s)
     return V.permute(1, 2, 0)
 
 
 def _launch(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_v,
             pcr_s):
-    """The first design (the PCR v sweep, and grids too large for the
-    shared-memory route): permute to option-major, launch on the current
+    """The first design (grids too large for the shared-memory route; it
+    takes every flag): permute to option-major, launch on the current
     stream, permute back.  The PCR variants take their level coefficients in scratch: for v,
     2 levels_v nv alphas and betas in place of the Thomas c2 (and 1/d in
     place of inv2); for S, 2 levels_S nS nv plus nS nv for 1/d; WORK holds
@@ -464,6 +483,8 @@ def fused_douglas_march(
     launches of either design, ``launches_smem`` those that ran the
     shared-memory design.
     """
+    refuse_autograd("fused_douglas_march", payoff, a1_bands, i1_bands, a2_bands, i2_bands,
+                    mix_coef, s_grid, scalars)
     nS, nv = n_spot, n_vol
     grid, vec, sg, sc = _stack_single(payoff, a1_bands, i1_bands, a2_bands, i2_bands,
                                       mix_coef, s_grid, scalars)

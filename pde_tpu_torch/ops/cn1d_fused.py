@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from .build import load_library
+from .build import load_library, refuse_autograd
 
 __all__ = ["fused_cn_march_1d"]
 
@@ -42,6 +42,7 @@ def fused_cn_march_1d(
 ) -> torch.Tensor:
     """March the whole book backward ``n_time`` steps; returns V(t=0) as
     (n, B) float32.  ``launches`` counts the CUDA kernel's launches."""
+    refuse_autograd("fused_cn_march_1d", pay, sc)
     n, B = n_space, pay.shape[-1]
     for a, shape in ((pay, (n, B)), (sc, (12, B))):
         if tuple(a.shape) != shape:

@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from .build import load_library
+from .build import load_library, refuse_autograd
 
 __all__ = ["fused_cn_march_1d_tv"]
 
@@ -56,6 +56,7 @@ def fused_cn_march_1d_tv(
     """March the whole book backward ``n_time`` steps; returns V(t=0) as
     (n, B) float32.  ``launches`` counts the CUDA kernel's launches of
     either design, ``launches_smem`` those of the warp design."""
+    refuse_autograd("fused_cn_march_1d_tv", pay, bands, sc)
     n, B = n_space, pay.shape[-1]
     for a, shape in ((pay, (n, B)), (bands, (n_time + 1, 3 * n, B)), (sc, (8, B))):
         if tuple(a.shape) != shape:

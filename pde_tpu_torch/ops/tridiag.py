@@ -10,28 +10,34 @@
 * :func:`thomas_batched` — B independent systems forward-eliminated and
   back-substituted in ONE launch of the CUDA kernel ``csrc/thomas_batched.cu``
   (the reference's ``thomas_pallas``) on a CUDA tensor, its plain twin
-  :func:`_thomas_batched_plain` on a CPU tensor.
+  :func:`_thomas_batched_plain` on a CPU tensor.  The kernel has no
+  backward: under autograd it raises, as ``pallas_call`` does under
+  ``jax.grad``.
 * :func:`pcr` — parallel cyclic reduction for few, very long systems:
   ceil(log2 n) rounds of shifted whole-tensor eliminations.
 
 :func:`tridiagonal_solve` keeps the reference's dispatch rule: its kernel
-branch takes 2D float32 batches on the card to :func:`thomas_batched`.
+branch takes 2D float32 batches on the card to :func:`thomas_batched`,
+unless autograd runs through them (:func:`kernel_route`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from .build import load_library
+from .build import load_library, refuse_autograd
 
 __all__ = ["thomas", "thomas_factor", "thomas_solve_factored", "ThomasFactors",
            "thomas_batched", "pcr", "tridiagonal_solve", "kernel_route"]
 
 _SOURCE = "thomas_batched.cu"
+_LANE_THREADS = 128   # threads of a lane-group block (csrc kLaneThreads)
+_SMEM_MAX = 232448    # bytes of shared memory one block can have (227 KB)
 
 
 class ThomasFactors(NamedTuple):
@@ -134,10 +140,16 @@ def thomas_batched(lower, diag, upper, rhs) -> torch.Tensor:
     (B, n), float32.  Forward elimination takes one reciprocal per pivot
     and multiplies (``inv_m = 1/m; c = up inv_m; dp = (b - lo dp) inv_m``),
     row 0 divides; the back substitution follows in the same launch.  On
-    a CUDA tensor it launches ``csrc/thomas_batched.cu`` (one thread per
-    system) or raises; on a CPU tensor it runs :func:`_thomas_batched_plain`.
-    ``launches`` counts the kernel's launches.
+    a CUDA tensor it launches ``csrc/thomas_batched.cu`` or raises: a group
+    of lanes per system reading the operands where they lie (any batch
+    stride, 0 for a band shared by every system; :func:`_lane_plan`), or,
+    for systems too long for a block's shared memory, the first design, one
+    thread per system on batch-last copies.  On a CPU tensor it runs
+    :func:`_thomas_batched_plain`.  Under autograd it raises (no backward).
+    ``launches`` counts the kernel's launches of either design,
+    ``launches_smem`` those of the lane-group design.
     """
+    refuse_autograd("thomas_batched", lower, diag, upper, rhs)
     B, n = rhs.shape
     for a, shape in ((lower, (B, n - 1)), (diag, (B, n)), (upper, (B, n - 1)),
                      (rhs, (B, n))):
@@ -155,17 +167,38 @@ def thomas_batched(lower, diag, upper, rhs) -> torch.Tensor:
 
 
 thomas_batched.launches = 0
+thomas_batched.launches_smem = 0
 
 
 def _row_major(lower, diag, upper, rhs):
-    """Batch-last, row-aligned (n, B) operands: lo[0] = 0, up[n-1] = 0."""
+    """Batch-last, row-aligned (n, B) operands: lo[0] = 0, up[n-1] = 0
+    (the twin's and the first design's layout)."""
     zero = torch.zeros_like(rhs[:, :1])
     lo = torch.cat([zero, lower], 1).T.contiguous()
     up = torch.cat([upper, zero], 1).T.contiguous()
     return lo, diag.T.contiguous(), up, rhs.T.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _lane_plan(n: int):
+    """The lane-group route's layout for n-point systems: ``(g, ch, cp,
+    n_bytes)`` — lanes per system (a power of two up to 32, so that a
+    lane's chunk holds about four rows), rows per chunk, the padded chunk
+    stride in shared memory (odd, so the lanes of a warp hit distinct
+    banks) and the block's bytes (four operands of its 128 / g systems) —
+    or None when that exceeds what a block can have.  Cached per n."""
+    g = 1
+    while g < 32 and 4 * g < n:
+        g *= 2
+    ch = -(-n // g)
+    cp = ch | 1
+    n_bytes = 4 * 4 * (_LANE_THREADS // g) * g * cp
+    return (g, ch, cp, n_bytes) if n_bytes <= _SMEM_MAX else None
+
+
+@functools.lru_cache(maxsize=None)
 def _thomas_library():
+    """The first design's launcher (batch-last operands)."""
     lib, _ = load_library(_SOURCE)
     fn = lib.pde_thomas_batched
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -173,14 +206,60 @@ def _thomas_library():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _lanes_library():
+    """The lane-group route's launcher (the public (B, n) layout)."""
+    lib, _ = load_library(_SOURCE)
+    fn = lib.pde_thomas_lanes
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch_thomas(lower, diag, upper, rhs):
-    fn = _thomas_library()
+    """One launch on the current stream, on the route :func:`_lane_plan`
+    picks from n."""
+    plan = _lane_plan(rhs.shape[1])
+    if plan is None:
+        return _launch_thomas_first(lower, diag, upper, rhs)
+    return _launch_thomas_lanes(lower, diag, upper, rhs, plan)
+
+
+def _batch_stride(a):
+    """``a`` with contiguous rows, and the floats between its rows (0 for
+    one row or a band expanded over the batch)."""
+    if a.shape[1] > 1 and a.stride(1) != 1:
+        a = a.contiguous()
+    return a, (a.stride(0) if a.shape[0] > 1 else 0)
+
+
+def _launch_thomas_lanes(lower, diag, upper, rhs, plan):
+    """The lane-group route: reads the operands where they lie, writes a
+    fresh (B, n) result."""
+    B, n = rhs.shape
+    g, ch, cp, n_bytes = plan
+    ops = [_batch_stride(a) for a in (lower, diag, upper, rhs)]
+    out = torch.empty((B, n), dtype=torch.float32, device=rhs.device)
+    stream = torch.cuda.current_stream(rhs.device).cuda_stream
+    err = _lanes_library()(*(a.data_ptr() for a, _ in ops), out.data_ptr(),
+                           *(s for _, s in ops), B, n, g, ch, cp, n_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"batched Thomas launch failed: CUDA error {err}")
+    thomas_batched.launches += 1
+    thomas_batched.launches_smem += 1
+    return out
+
+
+def _launch_thomas_first(lower, diag, upper, rhs):
+    """The first design, for systems too long for the lane-group route:
+    batch-last copies, one thread per system."""
     B, n = rhs.shape
     ins = _row_major(lower, diag, upper, rhs)
     out, C = (torch.empty((n, B), dtype=torch.float32, device=rhs.device)
               for _ in range(2))
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (*ins, out, C)), B, n, stream)
+    err = _thomas_library()(*(t.data_ptr() for t in (*ins, out, C)), B, n, stream)
     if err != 0:
         raise RuntimeError(f"batched Thomas launch failed: CUDA error {err}")
     thomas_batched.launches += 1
@@ -242,7 +321,8 @@ def kernel_route(*tensors) -> bool:
     """Whether a solve on these tensors belongs to the kernel: float32 on
     a CUDA device, with no autograd through it (the kernels have no
     backward).  The scan solvers ask this before they hand a sweep to
-    :func:`tridiagonal_solve` instead of their factored twin."""
+    :func:`tridiagonal_solve` instead of their factored twin, and
+    :func:`tridiagonal_solve` asks it for its automatic choice."""
     t = tensors[0]
     if t.device.type != "cuda" or t.dtype != torch.float32:
         return False
@@ -253,9 +333,12 @@ def tridiagonal_solve(lower, diag, upper, rhs, use_kernel: bool | None = None):
     """Dispatch on the batch/length regime, as the reference does.
 
     - Few, very long systems -> :func:`pcr`.
-    - Wide float32 2D batches on the card -> :func:`thomas_batched` (K5).
-      Shared 1-D bands are broadcast to one set per system first.
-    - Everything else -> :func:`thomas`.
+    - Wide float32 2D batches on the card, outside autograd
+      (:func:`kernel_route`) -> :func:`thomas_batched` (K5).  Shared 1-D
+      bands are expanded over the batch, which copies nothing.
+    - Everything else -> :func:`thomas`, which autograd differentiates.
+    ``use_kernel=True`` takes the kernel branch whatever the tensors are:
+    under autograd :func:`thomas_batched` then raises.
     """
     rhs = torch.as_tensor(rhs)
     n = rhs.shape[-1]
@@ -263,8 +346,8 @@ def tridiagonal_solve(lower, diag, upper, rhs, use_kernel: bool | None = None):
     if use_kernel is None and n >= 8192 and batch_size <= 16:
         return pcr(lower, diag, upper, rhs)
     if use_kernel is None:
-        use_kernel = (rhs.dim() == 2 and rhs.dtype == torch.float32
-                      and rhs.device.type == "cuda")
+        use_kernel = rhs.dim() == 2 and kernel_route(
+            rhs, *(torch.as_tensor(b) for b in (lower, diag, upper)))
     if use_kernel:
         lower, diag, upper = (torch.as_tensor(b).expand(rhs.shape[:-1] + (m,))
                               for b, m in ((lower, n - 1), (diag, n), (upper, n - 1)))

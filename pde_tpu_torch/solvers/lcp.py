@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.build import load_library
+from ..ops.build import load_library, refuse_autograd
 from ..ops.tridiag import kernel_route
 
 __all__ = ["brennan_schwartz", "brennan_schwartz_factor",
@@ -122,6 +122,7 @@ def projected_sor_batched(lower, diag, upper, b, g, omega: float = 1.5,
     runs the plain twin, the tensor-op sweeps of :func:`projected_sor` in
     float32.  ``launches`` counts the kernel's launches.
     """
+    refuse_autograd("projected_sor_batched", lower, diag, upper, b, g, x0)
     B, n = b.shape
     ins = [lower, diag, upper, b, g] + ([] if x0 is None else [x0])
     shapes = [(B, n - 1), (B, n), (B, n - 1), (B, n), (B, n), (B, n)]

@@ -14,9 +14,8 @@ from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused, tridiag
 from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
 
 # kernel vs plain twin: both float32 with the same step order; FMA
-# contraction (K1, K3) and the order in which the lane scans of K1, K2 and
-# K3 (and K1's PCR S sweep on its shared-memory route) compose the values
-# entering each chunk differ
+# contraction (K1, K2, K3) and the order in which the lane scans of K1, K2,
+# K3 and K5 compose the values entering each chunk differ
 GATE = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -433,19 +432,156 @@ def test_k1_pcr_s_smem_route_matches_plain(B, grid, use_it):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_it", [False, True])
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("grid", [(16, 8), (40, 20), (100, 50)])
+@pytest.mark.parametrize("variant", [dict(pcr_v=True), dict(pcr_v=True, pcr_s=True)])
+def test_k1_pcr_v_smem_route_matches_plain(variant, grid, B, use_it):
+    """The PCR v sweep, alone and with the PCR S sweep, on the
+    shared-memory route (level coefficients in shared memory, a level a
+    __syncwarp) against the twin's, European and IT-LCP books."""
+    _need_cuda()
+    nS, nv = grid
+    ins = list(_k1_inputs(B, nS, nv, 20, 17))
+    if not use_it:
+        ins[7] = ins[7].clone()
+        ins[7][5] = 0.0
+    k1 = adi_fused.fused_douglas_march_batched
+    counts = ("launches", "launches_smem", "launches_pcr_v_smem", "launches_pcr_s_smem")
+    before = [getattr(k1, c) for c in counts]
+    got = k1(*ins, nS, nv, 20, use_it=use_it, **variant)
+    want = adi_fused._fused_douglas_march_batched_plain(*ins, nS, nv, 20, use_it, **variant)
+    torch.cuda.synchronize()
+    moved = [getattr(k1, c) - n for c, n in zip(counts, before)]
+    assert moved == [1, 1, 1, int(variant.get("pcr_s", False))]
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", [dict(pcr_v=True), dict(pcr_v=True, pcr_s=True)])
 def test_k1_pcr_v_takes_first_design(variant):
-    """The PCR v sweep, alone or with the PCR S sweep, runs the first design."""
+    """The PCR v sweep, alone or with the PCR S sweep, runs the first design
+    on a grid too large for the shared-memory route (200x100)."""
     _need_cuda()
-    ins = _k1_inputs(37, 100, 50, 20, 16)
+    assert adi_fused._route_plan(200, 100, True, True, variant.get("pcr_s", False)) is None
+    ins = _k1_inputs(5, 200, 100, 10, 16)
     k1 = adi_fused.fused_douglas_march_batched
-    before = (k1.launches, k1.launches_smem, k1.launches_pcr_s_smem)
-    got = k1(*ins, 100, 50, 20, use_it=True, **variant)
-    want = adi_fused._fused_douglas_march_batched_plain(*ins, 100, 50, 20, True, **variant)
+    before = (k1.launches, k1.launches_smem, k1.launches_pcr_v, k1.launches_pcr_v_smem)
+    got = k1(*ins, 200, 100, 10, use_it=True, **variant)
+    want = adi_fused._fused_douglas_march_batched_plain(*ins, 200, 100, 10, True, **variant)
     torch.cuda.synchronize()
-    assert (k1.launches, k1.launches_smem, k1.launches_pcr_s_smem) == \
-        (before[0] + 1, before[1], before[2])
+    assert (k1.launches, k1.launches_smem, k1.launches_pcr_v, k1.launches_pcr_v_smem) == \
+        (before[0] + 1, before[1], before[2] + 1, before[3])
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+def _shared_bands(B, n, seed):
+    """Seeded systems whose three bands are one row expanded over the
+    batch (batch stride 0), as the scan's v sweep gives them."""
+    lower, diag, upper, rhs, _ = _tridiagonal(1, n, seed)
+    return lower.expand(B, -1), diag.expand(B, -1), upper.expand(B, -1), \
+        torch.randn((B, n), generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,shared", [(50, 100, False), (100, 50, True), (1, 200, True),
+                                        (37, 100, False), (37, 50, True), (512, 200, False)])
+def test_k5_lane_route_matches_plain(B, n, shared):
+    """K5's lane-group route (Moebius scan of the pivots, affine scans of
+    both sweeps) against its twin at the scan paths' shapes, with bands
+    shared by every system (read in place, batch stride 0) and ragged
+    batches (a partly filled last block)."""
+    _need_cuda()
+    system = _shared_bands(B, n, 18) if shared else _tridiagonal(B, n, 18)[:4]
+    k5 = tridiag.thomas_batched
+    before = (k5.launches, k5.launches_smem)
+    got = k5(*system)
+    want = tridiag._thomas_batched_plain(*system)
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.launches_smem) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (B, n) and got.is_contiguous()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+def test_k5_long_systems_take_first_design():
+    """Systems too long for the lane-group route's shared memory (n = 4000)
+    run the first design, and agree with the twin."""
+    _need_cuda()
+    assert tridiag._lane_plan(4000) is None
+    system = _tridiagonal(3, 4000, 19)[:4]
+    k5 = tridiag.thomas_batched
+    before = (k5.launches, k5.launches_smem)
+    got = k5(*system)
+    want = tridiag._thomas_batched_plain(*system)
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.launches_smem) == (before[0] + 1, before[1])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+def _guard_cases():
+    """Each kernel wrapper with small inputs on the card: (wrapper, inputs,
+    call)."""
+    dev = "cuda"
+    ins = _k1_inputs(3, 12, 6, 3, 20)
+    k2 = _k2_inputs(12, 6, 3, "european")
+    book = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in _lv_book(3, 21).items()}
+    k3 = local_vol_pde._march_inputs(_surface(dev), book["K"], book["T"], book["is_call"],
+                                     book["american"], 0.04, 0.01, 16, 3, 0.2, 5.0)[:3]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    k4 = bs_pde._march_inputs(t([0.2, 0.3]), t([0.05, 0.05]), t([0.01, 0.0]), t([1.0, 0.5]),
+                              t([100.0, 90.0]), t([1.0, 0.0]), t([0.0, 1.0]), 16, 3, 0.2,
+                              5.0)[:2]
+    system = _tridiagonal(4, 10, 22)
+    return {
+        "K1": (adi_fused.fused_douglas_march_batched, list(ins),
+               lambda *a: adi_fused.fused_douglas_march_batched(*a, 12, 6, 3)),
+        "K2": (adi_fused.fused_douglas_march, list(k2),
+               lambda *a: adi_fused.fused_douglas_march(*a, 12, 6, 3)),
+        "K3": (cn1d_tv_fused.fused_cn_march_1d_tv, list(k3),
+               lambda *a: cn1d_tv_fused.fused_cn_march_1d_tv(*a, 16, 3)),
+        "K4": (cn1d_fused.fused_cn_march_1d, list(k4),
+               lambda *a: cn1d_fused.fused_cn_march_1d(*a, 16, 3)),
+        "K5": (tridiag.thomas_batched, list(system[:4]), tridiag.thomas_batched),
+        "K6": (lcp.projected_sor_batched, list(system),
+               lambda *a: lcp.projected_sor_batched(*a)[0]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["K1", "K2", "K3", "K4", "K5", "K6"])
+def test_kernel_wrapper_refuses_autograd_on_the_card(key):
+    """On the card, as on the CPU, a kernel wrapper given an input that
+    requires grad raises and launches nothing; under torch.no_grad() it
+    launches."""
+    _need_cuda()
+    wrapper, args, call = _guard_cases()[key]
+    leaf = args[0].clone().requires_grad_()
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(leaf, *args[1:])
+    assert wrapper.launches == before
+    with torch.no_grad():
+        got = call(leaf, *args[1:])
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and not got.requires_grad
+
+
+@pytest.mark.cuda
+def test_tridiagonal_solve_keeps_gradient_on_the_card():
+    """A float32 CUDA batch under grad goes to the differentiable thomas
+    (no launch): its gradient equals the CPU's."""
+    _need_cuda()
+    lower, diag, upper, rhs, _ = _tridiagonal(6, 30, 23)
+    leaf = rhs.clone().requires_grad_()
+    before = tridiag.thomas_batched.launches
+    g_card, = torch.autograd.grad(tridiag.tridiagonal_solve(lower, diag, upper, leaf).sum(), leaf)
+    assert tridiag.thomas_batched.launches == before
+    cpu = [a.cpu() for a in (lower, diag, upper)]
+    leaf_cpu = rhs.cpu().requires_grad_()
+    g_cpu, = torch.autograd.grad(tridiag.tridiagonal_solve(*cpu, leaf_cpu).sum(), leaf_cpu)
+    np.testing.assert_allclose(g_card.cpu().numpy(), g_cpu.numpy(), **GATE)
 
 
 @pytest.mark.cuda

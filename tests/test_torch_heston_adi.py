@@ -204,16 +204,55 @@ def test_k1_pcr_s_smem_plan(use_it):
 @pytest.mark.parametrize("pcr_v,pcr_s", [(False, False), (False, True), (True, False),
                                          (True, True)])
 def test_k1_route_resolves_from_flags(pcr_v, pcr_s):
-    """The wrapper's route: the Thomas march and the PCR S sweep take the
-    shared-memory design, each with its own plan; the PCR v sweep, alone or
-    with the PCR S sweep, and a grid too large for a block take the first
-    design (no plan)."""
+    """The wrapper's route: the Thomas march and each PCR variant (the v
+    sweep, the S sweep, both) take the shared-memory design at 100x50, each
+    with its own plan; a grid too large for a block takes the first design
+    (no plan) whatever the flags."""
     for use_it in (False, True):
         plan = tops._route_plan(100, 50, use_it, pcr_v, pcr_s)
-        if pcr_v:
-            assert plan is None
-        else:
-            assert plan == tops._smem_plan(100, 50, use_it, pcr_s) is not None
-            assert plan[3] == {(False, False): 66200, (True, False): 87000,
-                               (False, True): 170200, (True, True): 191000}[use_it, pcr_s]
+        assert plan == tops._smem_plan(100, 50, use_it, pcr_s, pcr_v) is not None
+        assert plan[:3] == (52, 8, 4)
+        assert plan[3] == {(False, False): 66200, (True, False): 87000,
+                           (False, True): 170200, (True, True): 191000}[use_it, pcr_s] \
+            + (2200 if pcr_v else 0)
         assert tops._route_plan(200, 100, use_it, pcr_v, pcr_s) is None
+
+
+@pytest.mark.parametrize("use_it", [False, True])
+@pytest.mark.parametrize("grid", [(100, 50), (40, 20), (16, 8)])
+def test_k1_pcr_v_smem_plan(grid, use_it):
+    """The PCR v sweep on the shared-memory route: its level coefficients
+    (alpha and beta of each of levels_v levels, then 1/d) take the place of
+    the Thomas v factors in shared memory, 2 levels_v nv + nv floats for
+    2 nv, and it ping-pongs through V's own row, so it adds no field.
+    Alone it stays under the ~113 KB that lets two blocks share an SM."""
+    nS, nv = grid
+    base = tops._smem_plan(nS, nv, use_it)
+    plan = tops._smem_plan(nS, nv, use_it, False, True)
+    assert plan[:3] == base[:3]
+    assert plan[3] == base[3] + 4 * (2 * tops._levels(nv) - 1) * nv
+    assert plan[3] <= 232448 // 2
+    both = tops._smem_plan(nS, nv, use_it, True, True)
+    assert both[3] == tops._smem_plan(nS, nv, use_it, True)[3] + plan[3] - base[3]
+    if grid == (100, 50):
+        assert (plan[3], both[3]) == ((89200, 193200) if use_it else (68400, 172400))
+
+
+def test_k1_first_design_builds_without_contraction(monkeypatch, tmp_path):
+    """K1's first design launches from a second build of its source without
+    FMA contraction (so that it rounds as the plain twin does), the
+    shared-memory routes from the default build; both need nvcc, and
+    without it the build raises rather than falls back."""
+    from pde_tpu_torch.ops import build
+
+    file, extra = build.VARIANTS[tops._SOURCE_EXACT]
+    assert file == tops._SOURCE and (build.CSRC / file).exists()
+    assert extra == ("-fmad=false",) and "-fmad=false" not in build.SOURCE_FLAGS.get(file, ())
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "NVCC_DEFAULT", str(build.CSRC / "no-nvcc-here"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    for source in (tops._SOURCE, tops._SOURCE_EXACT):
+        monkeypatch.delitem(build._LOADED, source, raising=False)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load_library(source)
+    assert not (tmp_path / "build").exists()  # nothing half built is left

@@ -159,3 +159,55 @@ def test_gradients_match_jax(rng, fn):
             continue
         np.testing.assert_allclose(g.numpy(), np.asarray(h), rtol=1e-10, atol=1e-14,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("n,plan", [(2, (1, 2, 3, 6144)), (5, (2, 3, 3, 6144)),
+                                    (50, (16, 4, 5, 10240)), (100, (32, 4, 5, 10240)),
+                                    (200, (32, 7, 7, 14336)), (3632, (32, 114, 115, 235520)),
+                                    (3600, (32, 113, 113, 231424))])
+def test_k5_lane_plan(n, plan):
+    """K5's lane-group route: lanes per system a power of two up to 32, so
+    that a chunk holds about four rows (16 at n = 50, 32 at n = 100); an
+    odd chunk stride in shared memory; four operands of the block's 128 / g
+    systems within a block's 227 KB, else the first design (None)."""
+    want = plan if plan[3] <= 232448 else None
+    assert tt._lane_plan(n) == want
+    if want is not None:
+        g, ch, cp, n_bytes = want
+        assert g * ch >= n and cp % 2 == 1 and cp >= ch
+        assert n_bytes == 4 * 4 * (128 // g) * g * cp
+
+
+def test_k5_reads_operands_in_place():
+    """The lane-group route takes each operand's batch stride: 0 for a band
+    expanded over the batch or a single system, the row length for a
+    contiguous batch; only rows that are not contiguous are copied."""
+    band = torch.zeros(1, 9).expand(6, 9)
+    assert tt._batch_stride(band)[1] == 0 and tt._batch_stride(band)[0] is band
+    one = torch.zeros(1, 10)
+    assert tt._batch_stride(one) == (one, 0)
+    full = torch.zeros(6, 10)
+    assert tt._batch_stride(full) == (full, 10)
+    strided = torch.zeros(10, 6).T
+    copy, stride = tt._batch_stride(strided)
+    assert copy.is_contiguous() and stride == 10
+
+
+def test_tridiagonal_solve_expands_shared_bands_in_place(rng):
+    """The kernel branch hands thomas_batched shared 1-D bands expanded
+    over the batch (no copy); the result equals the reference's thomas."""
+    B, n = 5, 16
+    lower, upper = rng.uniform(-1, 0, n - 1), rng.uniform(-1, 0, n - 1)
+    diag, rhs = 3 + rng.uniform(0, 1, n), rng.normal(size=(B, n)).astype(np.float32)
+    seen = []
+    real = tt.thomas_batched
+    try:
+        tt.thomas_batched = lambda *a: (seen.extend(a), real(*a))[1]
+        got = tt.tridiagonal_solve(*(torch.as_tensor(a, dtype=torch.float32)
+                                     for a in (lower, diag, upper)),
+                                   torch.as_tensor(rhs), use_kernel=True)
+    finally:
+        tt.thomas_batched = real
+    assert [a.stride(0) for a in seen[:3]] == [0, 0, 0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(jt.thomas(lower, diag, upper, rhs)),
+                               rtol=2e-4, atol=1e-5)
