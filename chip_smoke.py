@@ -9,7 +9,7 @@ checks every result:
    ``pde_tpu_torch/csrc`` (one ``nvcc`` per source, all started together),
    with each kernel's registers and spills, and the dynamic shared memory
    per block of the redesigned routes of K1 (Thomas and PCR sweeps), K2,
-   K3 and K5 at the bench shapes;
+   K3, K4 and K5 at the bench shapes (K6's warp route has none);
 3. kernel vs plain, each kernel against its plain PyTorch twin on the same
    inputs on the card, and both timed at the bench shape:
    - K1, the fused Douglas march (European, American projection, American
@@ -36,8 +36,12 @@ checks every result:
      lattice too long for the warp route (n = 520, B = 37), each public call
      checked to have taken its route; European and mixed American; w = 0.5
      and 1;
-   - K4, the constant-coefficient CN march (B = 512, 130 and 1; European
-     and mixed American; w = 0.5 and 1);
+   - K4, the constant-coefficient CN march: its warp route at n = 200 (B =
+     512, 130, 37, 7 and 1), at n = 3 and 33 (B = 37, 7 and 1) and at n =
+     100, 300 and 512 (B = 37 and 1), its first design at n = 200 (B = 512,
+     130 and 1) and on a lattice too long for the warp route (n = 520, B =
+     37), each public call checked to have taken its route; European and
+     mixed American; w = 0.5 and 1; the warp route also timed at one step;
    - K5, the batched Thomas solve: its lane-group route at the shapes of
      the scan paths ((50, 100), (100, 50) with bands shared by every
      system, (1, 200)), at a ragged batch (37, 100), on the Black-Scholes
@@ -45,8 +49,14 @@ checks every result:
      (51200, 50), each call checked to have taken its route, its first
      design timed beside it, ``torch.linalg.solve`` on the same systems as
      its yardstick, and one wrapper call profiled: it launches one kernel;
-   - K6, the batched projected SOR, on the Black-Scholes book's LCP
-     (512, 200) at 60 and 120 sweeps;
+   - K6, the batched projected SOR, bit for bit, its residual equal to
+     ``_residual``'s: on the Black-Scholes book's LCP (512, 200) at 60 and
+     120 sweeps on both designs, its warp route on seeded LCPs at n = 2, 3,
+     33 and 200 (B = 1, 7 and 37) and at n = 100, 150 and 256 (B = 1 and
+     37) with and without a start, its first design at n = 300, 512 and
+     600, each public call checked to have taken its route; both
+     designs timed, and wrapper calls profiled: the kernel and at most one
+     reduction a call;
 4. headline calibration: bench.py's 108-quote surface through
    ``_calibrate_pipeline`` and ``HestonCalibrator.calibrate`` (DE 100/15,
    LM 60, seed 42), float32/complex64;
@@ -81,11 +91,13 @@ under grad must take the differentiable ``thomas``.
 
 Each main path (4-10) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails,
-and so do the two books and the 108-option surface if K1's or K3's
-redesigned route (``launches_smem``) never launched, ``solve_fused`` and
-the Ikonen-Toivanen put if K2's did not, the scan solves if K5's did not,
-and each PCR book if its sweeps' (``launches_pcr_v_smem``,
-``launches_pcr_s_smem``) did not.
+and so do the two Heston and local-vol books and the 108-option surface if
+K1's or K3's redesigned route (``launches_smem``) never launched, the
+Black-Scholes book if K4's warp route (``launches_warp``) did not,
+``solve_fused`` and the Ikonen-Toivanen put if K2's did not, the scan
+solves if K5's did not, PSOR ``bs_pde.solve`` and
+``projected_sor_batched`` if K6's warp route did not, and each PCR book if
+its sweeps' (``launches_pcr_v_smem``, ``launches_pcr_s_smem``) did not.
 While they run, the first input set of each shape that each path hands K5
 and K6 is kept; afterwards both kernels are held against their plain twins
 on those very inputs, and timed at the shapes of the path whose launches
@@ -439,36 +451,66 @@ def bs_inputs(torch, dev, B, american, grid=BS_GRID):
 
 
 def phase_k4(torch, dev, grid=BS_GRID, B=BS_B, plain_reps=1, kernel_reps=20):
-    """K4 against its plain twin on the bench book's inputs."""
+    """K4 against its plain twin on the bench book's inputs: the warp route
+    at n = 200 (B = 512, 130, 37, 7 and 1), 3 and 33 (so that a lane's
+    chunk may hold one row or none; B = 37, 7 and 1), and 100, 300 and 512
+    (register chunks of 4, 16 and 16 slots a lane: at 300 a lane uses 10 of
+    its 16, at 512 all; B = 37 and 1), the first design at n = 200 (B
+    = 512, 130 and 1, where it ran before the warp route existed) and on a
+    lattice too long for the warp route (n = 520, B = 37), each public call
+    checked to have taken its route; European and mixed American; w = 0.5
+    and 1.  Both designs timed at the bench shape; the warp route also at
+    one step (its set-up's share of the march)."""
     from pde_tpu_torch.ops import cn1d_fused
 
     march = cn1d_fused.fused_cn_march_1d
     plain = cn1d_fused._fused_cn_march_1d_plain
     n, nT = grid["n_space"], grid["n_time"]
     worst = 0.0
-    for b in (B, 130, 1):
-        mixed = (torch.arange(b, device=dev) % 3 == 0).float()
-        for name, amer in (("european", torch.zeros(b, device=dev)),
-                           ("american_mixed", mixed)):
-            args = bs_inputs(torch, dev, b, amer, grid)
-            for w in (0.5, 1.0):
-                V = march(*args, n, nT, w)
-                P = plain(*args, n, nT, w)
-                worst = max(worst, compare(torch, dev, V, P, kernel="K4", B=b,
-                                           case=name, w=w))
+    long_n = 520   # over the warp route's 512 rows: the first design
+    for m, batches in ((n, (B, 130, 37, 7, 1)), (3, (37, 7, 1)), (33, (37, 7, 1)),
+                       (100, (37, 1)), (300, (37, 1)), (512, (37, 1)), (long_n, (37,))):
+        warp = cn1d_fused._warp_plan(m) is not None
+        for b in batches:
+            mixed = (torch.arange(b, device=dev) % 3 == 0).float()
+            for name, amer in (("european", torch.zeros(b, device=dev)),
+                               ("american_mixed", mixed)):
+                args = bs_inputs(torch, dev, b, amer, dict(n_space=m, n_time=nT))
+                for w in (0.5, 1.0):
+                    before = (march.launches, march.launches_warp)
+                    V = march(*args, m, nT, w)
+                    if (march.launches - before[0], march.launches_warp - before[1]) \
+                            != (1, int(warp)):
+                        raise AssertionError(f"K4 at n={m} did not take the "
+                                             f"{'warp' if warp else 'first'} route")
+                    P = plain(*args, m, nT, w)
+                    worst = max(worst, compare(torch, dev, V, P, kernel="K4", B=b, n=m,
+                                               route="warp" if warp else "first",
+                                               case=name, w=w))
+                    if m == n and b in (B, 130, 1):
+                        V = cn1d_fused._launch_first(*args, m, nT, w)
+                        worst = max(worst, compare(torch, dev, V, P, kernel="K4", B=b, n=m,
+                                                   route="first", case=name, w=w))
 
     args = bs_inputs(torch, dev, B, torch.ones(B, device=dev), grid)
-    before = march.launches
+    before = march.launches_warp
     ms = kernel_ms(torch, lambda: march(*args, n, nT), kernel_reps)
-    if march.launches <= before:
-        raise AssertionError("K4's launch count did not move")
+    if march.launches_warp <= before:
+        raise AssertionError("K4's warp-route launch count did not move")
+    first_ms = kernel_ms(torch, lambda: cn1d_fused._launch_first(*args, n, nT, 0.5),
+                         kernel_reps)
+    one_step_ms = kernel_ms(torch, lambda: cn1d_fused._launch_warp(*args, n, 1, 0.5),
+                            kernel_reps)
     plain_ms = time_ms(torch, lambda: plain(*args, n, nT, 0.5), plain_reps)
+    step_ms = (ms - one_step_ms) / (nT - 1)
     emit(phase="kernel_timing", kernel="K4", B=B, grid=[n, nT], kernel_ms=ms,
-         plain_ms=plain_ms, kernel_options_per_s=B / ms * 1e3,
-         plain_options_per_s=B / plain_ms * 1e3)
+         first_design_ms=first_ms, one_step_ms=one_step_ms,
+         set_up_share=(one_step_ms - step_ms) / ms,
+         plain_ms=plain_ms,
+         kernel_options_per_s=B / ms * 1e3, plain_options_per_s=B / plain_ms * 1e3)
     # per node and step (csrc/cn1d_fused.cu): explicit stencil and rhs 7,
     # factored forward sweep 3, back substitution 2, floor 4 = 16
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, first_design_ms=first_ms,
                 bound=bound(nbytes(*args) + n * B * 4, 16.0 * n * nT * B))
 
 
@@ -939,30 +981,38 @@ def k5_timing(torch, dev, lower, diag, upper, rhs, kernel_reps=200, plain_reps=3
 
 def k6_timing(torch, dev, lower, diag, upper, b, g, x0=None, omega=1.5,
               n_iter=PSOR_ITERS[0], kernel_reps=20, plain_reps=1):
-    """K6 on one batch of LCPs: the kernel alone (on row-aligned operands
-    laid out once; the wrapper also builds them and computes the residual)
-    and its plain twin; plus the bytes and flops of the bound."""
+    """K6 on one batch of LCPs: the kernel alone on both routes (the warp
+    route on the operands where they lie, the first design on row-aligned
+    operands laid out once, without the wrapper) and its plain twin; plus
+    the bytes and flops of the bound."""
     from pde_tpu_torch.solvers import lcp
 
     B, n = b.shape
-    fn, zero = lcp._psor_library(), torch.zeros((B, 1), device=dev)
-    ins = [t.contiguous() for t in (torch.cat([zero, lower], 1), diag,
-                                    torch.cat([upper, zero], 1), b, g)]
-    x0c = None if x0 is None else x0.contiguous()
-    x = torch.empty((B, n), device=dev)
-    ptrs = [t.data_ptr() for t in ins] + [None if x0c is None else x0c.data_ptr(),
-                                          x.data_ptr()]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = kernel_ms(torch, lambda: fn(*ptrs, B, n, n_iter, float(omega), stream), kernel_reps)
+    system = (lower, diag, upper, b, g, x0, omega, n_iter)
+    warp, x, _ = lcp._warp_launcher(*system)
+    first, xf = lcp._first_launcher(*system)
+    ms = kernel_ms(torch, warp, kernel_reps)
+    first_ms = kernel_ms(torch, first, kernel_reps)
     plain_ms = time_ms(torch, lambda: lcp._projected_sor(lower, diag, upper, b, g, x0,
                                                          omega, n_iter), plain_reps)
     # per row and sweep: neighbours 3, Gauss-Seidel value 2, relaxation 3,
     # projection 1; the start 2 (max(b / d, g)) or 1 (max(x0, g))
-    start = 2.0 if x0 is None else 1.0
-    return dict(B=B, n=n, n_iter=n_iter, x0=x0 is not None, ms=ms, plain_ms=plain_ms,
+    start_flops = 2.0 if x0 is None else 1.0
+    return dict(B=B, n=n, n_iter=n_iter, x0=x0 is not None, ms=ms, first_design_ms=first_ms,
+                max_abs_first_vs_warp=float((xf - x).abs().max()), plain_ms=plain_ms,
                 n_bytes=nbytes(lower, diag, upper, b, g, *(() if x0 is None else (x0,)))
                 + B * n * 4,
-                n_flops=(9.0 * n_iter + start) * B * n)
+                n_flops=(9.0 * n_iter + start_flops) * B * n)
+
+
+def seeded_lcp(torch, dev, B, n, seed=0):
+    """Seeded (B, n) float32 LCPs on ``dev``: M-matrix bands, right-hand
+    side, obstacle, and a start."""
+    lower, diag, upper, b = seeded_system(torch, dev, B, n, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    g = torch.rand((B, n), generator=gen, device=dev) - 0.5
+    return lower.contiguous(), diag.contiguous(), upper.contiguous(), b, g, 0.5 * b
 
 
 def seeded_system(torch, dev, B, n, shared_bands=False, seed=0):
@@ -995,6 +1045,22 @@ def profiled(torch, dev, fn):
         wall = time.perf_counter() - t0
     return wall, {e.key[:60]: e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def wrapper_profile(torch, dev, fn, reps):
+    """``reps`` warm calls of ``fn`` in one torch.profiler session: {kernel
+    name: launches on the card}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync(torch, dev)
+    return {e.key[:60]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def phase_k5(torch, dev):
@@ -1037,25 +1103,78 @@ def phase_k5(torch, dev):
     return worst
 
 
-def phase_k6(torch, dev):
-    """K6 against its plain twin on the BS book's LCP at 60 and 120 sweeps,
-    and timed at 60.  Returns the worst |kernel - plain|."""
+def phase_k6(torch, dev, wrapper_reps=10):
+    """K6 against its plain twin, bit for bit, each public call checked to
+    have taken its route and its residual to equal ``_residual`` on its
+    result: the BS book's LCP (512, 200) at 60 and 120 sweeps on both
+    designs; seeded LCPs on the warp route at n = 2, 3, 33 and 200 (B = 1, 7
+    and 37; ragged: a partly filled last block, lanes holding one row or
+    none) and at n = 100, 150 and 256 (B = 1 and 37: register chunks of 4,
+    8 and 8 slots a lane, slots past the chunk at 150, all used at 256),
+    with and without a start; on the first design at n = 300 and 512 (B =
+    1 and 37) and 600 (B = 7).  Both
+    designs timed at (512, 200); ``wrapper_reps`` wrapper calls at (512, 200)
+    and at (1, 200) from a start profiled: the kernel once a call, and at
+    most one reduction besides.  Returns the worst |kernel - plain|."""
     from pde_tpu_torch.solvers import lcp
 
-    lower, diag, upper, b, g = bs_system(torch, dev)
     psor = lcp.projected_sor_batched
     worst = 0.0
+
+    def check(system, x0, n_iter, case):
+        lower, diag, upper, b, g = system
+        n = b.shape[1]
+        warp = lcp._warp_plan(n) is not None
+        before = (psor.launches, psor.launches_warp)
+        x, resid = psor(lower, diag, upper, b, g, n_iter=n_iter, x0=x0)
+        if (psor.launches - before[0], psor.launches_warp - before[1]) != (1, int(warp)):
+            raise AssertionError(f"K6 at n={n} did not take the "
+                                 f"{'warp' if warp else 'first'} route")
+        xp, _ = lcp._projected_sor(lower, diag, upper, b, g, x0, 1.5, n_iter)
+        want = lcp._residual(lower, diag, upper, b, g, x)
+        err = compare(torch, dev, x, xp, kernel="K6", case=case, B=b.shape[0], n=n,
+                      n_iter=n_iter, x0=x0 is not None, route="warp" if warp else "first",
+                      residual=float(resid), residual_equal=float(resid) == float(want))
+        if err != 0.0 or float(resid) != float(want):
+            raise AssertionError(f"K6 ({case}, n={n}) is not bit-equal to its twin, or its "
+                                 "residual differs from _residual")
+        return err
+
+    system = bs_system(torch, dev)
     for n_iter in PSOR_ITERS:
-        x, resid = psor(lower, diag, upper, b, g, n_iter=n_iter)
-        xp, _ = lcp._projected_sor(lower, diag, upper, b, g, None, 1.5, n_iter)
+        worst = max(worst, check(system, None, n_iter, "bs_book_lcp"))
+        x = lcp._launch_psor_first(*system, None, 1.5, n_iter)
+        xp, _ = lcp._projected_sor(*system, None, 1.5, n_iter)
         worst = max(worst, compare(torch, dev, x, xp, kernel="K6", case="bs_book_lcp",
-                                   n_iter=n_iter, residual=float(resid)))
-    before = psor.launches
+                                   n_iter=n_iter, route="first"))
+    for n, batches in ((2, (1, 7, 37)), (3, (1, 7, 37)), (33, (1, 7, 37)), (200, (1, 7, 37)),
+                       (100, (1, 37)), (150, (1, 37)), (256, (1, 37)), (300, (1, 37)),
+                       (512, (1, 37)), (600, (7,))):
+        for B in batches:
+            *lcp_system, x0 = seeded_lcp(torch, dev, B, n, seed=n + B)
+            for start in (None, x0):
+                worst = max(worst, check(lcp_system, start, PSOR_ITERS[0], "seeded"))
+
+    lower, diag, upper, b, g = system
+    before = psor.launches_warp
     wrapper_ms = time_ms(torch, lambda: psor(lower, diag, upper, b, g), 20)
-    if psor.launches <= before:
-        raise AssertionError("K6's launch count did not move")
+    if psor.launches_warp <= before:
+        raise AssertionError("K6's warp-route launch count did not move")
     emit(phase="kernel_timing", kernel="K6", case="bs_book_lcp", wrapper_ms=wrapper_ms,
          **k6_timing(torch, dev, lower, diag, upper, b, g))
+    one = bs_system(torch, dev, 1)
+    for case, call in (("bs_book_lcp", lambda: psor(lower, diag, upper, b, g)),
+                       ("bs_pde_solve_step", lambda: psor(*one[:4], one[4], x0=one[4]))):
+        B = 512 if case == "bs_book_lcp" else 1
+        counts = wrapper_profile(torch, dev, call, wrapper_reps)
+        kernels = [k for k in counts if "psor" in k]
+        others = sum(c for k, c in counts.items() if k not in kernels)
+        ok = [counts[k] for k in kernels] == [wrapper_reps] \
+            and others <= (wrapper_reps if B > 1 else 0)
+        emit(phase="k6_wrapper_profile", case=case, B=B, calls=wrapper_reps,
+             launches=counts, launches_per_call=sum(counts.values()) / wrapper_reps, ok=ok)
+        if not ok:
+            raise AssertionError(f"{wrapper_reps} K6 wrapper calls ({case}) launched {counts}")
     return worst
 
 
@@ -1447,12 +1566,12 @@ def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path):
             raise AssertionError(f"{path} gave {key} no input")
         mean = lambda f: sum(r[f] for r in rows) / len(rows)  # noqa: E731
         out[key] = dict(max_abs_err=worst[key], ms=mean("ms"), plain_ms=mean("plain_ms"),
+                        first_design_ms=mean("first_design_ms"),
                         bound=bound(mean("n_bytes"), mean("n_flops")))
         if key == "K5":
-            out[key].update(library_ms=mean("library_ms"),
-                            first_design_ms=mean("first_design_ms"))
+            out[key].update(library_ms=mean("library_ms"))
         emit(phase="kernel_timing", kernel=key, case=path, per_launch_mean=out[key]["ms"],
-             shapes=rows)
+             first_design_per_launch_mean=out[key]["first_design_ms"], shapes=rows)
     return out
 
 
@@ -1541,22 +1660,25 @@ def main() -> None:
                 for key, variant in PCR_VARIANTS.items() for it in ("", ", use_it")},
              "K2 (100x50)": adi_fused._smem_plan_single(*nS_nv)[4],
              "K3 (n=200)": cn1d_tv_fused._smem_bytes(LV_GRID["n_space"]),
+             "K4 (n=200)": cn1d_fused._warp_plan(BS_GRID["n_space"])[1],
              **{f"K5 (n={n})": tridiag._lane_plan(n)[3] for n in (50, 100, 200)}})
 
     # each kernel's launch count: (wrapper, attribute); the launches of the
-    # redesigned routes of K1 (Thomas and PCR sweeps), K2, K3 and K5 and of
-    # K1's PCR variants are counted apart from their launches of every kind
+    # redesigned routes of K1 (Thomas and PCR sweeps), K2, K3, K4, K5 and K6
+    # and of K1's PCR variants are counted apart from their launches of
+    # every kind
     k1, k2 = adi_fused.fused_douglas_march_batched, adi_fused.fused_douglas_march
     k3, k5 = cn1d_tv_fused.fused_cn_march_1d_tv, tridiag.thomas_batched
+    k4, k6 = cn1d_fused.fused_cn_march_1d, lcp.projected_sor_batched
     counters = {"K1": (k1, "launches"), "K1-smem": (k1, "launches_smem"),
                 "K1-pcr_v": (k1, "launches_pcr_v"), "K1-pcr_s": (k1, "launches_pcr_s"),
                 "K1-pcr_v-smem": (k1, "launches_pcr_v_smem"),
                 "K1-pcr_s-smem": (k1, "launches_pcr_s_smem"),
                 "K2": (k2, "launches"), "K2-smem": (k2, "launches_smem"),
                 "K3": (k3, "launches"), "K3-smem": (k3, "launches_smem"),
-                "K4": (cn1d_fused.fused_cn_march_1d, "launches"),
+                "K4": (k4, "launches"), "K4-warp": (k4, "launches_warp"),
                 "K5": (k5, "launches"), "K5-smem": (k5, "launches_smem"),
-                "K6": (lcp.projected_sor_batched, "launches")}
+                "K6": (k6, "launches"), "K6-warp": (k6, "launches_warp")}
     interp = lv_surface(torch, dev)
     if "--profile" in sys.argv[1:]:
         profile_rows(torch, dev, interp)
@@ -1589,7 +1711,7 @@ def main() -> None:
     launches = {"K1": path(phase_book, torch, dev, needs=("K1", "K1-smem"))[0]["K1"],
                 "K3": path(phase_local_vol_book, torch, dev, interp,
                            needs=("K3", "K3-smem"))[0]["K3"],
-                "K4": path(phase_bs_book, torch, dev, needs=("K4",))[0]["K4"]}
+                "K4": path(phase_bs_book, torch, dev, needs=("K4", "K4-warp"))[0]["K4"]}
     path(phase_sabr, torch, dev)
     counts, scan = path(phase_heston_scan, torch, dev, needs=("K5", "K5-smem"))
     launches["K5"] = counts["K5"]
@@ -1605,9 +1727,10 @@ def main() -> None:
                       for tail in ("", "-smem"))
         counts = path(phase_pcr_book, torch, dev, key, needs=needs)[0]
         launches[key] = counts["K1-pcr_v" if "pcr_v" in variant else "K1-pcr_s"]
-    launches["K6"] = path(phase_bs_solve, torch, dev, needs=("K5", "K5-smem", "K6"))[0]["K6"]
+    launches["K6"] = path(phase_bs_solve, torch, dev,
+                          needs=("K5", "K5-smem", "K6", "K6-warp"))[0]["K6"]
     path(phase_tridiagonal_solve, torch, dev, needs=("K5", "K5-smem"))
-    path(phase_projected_sor, torch, dev, needs=("K6",))
+    path(phase_projected_sor, torch, dev, needs=("K6", "K6-warp"))
     k5_inputs.close()
     k6_inputs.close()
     measured.update(phase_path_inputs(torch, dev, k5_inputs, k6_inputs,

@@ -7,7 +7,11 @@ matrix is factored once, before the march; each step runs the explicit
 part, the factored sweep, the Dirichlet rows and the American floor.
 
 * On a CUDA tensor, :func:`fused_cn_march_1d` launches the CUDA kernel
-  ``csrc/cn1d_fused.cu`` (one thread per option) or raises.
+  ``csrc/cn1d_fused.cu`` or raises: one warp per option, its rows spread
+  over the lanes and held in registers for the march, each step's sweeps
+  affine shuffle scans whose multiplicative parts are composed once
+  (:func:`_warp_plan`); lattices whose chunk exceeds the kernel's register
+  chunk (``n > 512``) run the first design, one thread per option.
 * On a CPU tensor it runs :func:`_fused_cn_march_1d_plain`, the same step
   order in tensor ops over the batch with Python loops over the rows.
 
@@ -15,13 +19,14 @@ The layout is the reference's, batch last: ``pay (n, B)``, ``sc (12, B)``.
 
 On the H100 its bound is its arithmetic (~16 flops a node and step: ~2 us
 at 200x100, B=512), but what binds it is each option's serial chain of
-2(n-1) dependent rows per step, walked by one thread; the CUDA source's
-header says what the design does about it.
+2(n-1) dependent rows per step; the CUDA source's header says what each
+design does about it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,6 +35,8 @@ from .build import load_library, refuse_autograd
 __all__ = ["fused_cn_march_1d"]
 
 _SOURCE = "cn1d_fused.cu"
+_TILE = 4       # options (warps) a block of the warp route (csrc kTile)
+_MAX_CH = 16    # rows a lane of the warp route can hold (csrc kMaxCh)
 
 
 def fused_cn_march_1d(
@@ -41,7 +48,8 @@ def fused_cn_march_1d(
     w: float = 0.5,   # theta-scheme weight: CN = 1/2, implicit Euler = 1
 ) -> torch.Tensor:
     """March the whole book backward ``n_time`` steps; returns V(t=0) as
-    (n, B) float32.  ``launches`` counts the CUDA kernel's launches."""
+    (n, B) float32.  ``launches`` counts the CUDA kernel's launches of
+    either design, ``launches_warp`` those of the warp route."""
     refuse_autograd("fused_cn_march_1d", pay, sc)
     n, B = n_space, pay.shape[-1]
     for a, shape in ((pay, (n, B)), (sc, (12, B))):
@@ -61,6 +69,17 @@ def fused_cn_march_1d(
 
 
 fused_cn_march_1d.launches = 0
+fused_cn_march_1d.launches_warp = 0
+
+
+def _warp_plan(n: int):
+    """The warp route's layout for an n-point lattice: ``(ch, n_bytes)`` —
+    the rows each lane holds (``ceil(n / 32)``) and the shared memory of a
+    block (its options' payoff and result tile) — or None when a lane's
+    chunk exceeds the kernel's register chunk (``n > 512``): the first
+    design."""
+    ch = -(-n // 32)
+    return (ch, 4 * _TILE * n) if ch <= _MAX_CH else None
 
 
 def _library():
@@ -73,6 +92,16 @@ def _library():
 
 
 def _launch(pay, sc, n, n_time, w):
+    """One launch on the current stream, on the route :func:`_warp_plan`
+    picks from n."""
+    if _warp_plan(n) is not None:
+        return _launch_warp(pay, sc, n, n_time, w)
+    return _launch_first(pay, sc, n, n_time, w)
+
+
+def _launch_first(pay, sc, n, n_time, w):
+    """The first design: one thread per option, the factors and the forward
+    sweep in device-memory scratch."""
     fn = _library()
     B = pay.shape[-1]
     V, C, INV, D = (torch.empty((n, B), dtype=torch.float32, device=pay.device)
@@ -83,6 +112,31 @@ def _launch(pay, sc, n, n_time, w):
     if err != 0:
         raise RuntimeError(f"fused CN march launch failed: CUDA error {err}")
     fused_cn_march_1d.launches += 1
+    return V
+
+
+@functools.lru_cache(maxsize=None)
+def _warp_library():
+    lib, _ = load_library(_SOURCE)
+    fn = lib.pde_cn1d_fused_warp
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_warp(pay, sc, n, n_time, w):
+    """The warp route: one warp per option, four options a block; reads
+    ``pay`` and writes V in the (n, B) layout."""
+    fn = _warp_library()
+    B = pay.shape[-1]
+    V = torch.empty((n, B), dtype=torch.float32, device=pay.device)
+    stream = torch.cuda.current_stream(pay.device).cuda_stream
+    err = fn(pay.data_ptr(), sc.data_ptr(), V.data_ptr(), B, n, n_time, float(w), stream)
+    if err != 0:
+        raise RuntimeError(f"fused CN march launch failed: CUDA error {err}")
+    fused_cn_march_1d.launches += 1
+    fused_cn_march_1d.launches_warp += 1
     return V
 
 

@@ -11,8 +11,11 @@
   :func:`projected_sor_batched`.
 * :func:`projected_sor_batched` — all ``n_iter`` sweeps for a batch of
   systems in one launch of the CUDA kernel ``csrc/psor_batched.cu`` (the
-  reference's ``projected_sor_pallas``) on a CUDA tensor; on a CPU tensor
-  its plain twin, :func:`projected_sor` itself.
+  reference's ``projected_sor_pallas``) on a CUDA tensor: one warp per
+  system, its rows and operands in registers, the residual computed in the
+  kernel (:func:`_warp_plan`; systems longer than 256 rows take the first
+  design, one block per system); on a CPU tensor its plain twin,
+  :func:`projected_sor` itself.
 * :func:`brennan_schwartz` (with :func:`brennan_schwartz_factor` /
   :func:`brennan_schwartz_apply`) — the EXACT solve in one projected pass
   when the contact region is one-sided.
@@ -26,18 +29,20 @@ does not, so that ``projected_sor(..., x0=V)`` on the card goes through it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..ops.build import load_library, refuse_autograd
-from ..ops.tridiag import kernel_route
+from ..ops.tridiag import _batch_stride, kernel_route
 
 __all__ = ["brennan_schwartz", "brennan_schwartz_factor",
            "brennan_schwartz_apply", "BrennanSchwartzFactors",
            "projected_sor", "projected_sor_batched", "psor_step"]
 
 _SOURCE = "psor_batched.cu"
+_MAX_CH = 8     # rows a lane of the warp route can hold (csrc kMaxCh)
 
 
 def _apply_tridiag(lower, diag, upper, x):
@@ -116,11 +121,14 @@ def projected_sor_batched(lower, diag, upper, b, g, omega: float = 1.5,
     Shapes: lower/upper (B, n-1), diag/b/g (and ``x0``) (B, n), float32.
     Same LCP and semantics as :func:`projected_sor`; the start is
     max(b / diag, g), or max(x0, g) when ``x0`` is given.  Returns
-    (x, residual), the residual computed in PyTorch after the sweeps.  On a
-    CUDA tensor it launches ``csrc/psor_batched.cu`` (one thread block per
-    system, the iterate in shared memory) or raises; on a CPU tensor it
-    runs the plain twin, the tensor-op sweeps of :func:`projected_sor` in
-    float32.  ``launches`` counts the kernel's launches.
+    (x, residual).  On a CUDA tensor it launches ``csrc/psor_batched.cu``
+    or raises: for n <= 256 the warp route (one warp per system, the
+    operands read where they lie, each system's residual computed in the
+    kernel: one launch, and one reduction more when B > 1), else the first
+    design (one thread block per system on padded bands, the residual in
+    PyTorch).  On a CPU tensor it runs the plain twin, the tensor-op sweeps
+    of :func:`projected_sor` in float32.  ``launches`` counts the kernel's
+    launches of either design, ``launches_warp`` those of the warp route.
     """
     refuse_autograd("projected_sor_batched", lower, diag, upper, b, g, x0)
     B, n = b.shape
@@ -134,14 +142,23 @@ def projected_sor_batched(lower, diag, upper, b, g, omega: float = 1.5,
     if n < 2 or n_iter < 0:
         raise ValueError("systems need n >= 2 and n_iter >= 0")
     if b.device.type == "cuda":
-        x = _launch_psor(lower, diag, upper, b, g, x0, omega, n_iter)
-        return x, _residual(lower, diag, upper, b, g, x)
+        return _launch_psor(lower, diag, upper, b, g, x0, omega, n_iter)
     if b.device.type == "cpu":
         return _projected_sor(lower, diag, upper, b, g, x0, omega, n_iter)
     raise ValueError(f"no batched PSOR for device {b.device}")
 
 
 projected_sor_batched.launches = 0
+projected_sor_batched.launches_warp = 0
+
+
+def _warp_plan(n: int):
+    """The rows each lane of the warp route holds for n-point systems:
+    ``2 ceil(n / 64)``, even so that a row's colour is fixed by its slot;
+    None when that exceeds the kernel's register chunk (``n > 256``): the
+    first design, which a 16-row chunk did not beat."""
+    ch = 2 * -(-n // 64)
+    return ch if ch <= _MAX_CH else None
 
 
 def _psor_library():
@@ -154,20 +171,84 @@ def _psor_library():
 
 
 def _launch_psor(lower, diag, upper, b, g, x0, omega, n_iter):
-    """Row-aligned (B, n) operands (lo[:, 0] = 0, up[:, n-1] = 0), one
-    launch on the current stream."""
-    fn = _psor_library()
+    """One solve on the current stream, on the route :func:`_warp_plan`
+    picks from n: (x, residual)."""
+    if _warp_plan(b.shape[1]) is not None:
+        return _launch_psor_warp(lower, diag, upper, b, g, x0, omega, n_iter)
+    x = _launch_psor_first(lower, diag, upper, b, g, x0, omega, n_iter)
+    return x, _residual(lower, diag, upper, b, g, x)
+
+
+@functools.lru_cache(maxsize=None)
+def _warp_library():
+    lib, _ = load_library(_SOURCE)
+    fn = lib.pde_psor_warp
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _warp_launcher(lower, diag, upper, b, g, x0, omega, n_iter):
+    """The warp kernel bound to these operands, read where they lie, and to
+    fresh outputs x (B, n) and residuals (B,): ``(launch, x, resid)``, where
+    each ``launch()`` is one launch on the current stream returning its CUDA
+    error (0 = launched)."""
+    B, n = b.shape
+    ops = [_batch_stride(a) for a in (lower, diag, upper, b, g)]
+    start = None if x0 is None else _batch_stride(x0)
+    x = torch.empty((B, n), dtype=torch.float32, device=b.device)
+    resid = torch.empty((B,), dtype=torch.float32, device=b.device)
+    fn = _warp_library()
+
+    def launch():
+        return fn(*(a.data_ptr() for a, _ in ops),
+                  None if start is None else start[0].data_ptr(), x.data_ptr(),
+                  resid.data_ptr(), *(s for _, s in ops), 0 if start is None else start[1],
+                  B, n, n_iter, float(omega), torch.cuda.current_stream(b.device).cuda_stream)
+
+    return launch, x, resid
+
+
+def _launch_psor_warp(lower, diag, upper, b, g, x0, omega, n_iter):
+    """The warp route: the operands read where they lie, x (B, n) and each
+    system's residual written by the kernel; the residuals' max is one more
+    launch when B > 1."""
+    B = b.shape[0]
+    launch, x, resid = _warp_launcher(lower, diag, upper, b, g, x0, omega, n_iter)
+    err = launch()
+    if err != 0:
+        raise RuntimeError(f"batched PSOR launch failed: CUDA error {err}")
+    projected_sor_batched.launches += 1
+    projected_sor_batched.launches_warp += 1
+    return x, (resid.max() if B > 1 else resid.reshape(()))
+
+
+def _first_launcher(lower, diag, upper, b, g, x0, omega, n_iter):
+    """The first design's kernel bound to row-aligned (B, n) copies of the
+    operands (lo[:, 0] = 0, up[:, n-1] = 0) and to a fresh x (B, n):
+    ``(launch, x)``, each ``launch()`` one launch on the current stream
+    returning its CUDA error (0 = launched)."""
     B, n = b.shape
     zero = torch.zeros_like(b[:, :1])
-    lo = torch.cat([zero, lower], 1)
-    up = torch.cat([upper, zero], 1)
-    ins = [lo, diag.contiguous(), up, b.contiguous(), g.contiguous()]
+    ins = [torch.cat([zero, lower], 1), diag.contiguous(), torch.cat([upper, zero], 1),
+           b.contiguous(), g.contiguous()]
+    start = None if x0 is None else x0.contiguous()
     x = torch.empty((B, n), dtype=torch.float32, device=b.device)
-    x0_ptr = None if x0 is None else x0.contiguous()
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in ins),
-             None if x0_ptr is None else x0_ptr.data_ptr(), x.data_ptr(),
-             B, n, n_iter, float(omega), stream)
+    fn = _psor_library()
+
+    def launch():
+        return fn(*(t.data_ptr() for t in ins), None if start is None else start.data_ptr(),
+                  x.data_ptr(), B, n, n_iter, float(omega),
+                  torch.cuda.current_stream(b.device).cuda_stream)
+
+    return launch, x
+
+
+def _launch_psor_first(lower, diag, upper, b, g, x0, omega, n_iter):
+    """The first design: one launch on row-aligned operands; x alone."""
+    launch, x = _first_launcher(lower, diag, upper, b, g, x0, omega, n_iter)
+    err = launch()
     if err != 0:
         raise RuntimeError(f"batched PSOR launch failed: CUDA error {err}")
     projected_sor_batched.launches += 1

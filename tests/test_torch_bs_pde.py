@@ -68,6 +68,40 @@ def test_k4_rejects_bad_inputs(rng):
         tops.fused_cn_march_1d(pay.double(), sc, **kw)
     with pytest.raises(ValueError):  # neither a CUDA nor a CPU tensor
         tops.fused_cn_march_1d(pay.to("meta"), sc.to("meta"), **kw)
+    with pytest.raises(ValueError):  # the payoff of another lattice
+        tops.fused_cn_march_1d(pay[:-1], sc, **kw)
+    with pytest.raises(ValueError):  # not contiguous
+        tops.fused_cn_march_1d(pay.T.contiguous().T, sc, **kw)
+    with pytest.raises(ValueError):  # too few steps
+        tops.fused_cn_march_1d(pay, sc, n_space=12, n_time=0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tops.fused_cn_march_1d(pay.requires_grad_(), sc, **kw)
+
+
+@pytest.mark.parametrize("n,plan", [(3, (1, 48)), (32, (1, 512)), (33, (2, 528)),
+                                    (100, (4, 1600)), (200, (7, 3200)), (300, (10, 4800)),
+                                    (512, (16, 8192)), (513, None), (4000, None)])
+def test_k4_warp_plan(n, plan):
+    """K4's warp route: ceil(n / 32) rows a lane (7 at the bench's n =
+    200), at most the kernel's 16-row register chunk (n <= 512), and a
+    block's shared memory the payoff/result tile of its four options; longer
+    lattices take the first design (None)."""
+    assert tops._warp_plan(n) == plan
+    if plan is not None:
+        ch, n_bytes = plan
+        assert 32 * ch >= n > 32 * (ch - 1) and n_bytes == 4 * tops._TILE * n
+
+
+@pytest.mark.parametrize("n,route", [(3, "warp"), (200, "warp"), (512, "warp"),
+                                     (513, "first"), (600, "first")])
+def test_k4_launch_follows_the_plan(monkeypatch, n, route):
+    """The card's launcher takes the warp route exactly where _warp_plan
+    gives a chunk, from n alone (the launchers stand in as fakes here)."""
+    taken = []
+    monkeypatch.setattr(tops, "_launch_warp", lambda *a: taken.append("warp"))
+    monkeypatch.setattr(tops, "_launch_first", lambda *a: taken.append("first"))
+    tops._launch(None, None, n, 4, 0.5)
+    assert taken == [route]
 
 
 @pytest.mark.parametrize("scheme", ["crank_nicolson", "implicit"])

@@ -15,7 +15,7 @@ from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
 
 # kernel vs plain twin: both float32 with the same step order; FMA
 # contraction (K1, K2, K3) and the order in which the lane scans of K1, K2,
-# K3 and K5 compose the values entering each chunk differ
+# K3, K4 and K5 compose the values entering each chunk differ
 GATE = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -517,6 +517,94 @@ def test_k5_long_systems_take_first_design():
     torch.cuda.synchronize()
     assert (k5.launches, k5.launches_smem) == (before[0] + 1, before[1])
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+def _k4_book(B, n, n_time, seed, dev="cuda"):
+    """K4's (pay, sc) for a seeded book with mixed American flags."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return bs_pde._march_inputs(
+        t(rng.uniform(0.15, 0.45, B)), t(rng.uniform(0.0, 0.08, B)),
+        t(rng.uniform(0.0, 0.04, B)), t(rng.uniform(0.25, 1.5, B)),
+        t(rng.uniform(80.0, 120.0, B)), t(rng.uniform(size=B) < 0.5),
+        t(rng.uniform(size=B) < 0.5), n, n_time, 0.2, 5.0)[:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [0.5, 1.0])
+@pytest.mark.parametrize("B", [1, 7, 37, 512])
+@pytest.mark.parametrize("n", [3, 33, 100, 200, 300, 512])
+def test_k4_warp_route_matches_plain(n, B, w):
+    """K4's warp route against its twin where a lane's chunk holds one row
+    or none (n = 3, 33), on each register chunk (4, 8 and 16 slots a lane;
+    at n = 300 a lane uses 10 of its 16, at 512 all) and at the bench width
+    (200), at ragged batch sizes (partial blocks), with mixed American
+    flags."""
+    _need_cuda()
+    pay, sc = _k4_book(B, n, 24, 24)
+    k4 = cn1d_fused.fused_cn_march_1d
+    before = (k4.launches, k4.launches_warp)
+    got = k4(pay, sc, n, 24, w)
+    want = cn1d_fused._fused_cn_march_1d_plain(pay, sc, n, 24, w)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.launches_warp) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
+def test_k4_long_lattice_takes_first_design():
+    """A lattice longer than the warp route's register chunk (n = 600) runs
+    the first design, and equals the twin bit for bit."""
+    _need_cuda()
+    assert cn1d_fused._warp_plan(600) is None
+    pay, sc = _k4_book(5, 600, 6, 25)
+    k4 = cn1d_fused.fused_cn_march_1d
+    before = (k4.launches, k4.launches_warp)
+    got = k4(pay, sc, 600, 6)
+    want = cn1d_fused._fused_cn_march_1d_plain(pay, sc, 600, 6, 0.5)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.launches_warp) == (before[0] + 1, before[1])
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _k6_check(B, n, seed, with_x0, warp):
+    """K6 through the public wrapper against its twin, bit for bit, with
+    the route checked and the residual equal to _residual on the result."""
+    lower, diag, upper, b, g = _tridiagonal(B, n, seed)
+    x0 = 0.5 * b if with_x0 else None
+    k6 = lcp.projected_sor_batched
+    before = (k6.launches, k6.launches_warp)
+    got, resid = k6(lower, diag, upper, b, g, n_iter=40, x0=x0)
+    want, _ = lcp._projected_sor(lower, diag, upper, b, g, x0, 1.5, 40)
+    torch.cuda.synchronize()
+    assert (k6.launches, k6.launches_warp) == (before[0] + 1, before[1] + int(warp))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert float(resid) == float(lcp._residual(lower, diag, upper, b, g, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_x0", [False, True])
+@pytest.mark.parametrize("B", [1, 5, 512])
+@pytest.mark.parametrize("n", [2, 3, 33, 100, 150, 200, 256])
+def test_k6_warp_route_matches_plain(n, B, with_x0):
+    """K6's warp route (one warp per system, branch-free exact division,
+    the residual in the kernel) equals its twin bit for bit, where a lane
+    holds part of a chunk or none (n = 2, 3, 33), on each register chunk
+    (2, 4 and 8 slots a lane; slots past the chunk at n = 150, all used at
+    256) and at the bench width (200), at ragged batch sizes, with and
+    without a start."""
+    _need_cuda()
+    _k6_check(B, n, 26, with_x0, warp=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [257, 300, 512, 600])
+def test_k6_long_systems_take_first_design(n):
+    """Systems longer than the warp route's register chunk (n > 256) run
+    the first design, bit for bit, the residual computed in PyTorch."""
+    _need_cuda()
+    assert lcp._warp_plan(n) is None
+    _k6_check(3, n, 27, True, warp=False)
 
 
 def _guard_cases():

@@ -97,6 +97,50 @@ def test_projected_sor_batched_rejects_bad_inputs(rng):
         tl.projected_sor_batched(*sys_[:4], sys_[4].double())
     with pytest.raises(ValueError):  # neither a CUDA nor a CPU tensor
         tl.projected_sor_batched(*(a.to("meta") for a in sys_))
+    lower, diag, upper, b, g = sys_
+    with pytest.raises(ValueError):  # a start of another length
+        tl.projected_sor_batched(lower, diag, upper, b, g, x0=b[:, :-1])
+    with pytest.raises(ValueError):  # bands of the system's own length
+        tl.projected_sor_batched(diag, diag, upper, b, g)
+    with pytest.raises(ValueError):  # negative sweeps
+        tl.projected_sor_batched(lower, diag, upper, b, g, n_iter=-1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tl.projected_sor_batched(lower, diag, upper, b.requires_grad_(), g)
+
+
+@pytest.mark.parametrize("n,ch", [(2, 2), (3, 2), (33, 2), (64, 2), (65, 4), (100, 4),
+                                  (150, 6), (200, 8), (256, 8), (257, None), (300, None),
+                                  (512, None), (1000, None)])
+def test_k6_warp_plan(n, ch):
+    """K6's warp route: 2 ceil(n / 64) rows a lane, even so that a row's
+    colour is fixed by its slot (8 at the bench's n = 200), at most the
+    kernel's 8-row register chunk (n <= 256); longer systems take the
+    first design (None)."""
+    assert tl._warp_plan(n) == ch
+    if ch is not None:
+        assert ch % 2 == 0 and 32 * ch >= n > 32 * (ch - 2)
+
+
+@pytest.mark.parametrize("n,route", [(2, "warp"), (200, "warp"), (256, "warp"),
+                                     (257, "first"), (600, "first")])
+def test_k6_launch_follows_the_plan(monkeypatch, n, route):
+    """The card's launcher takes the warp route (which returns the residual
+    itself) exactly where _warp_plan gives a chunk, from n alone; the first
+    design's result gets _residual (the launchers stand in as fakes)."""
+    taken = []
+    x = torch.zeros((1, n))
+
+    def first(*a):
+        taken.append("first")
+        return x
+
+    monkeypatch.setattr(tl, "_launch_psor_warp",
+                        lambda *a: taken.append("warp") or (x, torch.zeros(())))
+    monkeypatch.setattr(tl, "_launch_psor_first", first)
+    monkeypatch.setattr(tl, "_residual", lambda *a: taken.append("residual"))
+    ones = torch.ones((1, n))
+    tl._launch_psor(ones[:, 1:], ones, ones[:, 1:], ones, ones, None, 1.5, 4)
+    assert taken == ([route] if route == "warp" else ["first", "residual"])
 
 
 def test_psor_step_is_one_red_black_sweep(rng):
