@@ -81,7 +81,23 @@ checks every result:
    book;
 10. ``bs_pde.solve`` for an American put at 200x100 by projection (K5),
     PSOR (K6) and Brennan-Schwartz; ``ops.tridiagonal_solve`` on a 2D
-    float32 batch (K5); ``lcp.projected_sor_batched`` (K6).
+    float32 batch (K5); ``lcp.projected_sor_batched`` (K6);
+11. the OU rows of bench_full.py (645-671): ``ou.simulate`` of 1024
+    paths x 252 steps and ``ou.fit_mle`` over them (the mean fit against
+    the same estimator on numpy float64 paths), and ``simulate_parallel``
+    on one path of 10^6 steps: in float64 against ``simulate``'s step loop
+    on the same normals, in float32 against its float64 self;
+12. the HJB optimal-stopping solver: ``solve_all_boundaries`` at 200x200
+    by projection (one K5 launch a step, exactly 200) and by PSOR (one K6
+    launch a step, exactly 200), each within one cell of the reference
+    engine's goldens and within 0.05 of a cell of its float64 march on
+    the CPU; the reference engine's own band (``reference_compat``) by
+    projection against all six goldens at 0.05 of a cell; Brennan-Schwartz
+    at bench_full.py's 256x128 (no kernel) against PSOR;
+    ``boundaries_batch`` for the 64-config book by Brennan-Schwartz and by
+    projection (K5 on (256, 256)) against ``solve_all_boundaries`` on four
+    of its configs; the five OU/HJB rows printed under bench_full.py's
+    metric names.
 
 Before the paths, each of the six kernel wrappers is called on the card
 with an input that requires grad: each must raise (the kernels have no
@@ -89,7 +105,7 @@ backward) and launch nothing, and run under ``torch.no_grad()``; the
 fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
-Each main path (4-10) runs with every kernel's launch count set to 0 just
+Each main path (4-12) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails,
 and so do the two Heston and local-vol books and the 108-option surface if
 K1's or K3's redesigned route (``launches_smem``) never launched, the
@@ -102,10 +118,12 @@ While they run, the first input set of each shape that each path hands K5
 and K6 is kept; afterwards both kernels are held against their plain twins
 on those very inputs, and timed at the shapes of the path whose launches
 the kernel line reports (K5: ``heston_adi.solve``; K6: ``bs_pde.solve`` by
-PSOR).  Last, outside the counted paths, the 108-option surface and the
+PSOR), and on lines of their own at the HJB paths' shapes.  Outside the
+counted paths, the HJB rows are timed, and the 108-option surface and the
 512-book run through K1's shared-memory route and its first design in
 turns, and each route's options/s is printed.
-Each phase prints one JSON line; then the kernel table, the card's
+Each phase prints one JSON line; then the kernel table (K5's and K6's rows
+with their launches on the HJB paths, ``launches_hjb``), the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  Run from the
 repository root with no arguments:
@@ -114,14 +132,15 @@ repository root with no arguments:
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and traces
 one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
-``solve_fused``, ``bs_pde.solve`` by PSOR and of the K5 and K6 calls under
-``torch.profiler``: wall, the card's busy time and idle share, and the
-kernels that took most of the device time.
+``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls and of
+the OU and HJB rows under ``torch.profiler``: wall, the card's busy time
+and idle share, and the kernels that took most of the device time.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -155,6 +174,25 @@ HESTON_TRUE_CALL = 9.05950689470441   # tests/test_solvers.py:140-149
 # of value 255) from the float64 one, both routes alike
 FUSED_ATOL, FUSED_GRID_RTOL = 5e-4, 1e-5
 PSOR_ITERS = (60, 120)
+# bench_full.py:645-671: OU(theta=100, mu=5, sigma=2) from 100, 1024 paths
+# of 252 daily steps; one path of 10^6 steps over 4 years (simulate_parallel)
+OU = dict(theta=100.0, mu=5.0, sigma=2.0)
+OU_PATHS, OU_STEPS, OU_LONG = 1024, 252, 1_000_000
+# the float32 scan of that path against the float64 scan, relative: each
+# float32 step rounds at the level of the path (ulp(100) ~7.6e-6), and over
+# 10^6 steps those roundings drift; on these normals (seed 7) the float32
+# step loop sat 2.68e-4 from float64 and the float32 scan 1.45e-4 (H100):
+# the scan must stay within the loop's own drift
+OU_LONG_F32_REL = 3e-4
+# bench_full.py:887-922: the HJB rows' configuration and the 64-config book
+HJB_BENCH = dict(theta=0.0, mu=5.0, sigma=0.1, r=0.05, c_entry=0.002, c_exit=0.002,
+                 T=1.0, n_space=256, n_time=128)
+HJB_B = 64
+# the card's float32 HJB boundaries against float64 marches of the same
+# problem: the CPU's float32 march sits within 0.05 of a cell of its
+# float64 march (tests/test_torch_hjb.py); the value probes within 1e-5 of
+# the goldens (values 0.03 and 0.2, the CPU's float32 march 6e-7 off)
+HJB_CELLS, HJB_VALUE_ATOL = 0.05, 1e-5
 # the card's peaks (H100 SXM data sheet): float32 outside the tensor cores
 # and HBM bandwidth; a kernel's bound is the larger of its operations over
 # the one and its bytes over the other
@@ -1423,6 +1461,298 @@ def phase_projected_sor(torch, dev):
         raise AssertionError("projected_sor_batched failed its checks")
 
 
+def ar1_fit_mean_mu(paths=OU_PATHS, steps=OU_STEPS, seed=0):
+    """The mean mu that the AR(1) fit (the moments of models/ou.fit_mle)
+    finds over ``paths`` OU paths of ``steps`` daily steps from theta,
+    simulated and fitted in numpy float64, apart from the port: at 252 steps
+    the estimator sits far above the true mu (Kendall's small-sample bias of
+    the slope; the reference engine's own fit of one such path reads 8.95
+    for a true 5, tests/golden/reference_values.json ou_fit_mu)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    th, mu, sig = OU["theta"], OU["mu"], OU["sigma"]
+    dt = 1.0 / steps
+    a = np.exp(-mu * dt)
+    s = np.sqrt(sig**2 * (1.0 - np.exp(-2.0 * mu * dt)) / (2.0 * mu))
+    z = rng.standard_normal((paths, steps))
+    x = np.empty((paths, steps + 1))
+    x[:, 0] = th
+    for i in range(steps):
+        x[:, i + 1] = th + (x[:, i] - th) * a + s * z[:, i]
+    xt, xn = x[:, :-1], x[:, 1:]
+    mx, mn = xt.mean(1), xn.mean(1)
+    b = ((xt * xn).mean(1) - mx * mn) / ((xt * xt).mean(1) - mx * mx)
+    b = np.where(b >= 1.0, 0.9999, np.where(b <= 0.0, 0.0001, b))
+    return float(np.mean(-np.log(b) / dt))
+
+
+def phase_ou(torch, dev, reps=10, long_reps=5):
+    """bench_full.py:645-671: simulate 1024 OU(100, 5, 2) paths of 252
+    steps from 100 and fit_mle over them, both in float32 on the card; the
+    fits' mean theta within 0.5 of 100, their mean sigma within 5% of 2,
+    and their mean mu within 20% of the same estimator's mean on numpy
+    float64 paths (ar1_fit_mean_mu: ~9.9, not 5, at this length).  Then
+    simulate_parallel on one path of 10^6 steps over 4 years, on the
+    card's normals, against simulate's step loop on the same normals."""
+    from pde_tpu_torch.models import ou
+
+    p = ou.OUParams(**OU)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    paths, walls = timed_walls(
+        torch, dev, lambda: ou.simulate(p, OU["theta"], 1.0, OU_STEPS, gen,
+                                        shape=(OU_PATHS,), device=dev), reps)
+    fit, fit_walls = timed_walls(torch, dev, lambda: ou.fit_mle(paths, 1.0 / OU_STEPS), reps)
+    mean = lambda t: float(t.double().mean())  # noqa: E731
+    fit64 = ou.fit_mle(paths.cpu().double(), 1.0 / OU_STEPS)
+    expect_mu = ar1_fit_mean_mu()
+    got = {k: mean(getattr(fit.params, k)) for k in ("theta", "mu", "sigma")}
+    ok = (tuple(paths.shape) == (OU_PATHS, OU_STEPS + 1) and paths.dtype == torch.float32
+          and bool(torch.isfinite(paths).all()) and bool((paths[:, 0] == OU["theta"]).all())
+          and abs(got["theta"] - OU["theta"]) < 0.5
+          and abs(got["sigma"] - OU["sigma"]) / OU["sigma"] < 0.05
+          and abs(got["mu"] - expect_mu) / expect_mu < 0.2)
+    emit(phase="ou", paths=OU_PATHS, steps=OU_STEPS, mean_fit=got,
+         numpy_f64_mean_mu=expect_mu,
+         mean_fit_cpu_f64={k: mean(getattr(fit64.params, k)) for k in ("theta", "mu", "sigma")},
+         ou_sim252_paths_per_sec=OU_PATHS / statistics.median(walls),
+         ou_mle252_fits_per_sec=OU_PATHS / statistics.median(fit_walls),
+         sim_wall_s_runs=walls, fit_wall_s_runs=fit_walls, ok=ok)
+    if not ok:
+        raise AssertionError("the OU simulation and fits failed their checks")
+
+    dt = 4.0 / OU_LONG
+    _, long_walls = timed_walls(
+        torch, dev,
+        lambda: ou.simulate_parallel(p, OU["theta"], 4.0, OU_LONG, gen, device=dev), long_reps)
+    gen.manual_seed(7)
+    z = torch.randn(OU_LONG, generator=gen, device=dev)
+    scan = {"float32": ou._path_parallel(p, OU["theta"], dt, z),
+            "float64": ou._path_parallel(p, OU["theta"], dt, z.double())}
+    loop_f64 = ou._path(p, OU["theta"], dt, z.cpu().double())
+    rel = lambda a, b: float(((a.cpu().double() - b.cpu()).abs() / b.cpu().abs()).max())  # noqa: E731
+    errs = {"scan_f64_vs_loop_f64": rel(scan["float64"], loop_f64),
+            "scan_f32_vs_scan_f64": rel(scan["float32"], scan["float64"])}
+    ok = bool(errs["scan_f64_vs_loop_f64"] <= 1e-10 and torch.isfinite(scan["float32"]).all()
+              and errs["scan_f32_vs_scan_f64"] <= OU_LONG_F32_REL)
+    emit(phase="ou_long_path", steps=OU_LONG, max_rel=errs,
+         ou_sim_longpath_steps_per_sec=OU_LONG / statistics.median(long_walls),
+         wall_s_runs=long_walls, ok=ok)
+    if not ok:
+        raise AssertionError("simulate_parallel disagrees with simulate")
+
+
+def hjb_dx(p):
+    return (p.x_max - p.x_min) / (p.n_space - 1)
+
+
+def hjb_goldens():
+    """The reference engine's HJB values (tests/golden/reference_pde_values.json)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                        "reference_pde_values.json")
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def hjb_cells_off_f64(torch, p, b):
+    """The largest distance, in cells, of the boundaries ``b`` from the
+    same problem's float64 march on the CPU."""
+    from pde_tpu_torch.solvers import hjb
+
+    ref = hjb.solve_all_boundaries(p, device="cpu", dtype=torch.float64)
+    return max(abs(x - y) for x, y in zip(b, ref)) / hjb_dx(p)
+
+
+def phase_hjb_projection(torch, dev):
+    """solve_all_boundaries at the default HJBParams (200x200) by
+    projection on the card: each step one K5 launch on the four problems'
+    (4, 200) rows, their shared bands at batch stride 0; entry_long and
+    entry_short within one cell of the reference engine's goldens, as
+    tests/test_golden_pde.py:145-152 holds the JAX package (its goldens
+    keep reference_compat's cut band: phase_hjb_goldens), and every
+    boundary within HJB_CELLS of the CPU's float64 march."""
+    from pde_tpu_torch.solvers import hjb
+
+    p = hjb.HJBParams()
+    b = hjb.solve_all_boundaries(p, device=dev)
+    gold = hjb_goldens()
+    err = {k: abs(getattr(b, k) - gold[f"hjb_{k}"]) for k in ("entry_long", "entry_short")}
+    cells = hjb_cells_off_f64(torch, p, b)
+    ok = bool(max(err.values()) <= hjb_dx(p) + 1e-6 and cells <= HJB_CELLS)
+    emit(phase="hjb_projection", grid=[p.n_space, p.n_time], boundaries=b._asdict(),
+         abs_err_vs_golden=err, dx=hjb_dx(p), cells_off_cpu_f64=cells, ok=ok)
+    if not ok:
+        raise AssertionError("HJB projection boundaries miss the goldens")
+    return b
+
+
+def phase_hjb_psor(torch, dev, proj):
+    """The same by PSOR (one K6 launch a step, (4, 200), 60 sweeps from V):
+    within one cell of the goldens and of the projection boundaries, and
+    within HJB_CELLS of the CPU's float64 PSOR march."""
+    from pde_tpu_torch.solvers import hjb
+
+    p = hjb.HJBParams(method="psor")
+    b = hjb.solve_all_boundaries(p, device=dev)
+    gold = hjb_goldens()
+    err = {k: abs(getattr(b, k) - gold[f"hjb_{k}"]) for k in ("entry_long", "entry_short")}
+    vs_proj = {k: abs(getattr(b, k) - getattr(proj, k)) for k in ("entry_long", "entry_short")}
+    cells = hjb_cells_off_f64(torch, p, b)
+    ok = bool(max(err.values()) <= hjb_dx(p) + 1e-6
+              and max(vs_proj.values()) <= hjb_dx(p) + 1e-6 and cells <= HJB_CELLS)
+    emit(phase="hjb_psor", grid=[p.n_space, p.n_time], boundaries=b._asdict(),
+         abs_err_vs_golden=err, abs_diff_vs_projection=vs_proj, cells_off_cpu_f64=cells,
+         ok=ok)
+    if not ok:
+        raise AssertionError("HJB PSOR boundaries miss the goldens or projection")
+
+
+def phase_hjb_goldens(torch, dev):
+    """The reference engine's own assembly (reference_compat, the goldens'
+    band) by projection on the card, 200 K5 launches for the four problems
+    and 200 for the single solve: all six boundaries within HJB_CELLS of
+    tests/golden/reference_pde_values.json and the value probes within
+    HJB_VALUE_ATOL.  (PSOR's upwind operator is not the goldens': in
+    float64 it sits one cell off on the entries, 97.5 on the exits; it is
+    held to its own float64 march in phase_hjb_psor.)"""
+    from pde_tpu_torch.solvers import hjb
+
+    p = hjb.HJBParams(reference_compat=True)
+    b = hjb.solve_all_boundaries(p, device=dev)
+    res = hjb.solve(p, device=dev)
+    gold = hjb_goldens()
+    cells = {k: abs(v - gold[f"hjb_{k}"]) / hjb_dx(p) for k, v in b._asdict().items()}
+    values = {k: abs(res.value_at(x) - gold[k])
+              for k, x in (("hjb_entry_long_value_at_0", 0.0),
+                           ("hjb_entry_long_value_at_m02", -0.2))}
+    ok = bool(max(cells.values()) <= HJB_CELLS and max(values.values()) <= HJB_VALUE_ATOL)
+    emit(phase="hjb_goldens", grid=[p.n_space, p.n_time], boundaries=b._asdict(),
+         cells_off_golden=cells, value_abs_err=values, ok=ok)
+    if not ok:
+        raise AssertionError("HJB reference_compat misses the goldens")
+
+
+def phase_hjb_brennan(torch, dev):
+    """bench_full.py:887-907: solve_all_boundaries by Brennan-Schwartz at
+    256x128, c = 0.002 (no kernel: a row loop of tensor ops), and by PSOR
+    (K6) for comparison: entry_long < exit_long (bench_full.py:906), each
+    boundary within one cell of PSOR's."""
+    from pde_tpu_torch.solvers import hjb
+
+    p = hjb.HJBParams(**HJB_BENCH, method="brennan_schwartz")
+    t0 = time.perf_counter()
+    b = hjb.solve_all_boundaries(p, device=dev)
+    wall = time.perf_counter() - t0
+    ps = hjb.solve_all_boundaries(p._replace(method="psor"), device=dev)
+    diff = max(abs(x - y) for x, y in zip(b, ps))
+    ok = bool(b.entry_long < b.exit_long and diff <= hjb_dx(p) + 1e-6)
+    emit(phase="hjb_brennan_schwartz", grid=[p.n_space, p.n_time], boundaries=b._asdict(),
+         psor_boundaries=ps._asdict(), max_abs_diff_vs_psor=diff, dx=hjb_dx(p),
+         wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("HJB Brennan-Schwartz failed its checks")
+
+
+def hjb_book(torch, dev, B=HJB_B):
+    """bench_full.py:912-922's book: theta 0, mu in [2, 8], sigma in [0.05,
+    0.2], float32 on ``dev``."""
+    return dict(theta=torch.zeros(B, device=dev), mu=torch.linspace(2.0, 8.0, B, device=dev),
+                sigma=torch.linspace(0.05, 0.2, B, device=dev), r=HJB_BENCH["r"],
+                c_entry=HJB_BENCH["c_entry"], c_exit=HJB_BENCH["c_exit"], T=HJB_BENCH["T"],
+                n_space=HJB_BENCH["n_space"], n_time=HJB_BENCH["n_time"])
+
+
+def phase_hjb_batch(torch, dev, picks=(0, 21, 42, 63)):
+    """boundaries_batch for the 64-config book at 256x128 by
+    Brennan-Schwartz and by projection (one K5 launch a step on the (256,
+    256) rows of the 64 configs' four problems); four of its configs
+    within one cell of the port's own solve_all_boundaries on the card by
+    the same method, on the config's grid."""
+    from pde_tpu_torch.solvers import hjb
+
+    book = hjb_book(torch, dev)
+    mu, sigma, theta = (book[k].cpu().double().numpy() for k in ("mu", "sigma", "theta"))
+    worst = {}
+    for method in ("brennan_schwartz", "projection"):
+        out = hjb.boundaries_batch(**book, method=method, device=dev)
+        batch = hjb.extract_boundaries_batch(*out, mu, sigma, theta)
+        dx = (out[0][:, 1] - out[0][:, 0]).cpu().double().numpy()
+        over = 0.0
+        for i in picks:
+            ss = float(sigma[i] / (2.0 * mu[i]) ** 0.5)
+            single = hjb.solve_all_boundaries(hjb.HJBParams(
+                theta=float(theta[i]), mu=float(mu[i]), sigma=float(sigma[i]),
+                **{k: HJB_BENCH[k] for k in ("r", "c_entry", "c_exit", "T", "n_space",
+                                              "n_time")},
+                x_min=-15.8 * ss, x_max=15.8 * ss, method=method), device=dev)
+            over = max(over, max(abs(x - y) for x, y in zip(batch[i], single)) / dx[i])
+        worst[method] = over
+    ok = bool(max(worst.values()) <= 1.0 + 1e-4)
+    emit(phase="hjb_boundaries_batch", B=HJB_B, grid=[HJB_BENCH["n_space"],
+                                                   HJB_BENCH["n_time"]],
+         configs_checked=list(picks), max_diff_over_dx_vs_single=worst, ok=ok)
+    if not ok:
+        raise AssertionError("boundaries_batch disagrees with solve_all_boundaries")
+
+
+def phase_hjb_rows(torch, dev, reps=3):
+    """The HJB rows timed outside the counted paths: solve_all_boundaries
+    at 200x200 by projection and PSOR, bench_full.py's
+    ``ou_freeboundary_psor_solve_s`` (Brennan-Schwartz at 256x128, median
+    of ``reps``) and ``ou_freeboundary_batch64_books_per_sec``
+    (boundaries_batch, B = 64, Brennan-Schwartz), and the same book by
+    projection."""
+    from pde_tpu_torch.solvers import hjb
+
+    book = hjb_book(torch, dev)
+    calls = {
+        "projection_200x200": lambda: hjb.solve_all_boundaries(hjb.HJBParams(), device=dev),
+        "psor_200x200": lambda: hjb.solve_all_boundaries(hjb.HJBParams(method="psor"),
+                                                         device=dev),
+        "brennan_schwartz_256x128": lambda: hjb.solve_all_boundaries(
+            hjb.HJBParams(**HJB_BENCH, method="brennan_schwartz"), device=dev),
+        "batch64_brennan_schwartz": lambda: hjb.boundaries_batch(**book, device=dev),
+        "batch64_projection": lambda: hjb.boundaries_batch(**book, method="projection",
+                                                           device=dev),
+    }
+    walls = {name: timed_walls(torch, dev, fn, reps)[1] for name, fn in calls.items()}
+    med = {name: statistics.median(w) for name, w in walls.items()}
+    emit(phase="hjb_rows", wall_s=med, wall_s_runs=walls,
+         ou_freeboundary_psor_solve_s=med["brennan_schwartz_256x128"],
+         ou_freeboundary_batch64_books_per_sec=HJB_B / med["batch64_brennan_schwartz"],
+         batch64_projection_books_per_sec=HJB_B / med["batch64_projection"])
+
+
+def run_ou_hjb_paths(torch, dev, path):
+    """The OU path, then the HJB paths, each through ``path`` (main's
+    counted runner): the projection march makes one K5 launch a step and
+    the PSOR march one K6 launch a step, all on the redesigned routes;
+    Brennan-Schwartz has no kernel, its PSOR comparison one K6 launch a
+    step; the goldens' projection marches (all four problems, then one),
+    the book's projection march and its four single configs one K5 launch
+    a step each.  Fails on any other count.  Returns {kernel: {path:
+    launches}}."""
+    path(phase_ou, torch, dev)
+    launches = {"K5": {}, "K6": {}}
+
+    def hjb_path(fn, *args, kernel, steps):
+        route = f"{kernel}-smem" if kernel == "K5" else f"{kernel}-warp"
+        counts, out = path(fn, torch, dev, *args, needs=(kernel, route))
+        if counts[kernel] != steps or counts[route] != steps:
+            raise AssertionError(f"{fn.__name__} launched {kernel} {counts[kernel]} times "
+                                 f"({counts[route]} on its route), not {steps}")
+        launches[kernel][fn.__name__] = counts[kernel]
+        return out
+
+    proj = hjb_path(phase_hjb_projection, kernel="K5", steps=200)
+    hjb_path(phase_hjb_goldens, kernel="K5", steps=2 * 200)
+    hjb_path(phase_hjb_psor, proj, kernel="K6", steps=200)
+    hjb_path(phase_hjb_brennan, kernel="K6", steps=HJB_BENCH["n_time"])
+    hjb_path(phase_hjb_batch, kernel="K5", steps=5 * HJB_BENCH["n_time"])
+    return launches
+
+
 def phase_grad_guard(torch, dev):
     """Each kernel wrapper on the card, given an input that requires grad:
     it raises (the kernels have no backward; the reference's pallas_call
@@ -1535,11 +1865,13 @@ class LaunchInputs:
         setattr(self.module, self.name, self.launch)
 
 
-def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path):
+def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path, extra=()):
     """K5 and K6 against their plain twins on every argument set the main
     paths gave them, then timed at the shapes of ``k5_path`` (the scan's S
     and v sweeps, one launch each a step: the kernel line gives the mean of
-    one launch) and ``k6_path`` (the PSOR solve's systems, started at V)."""
+    one launch) and ``k6_path`` (the PSOR solve's systems, started at V);
+    and, on lines of their own, at the shapes of each (kernel, path) of
+    ``extra``."""
     from pde_tpu_torch.ops import tridiag
     from pde_tpu_torch.solvers import lcp
 
@@ -1572,6 +1904,14 @@ def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path):
             out[key].update(library_ms=mean("library_ms"))
         emit(phase="kernel_timing", kernel=key, case=path, per_launch_mean=out[key]["ms"],
              first_design_per_launch_mean=out[key]["first_design_ms"], shapes=rows)
+    for key, path in extra:
+        inputs, timing = ((k5_inputs, k5_timing) if key == "K5" else (k6_inputs, k6_timing))
+        rows = [timing(torch, dev, *args) for args in inputs.on(path)]
+        if not rows:
+            raise AssertionError(f"{path} gave {key} no input")
+        for r in rows:
+            r["bound"] = bound(r["n_bytes"], r["n_flops"])
+        emit(phase="kernel_timing", kernel=key, case=path, shapes=rows)
     return out
 
 
@@ -1582,9 +1922,9 @@ def profile_rows(torch, dev, interp, top=4):
     import numpy as np
 
     from pde_tpu_torch.calibrate.sabr import SABRCalibrator
-    from pde_tpu_torch.models import sabr
+    from pde_tpu_torch.models import ou, sabr
     from pde_tpu_torch.ops import tridiag
-    from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
+    from pde_tpu_torch.solvers import bs_pde, heston_adi, hjb, lcp, local_vol_pde
 
     K, T, cf = lv_book(torch, dev, LV_B)
     system = bs_system(torch, dev)
@@ -1599,6 +1939,11 @@ def profile_rows(torch, dev, interp, top=4):
     vols = sabr.implied_volatilities(torch.as_tensor(Ks, device=dev), F1, 1.0,
                                      sabr.SABRParams(**SABR_TRUTH)).cpu().numpy()
     cal = SABRCalibrator(beta=0.5, device=dev, dtype=torch.float32)
+    ou_p = ou.OUParams(**OU)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    paths = ou.simulate(ou_p, OU["theta"], 1.0, OU_STEPS, gen, shape=(OU_PATHS,), device=dev)
+    hbook = hjb_book(torch, dev)
     rows = {
         "fused_adi_book": lambda: heston_adi.solve_fused_batch(
             2.0, 0.04, 0.3, -0.7, 0.04, R, Q, Tb, Kb, cb, S0, device=dev, **GRID),
@@ -1614,6 +1959,20 @@ def profile_rows(torch, dev, interp, top=4):
         "bs_pde_solve_psor": lambda: bs_pde.solve(american_put, 100.0, device=dev),
         "k6_projected_sor": lambda: lcp.projected_sor_batched(*system),
         "k5_thomas_batched": lambda: tridiag.thomas_batched(*system[:4]),
+        "ou_sim252": lambda: ou.simulate(ou_p, OU["theta"], 1.0, OU_STEPS, gen,
+                                         shape=(OU_PATHS,), device=dev),
+        "ou_mle252": lambda: ou.fit_mle(paths, 1.0 / OU_STEPS),
+        "ou_longpath": lambda: ou.simulate_parallel(ou_p, OU["theta"], 4.0, OU_LONG, gen,
+                                                    device=dev),
+        "hjb_projection_200x200": lambda: hjb.solve_all_boundaries(hjb.HJBParams(),
+                                                                   device=dev),
+        "hjb_psor_200x200": lambda: hjb.solve_all_boundaries(hjb.HJBParams(method="psor"),
+                                                             device=dev),
+        "hjb_brennan_schwartz_256x128": lambda: hjb.solve_all_boundaries(
+            hjb.HJBParams(**HJB_BENCH, method="brennan_schwartz"), device=dev),
+        "hjb_batch64_brennan_schwartz": lambda: hjb.boundaries_batch(**hbook, device=dev),
+        "hjb_batch64_projection": lambda: hjb.boundaries_batch(**hbook, method="projection",
+                                                               device=dev),
     }
     for name, fn in rows.items():
         wall, dev_us = profiled(torch, dev, fn)
@@ -1731,10 +2090,15 @@ def main() -> None:
                           needs=("K5", "K5-smem", "K6", "K6-warp"))[0]["K6"]
     path(phase_tridiagonal_solve, torch, dev, needs=("K5", "K5-smem"))
     path(phase_projected_sor, torch, dev, needs=("K6", "K6-warp"))
+    hjb_launches = run_ou_hjb_paths(torch, dev, path)
     k5_inputs.close()
     k6_inputs.close()
     measured.update(phase_path_inputs(torch, dev, k5_inputs, k6_inputs,
-                                      "phase_heston_scan", "phase_bs_solve"))
+                                      "phase_heston_scan", "phase_bs_solve",
+                                      extra=(("K5", "phase_hjb_projection"),
+                                             ("K5", "phase_hjb_batch"),
+                                             ("K6", "phase_hjb_psor"))))
+    phase_hjb_rows(torch, dev)
     phase_k1_routes(torch, dev)
     for k, err in bench_err.items():
         measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
@@ -1745,7 +2109,8 @@ def main() -> None:
         bound_ms, bound_by = m["bound"]
         rows.append({**info, "launches": launches[k], "max_abs_err": m["max_abs_err"],
                      "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": m.get("library_ms")})
+                     "bound_by": bound_by, "library_ms": m.get("library_ms"),
+                     **({"launches_hjb": hjb_launches[k]} if k in hjb_launches else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,12 +12,14 @@ import torch
 
 from .models.heston import HestonParams
 from .models.local_vol import SurfaceInterpolator
+from .models.ou import OUParams
 from .models.sabr import SABRParams
 from .solvers.bs_pde import BSPDEParams
 from .solvers.heston_adi import HestonPDEParams
+from .solvers.hjb import HJBParams, StoppingProblem
 
-__all__ = ["tensor", "heston_params", "sabr_params", "quotes", "grouping",
-           "surface_interpolator", "heston_pde_params", "bs_pde_params"]
+__all__ = ["tensor", "heston_params", "sabr_params", "ou_params", "quotes", "grouping",
+           "surface_interpolator", "heston_pde_params", "bs_pde_params", "hjb_params"]
 
 
 def tensor(x, device="cpu", dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -40,6 +42,12 @@ def sabr_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> SABRPara
                         for k in SABRParams._fields))
 
 
+def ou_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> OUParams:
+    """A parameter record with theta/mu/sigma fields (the JAX package's
+    ``OUParams``) as the port's, field by field."""
+    return OUParams(*(tensor(getattr(p, k), device, dtype) for k in OUParams._fields))
+
+
 def _pde_params(cls, p, floats, device, dtype):
     """A PDE parameter record as the port's ``cls``, field by field: the
     model/contract values in ``floats`` as 0-d tensors of ``dtype`` (so the
@@ -58,6 +66,16 @@ def heston_pde_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> He
 def bs_pde_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> BSPDEParams:
     """The JAX package's ``bs_pde.BSPDEParams`` as the port's."""
     return _pde_params(BSPDEParams, p, ("sigma", "r", "q", "T", "K"), device, dtype)
+
+
+def hjb_params(p) -> HJBParams:
+    """The JAX package's ``hjb.HJBParams`` as the port's, field by field:
+    numbers as Python numbers (the solver's ``dtype`` argument sets the
+    precision), ``problem`` by its integer value as the port's own
+    ``StoppingProblem``."""
+    fields = {k: getattr(p, k) for k in HJBParams._fields}
+    fields["problem"] = StoppingProblem(int(p.problem))
+    return HJBParams(**fields)
 
 
 def surface_interpolator(interp, device="cpu",

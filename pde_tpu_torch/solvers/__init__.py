@@ -1,4 +1,5 @@
 """PDE solvers: the Heston ADI scan, single-option and book paths, the
-local-vol and Black-Scholes 1D solvers, and the LCP (obstacle) solvers."""
+local-vol and Black-Scholes 1D solvers, the LCP (obstacle) solvers and the
+HJB optimal-stopping solver."""
 
-from . import bs_pde, heston_adi, lcp, local_vol_pde  # noqa: F401
+from . import bs_pde, heston_adi, hjb, lcp, local_vol_pde  # noqa: F401

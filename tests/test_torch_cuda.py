@@ -11,7 +11,7 @@ import torch
 
 from pde_tpu_torch.models import local_vol
 from pde_tpu_torch.ops import adi_fused, cn1d_fused, cn1d_tv_fused, tridiag
-from pde_tpu_torch.solvers import bs_pde, heston_adi, lcp, local_vol_pde
+from pde_tpu_torch.solvers import bs_pde, heston_adi, hjb, lcp, local_vol_pde
 
 # kernel vs plain twin: both float32 with the same step order; FMA
 # contraction (K1, K2, K3) and the order in which the lane scans of K1, K2,
@@ -680,3 +680,91 @@ def test_model_function_on_plain_numbers_runs_on_the_card():
 
     assert black_scholes.price(100.0, 100.0, 0.05, 0.0, 1.0, 0.2).device == \
         torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,counter", [("projection", "K5"), ("psor", "K6")])
+@pytest.mark.parametrize("entry", ["solve", "solve_all_boundaries"])
+def test_hjb_on_card_matches_cpu(entry, method, counter):
+    """HJB by projection (each step one K5 launch on the problems' rows)
+    and by PSOR (one K6 launch a step) on the card in float32: the
+    boundaries within 0.05 of a cell of the CPU's float64 march (the
+    agreement the CPU's float32 march shows), the value function within
+    1e-4 of it, and the kernel's counter up by n_time."""
+    _need_cuda()
+    p = hjb.HJBParams(method=method, n_space=120, n_time=60, c_entry=0.002, c_exit=0.002)
+    dx = (p.x_max - p.x_min) / (p.n_space - 1)
+    wrapper = tridiag.thomas_batched if counter == "K5" else lcp.projected_sor_batched
+    fn = getattr(hjb, entry)
+    before = wrapper.launches
+    card = fn(p, device="cuda")
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + p.n_time
+    cpu = fn(p, device="cpu", dtype=torch.float64)
+    if entry == "solve":
+        np.testing.assert_allclose(card.value_function, cpu.value_function, atol=1e-4)
+        for a, b in ((card.lower_boundary, cpu.lower_boundary),
+                     (card.upper_boundary, cpu.upper_boundary)):
+            assert (a is None) == (b is None) and (a is None or abs(a - b) <= 0.05 * dx)
+    else:
+        assert np.max(np.abs(np.array(card) - np.array(cpu))) <= 0.05 * dx
+
+
+@pytest.mark.cuda
+def test_hjb_boundaries_batch_projection_on_card():
+    """A book of 5 configs by projection: one K5 launch a step on (20, n),
+    each config's boundaries within 0.05 of a cell of the CPU's float64
+    march."""
+    _need_cuda()
+    kw = dict(theta=np.zeros(5), mu=np.linspace(2.0, 8.0, 5), sigma=np.linspace(0.05, 0.2, 5),
+              r=0.05, c_entry=0.002, c_exit=0.002, T=1.0, n_space=96, n_time=32,
+              method="projection")
+    before = tridiag.thomas_batched.launches
+    card = hjb.boundaries_batch(**kw, device="cuda")
+    torch.cuda.synchronize()
+    assert tridiag.thomas_batched.launches == before + kw["n_time"]
+    cpu = hjb.boundaries_batch(**kw, device="cpu", dtype=torch.float64)
+    args = (kw["mu"], kw["sigma"], kw["theta"])
+    dx = (card[0][:, 1] - card[0][:, 0]).cpu().numpy()
+    for b, (c, r) in enumerate(zip(hjb.extract_boundaries_batch(*card, *args),
+                                   hjb.extract_boundaries_batch(*cpu, *args))):
+        assert np.max(np.abs(np.array(c) - np.array(r))) <= 0.05 * dx[b]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallel", [False, True])
+def test_ou_paths_on_card_match_cpu(parallel):
+    """OU paths on the card, from the card's normals, against the CPU's
+    path function on the same normals in float64: 1e-5 relative in float32
+    (the step loop), and the log-depth scan likewise."""
+    _need_cuda()
+    from pde_tpu_torch.models import ou
+
+    params = ou.OUParams(100.0, 5.0, 2.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fn = ou.simulate_parallel if parallel else ou.simulate
+    card = fn(params, 100.0, 1.0, 252, gen, shape=(64,))
+    assert card.device.type == "cuda" and card.dtype == torch.float32
+    z = torch.randn((64, 252), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    cpu = ou._path(ou.OUParams(*(torch.tensor(v, dtype=torch.float64) for v in params)),
+                   torch.tensor(100.0, dtype=torch.float64), 1.0 / 252, z.cpu().double())
+    np.testing.assert_allclose(card.cpu().double().numpy(), cpu.numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["simulate", "simulate_parallel"])
+def test_ou_simulate_on_plain_numbers_runs_on_the_card(fn):
+    """Plain numbers and a card generator give a path on cuda:0; a
+    generator on another device than the path's raises."""
+    _need_cuda()
+    from pde_tpu_torch.models import ou
+
+    fn = getattr(ou, fn)
+    plain = ou.OUParams(100.0, 5.0, 2.0)
+    path = fn(plain, 100.0, 1.0, 16, torch.Generator(device="cuda").manual_seed(0))
+    assert path.device == torch.device("cuda", 0) and path.shape == (17,)
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        fn(plain, 100.0, 1.0, 16, torch.Generator())
+    with pytest.raises(ValueError, match="generator is on cuda"):
+        fn(plain, torch.tensor(100.0), 1.0, 16, torch.Generator(device="cuda"))
