@@ -59,7 +59,15 @@ checks every result:
      reduction a call;
 4. headline calibration: bench.py's 108-quote surface through
    ``_calibrate_pipeline`` and ``HestonCalibrator.calibrate`` (DE 100/15,
-   LM 60, seed 42), float32/complex64;
+   LM 60, seed 42), float32/complex64; then, with no kernel launched:
+   ``price_fft`` (complex64 against the CPU's complex128), the 12 x 9
+   ``implied_volatility_surface`` (float32 against the CPU's float64),
+   ``greeks_ad`` (float64, against ``price_with_greeks``' stencils on the
+   pricer it differentiates), bench_full.py's
+   ``heston_pricing_grouped_options_per_sec`` (8192 options) and
+   ``heston_batched_calibration_surfaces_per_sec`` (16 copies of the
+   108-quote surface through ``HestonCalibrator.calibrate_batch``, every
+   surface held to bench.py's gate, beside 16 sequential pipelines);
 5. fused-ADI book: 512 options at 100x50x100 through
    ``heston_adi.solve_fused_batch``, checked against the converged
    Carr-Madan price;
@@ -106,7 +114,8 @@ fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
 Each main path (4-12) runs with every kernel's launch count set to 0 just
-before it and read just after; a path whose kernel never launched fails,
+before it and read just after; a path whose kernel never launched fails
+(the rows of item 4 after the headline must launch none),
 and so do the two Heston and local-vol books and the 108-option surface if
 K1's or K3's redesigned route (``launches_smem``) never launched, the
 Black-Scholes book if K4's warp route (``launches_warp``) did not,
@@ -132,8 +141,9 @@ repository root with no arguments:
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and traces
 one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
-``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls and of
-the OU and HJB rows under ``torch.profiler``: wall, the card's busy time
+``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls, of the
+OU and HJB rows, of the 8192-option grouped pricing and of the 16-surface
+``calibrate_batch`` under ``torch.profiler``: wall, the card's busy time
 and idle share, and the kernels that took most of the device time.
 """
 
@@ -193,6 +203,17 @@ HJB_B = 64
 # float64 march (tests/test_torch_hjb.py); the value probes within 1e-5 of
 # the goldens (values 0.03 and 0.2, the CPU's float32 march 6e-7 off)
 HJB_CELLS, HJB_VALUE_ATOL = 0.05, 1e-5
+# the Heston pricing and Greeks rows (no kernel): price_fft in complex64
+# against the CPU's complex128 run on strikes 50-200 (the CPU's complex64
+# run sits 4.8e-5 off); the 12 x 9 IV surface in float32 against the CPU's
+# float64 (9e-7 on the CPU); greeks_ad against price_with_greeks' stencils
+# on price_accurate, at the stencils' truncation error (O(bump^2), theta
+# O(1/365))
+FFT_ATOL, IV_F32_ATOL = 1e-3, 1e-5
+FD_RTOL = dict(delta=1e-4, gamma=1e-4, rho=1e-4, vega=1e-4, theta=5e-3)
+# bench_full.py:224-243 and 925-944: the 8192-option grouped book over 8
+# maturities; U copies of the 108-quote surface calibrated as one batch
+PRICING_N, CAL_U = 8192, 16
 # the card's peaks (H100 SXM data sheet): float32 outside the tensor cores
 # and HBM bandwidth; a kernel's bound is the larger of its operations over
 # the one and its bytes over the other
@@ -605,6 +626,203 @@ def phase_calibration(torch, dev, dtype, budget=BUDGET, timed_runs=3):
          rel_rmse=rel_rmse, rmse=res.rmse, success=res.success, wall_s=wall, ok=ok)
     if not ok:
         raise AssertionError("HestonCalibrator.calibrate missed the truth")
+
+
+def fd_greeks(torch, dev, params, strike, maturity, is_call=True):
+    """``price_with_greeks``' stencils and bumps (heston.cpp:169-218) on
+    ``price_accurate`` in float64 on ``dev``: the pricer ``greeks_ad``
+    differentiates (``price_with_greeks`` prices on the reference grid,
+    whose ~2% bias at the money moves its delta by ~0.02)."""
+    from pde_tpu_torch.models import heston
+
+    t = lambda x: torch.tensor(x, dtype=torch.float64, device=dev)  # noqa: E731
+
+    def p(s=S0, r=R, T=maturity, v0=TRUE["v0"]):
+        return float(heston.price_accurate(params._replace(v0=t(v0)), t(strike), t(T),
+                                           t(s), r, Q, is_call))
+
+    es, er, et, ev = S0 * 1e-3, 1e-4, 1.0 / 365.0, 1e-3
+    mid, up, dn = p(), p(s=S0 + es), p(s=S0 - es)
+    return {"delta": (up - dn) / (2 * es), "gamma": (up - 2 * mid + dn) / es ** 2,
+            "rho": (p(r=R + er) - p(r=R - er)) / (2 * er),
+            "theta": (p(T=maturity - et) - mid) / et,
+            "vega": (p(v0=TRUE["v0"] + ev) - p(v0=TRUE["v0"] - ev)) / (2 * ev)}
+
+
+def pricing_book(torch, dev, dtype):
+    """bench_full.py:224-243: 8192 strikes in [60, 140] over 8 maturities in
+    [0.1, 2.0], grouped: (params, strikes, t_idx, unique_T)."""
+    import numpy as np
+
+    from pde_tpu_torch.models import heston
+
+    mats = np.tile(np.linspace(0.1, 2.0, 8), PRICING_N // 8)
+    unique_T, t_idx = heston.group_maturities(mats)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return (heston.HestonParams(*(t(v) for v in TRUE.values())),
+            t(np.linspace(60.0, 140.0, PRICING_N)),
+            torch.as_tensor(t_idx, dtype=torch.int64, device=dev), t(unique_T))
+
+
+def phase_heston_extras(torch, dev, reps=20):
+    """The Heston FFT, IV surface, Greeks and grouped pricing on the card
+    (no kernel: tensor ops and ``torch.fft.fft``), each held to its gate:
+    ``price_fft`` (4096 x 0.25) in complex64 against the CPU's complex128
+    run; the 12 x 9 ``implied_volatility_surface`` in float32 against the
+    CPU's float64; ``greeks_ad`` in float64 against ``price_with_greeks``'
+    stencils on ``price_accurate``, and ``price_with_greeks`` in float64 on
+    the card against the CPU at 1e-8 relative; bench_full.py's
+    ``heston_pricing_grouped_options_per_sec`` (8192 options, 8 maturities,
+    float32) against the CPU's float64 prices."""
+    import numpy as np
+
+    from pde_tpu_torch.models import heston
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+
+    def params(dtype, device):
+        return heston.HestonParams(*(torch.tensor(v, dtype=dtype, device=device)
+                                     for v in TRUE.values()))
+
+    def scalar(x, dtype, device):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    # the Carr-Madan FFT
+    def fft(p, dt, d):
+        return heston.price_fft(p, scalar(1.0, dt, d), scalar(S0, dt, d), R, Q)
+
+    p32 = params(f32, dev)
+    (k_card, c_card), fft_walls = timed_walls(torch, dev, lambda: fft(p32, f32, dev), reps)
+    k_cpu, c_cpu = fft(params(f64, cpu), f64, cpu)
+    band = (torch.exp(k_cpu) > 50.0) & (torch.exp(k_cpu) < 200.0)
+    fft_err = float((c_card.cpu().double() - c_cpu)[band].abs().max())
+
+    # the implied-vol surface, 12 maturities x 9 strikes
+    Ks, Ts = np.linspace(85.0, 115.0, 9), np.linspace(0.25, 1.5, 12)
+    surf = lambda p, dt, d: heston.implied_volatility_surface(  # noqa: E731
+        p, torch.as_tensor(Ks, dtype=dt, device=d), torch.as_tensor(Ts, dtype=dt, device=d),
+        S0, R, Q)
+    iv_card, iv_walls = timed_walls(torch, dev, lambda: surf(p32, f32, dev), reps)
+    iv_err = float((iv_card.cpu().double() - surf(params(f64, cpu), f64, cpu)).abs().max())
+
+    # exact Greeks by autograd, float64 on the card, at the money
+    p64 = params(f64, dev)
+    ad, ad_walls = timed_walls(torch, dev, lambda: heston.greeks_ad(
+        p64, scalar(100.0, f64, dev), scalar(1.0, f64, dev), scalar(S0, f64, dev), R, Q),
+        reps)
+    fd = fd_greeks(torch, dev, p64, 100.0, 1.0)
+    fd_rel = {k: abs(float(ad[k]) - v) / abs(v) for k, v in fd.items()}
+    pwg = {d: heston.price_with_greeks(params(f64, d), scalar(100.0, f64, d),
+                                       scalar(1.0, f64, d), scalar(S0, f64, d), R, Q)
+           for d in (dev, cpu)}
+    pwg_rel = max(abs(float(pwg[dev][k]) - float(pwg[cpu][k])) / abs(float(pwg[cpu][k]))
+                  for k in pwg[cpu])
+
+    # bench_full.py's grouped pricing row
+    book = pricing_book(torch, dev, f32)
+    card = heston.price_carr_madan_grouped(*book, S0, R, Q)
+    ref = heston.price_carr_madan_grouped(
+        params(f64, cpu), book[1].cpu().double(), book[2].cpu(), book[3].cpu().double(),
+        S0, R, Q)
+    err = (card.cpu().double() - ref).abs()
+    price_over_gate = float((err / (ATOL + RTOL * ref.abs())).max())
+    per_call_ms = time_ms(torch, lambda: heston.price_carr_madan_grouped(*book, S0, R, Q),
+                          reps)
+
+    ok = (fft_err <= FFT_ATOL and iv_err <= IV_F32_ATOL and bool(torch.isfinite(c_card).all())
+          and all(fd_rel[k] <= FD_RTOL[k] for k in fd_rel) and pwg_rel <= 1e-8
+          and price_over_gate <= 1.0 and bool(torch.isfinite(card).all()))
+    emit(phase="heston_extras",
+         price_fft=dict(n_fft=4096, eta=0.25, dtype="complex64", max_abs_vs_cpu_c128=fft_err,
+                        gate=FFT_ATOL, strikes=[50.0, 200.0],
+                        wall_ms=1e3 * statistics.median(fft_walls)),
+         iv_surface=dict(shape=list(iv_card.shape), dtype="float32",
+                         max_abs_vs_cpu_f64=iv_err, gate=IV_F32_ATOL,
+                         wall_ms=1e3 * statistics.median(iv_walls)),
+         greeks_ad=dict(dtype="float64", ad={k: float(v) for k, v in ad.items()},
+                        fd_on_price_accurate=fd, rel_err=fd_rel, gate=FD_RTOL,
+                        price_with_greeks={k: float(v) for k, v in pwg[dev].items()},
+                        price_with_greeks_card_vs_cpu_rel=pwg_rel,
+                        price_with_greeks_gate=1e-8,
+                        wall_ms=1e3 * statistics.median(ad_walls)),
+         pricing_grouped=dict(options=PRICING_N, maturities=8, dtype="float32",
+                              max_over_gate_vs_cpu_f64=price_over_gate,
+                              gate=f"{ATOL} + {RTOL} |price|", per_call_ms=per_call_ms),
+         heston_pricing_grouped_options_per_sec=PRICING_N / (per_call_ms * 1e-3), ok=ok)
+    if not ok:
+        raise AssertionError("a Heston extra missed its gate")
+
+
+def calibrate_batch_book(torch, dev, dtype):
+    """bench_full.py:925-944: U copies of the 108-quote surface (12 strikes
+    in [85, 115] x 9 maturities in [0.25, 1.5], priced from TRUE)."""
+    import numpy as np
+
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator
+
+    data = HestonCalibrator.generate_synthetic_data(
+        S0=S0, r=R, q=Q, **TRUE, strikes=np.linspace(85.0, 115.0, 12),
+        maturities=np.linspace(0.25, 1.5, 9), device=dev, dtype=dtype)
+    tile = lambda a: np.tile(np.asarray(a), (CAL_U, 1))  # noqa: E731
+    return (tile(data["strike"]), tile(data["maturity"]), tile(data["mid_price"]),
+            np.full(CAL_U, S0))
+
+
+def phase_calibrate_batch(torch, dev, budget=BUDGET, timed_runs=3):
+    """bench_full.py's ``heston_batched_calibration_surfaces_per_sec``: U =
+    16 copies of the 108-quote surface through
+    ``HestonCalibrator.calibrate_batch`` (DE 100/15, LM 60, float32), the
+    median of ``timed_runs`` warm calls, every surface held to bench.py:274's
+    gate (|v0 - 0.04| < 0.02, rel_rmse < 0.05); then the same U surfaces as
+    U sequential ``_calibrate_pipeline`` calls, timed once, for the wall
+    the batch replaces."""
+    import numpy as np
+
+    from pde_tpu_torch.calibrate.heston import (PARAM_ORDER, HestonCalibrator,
+                                                _calibrate_pipeline)
+    from pde_tpu_torch.models.heston import group_maturities
+
+    f32 = torch.float32
+    strikes, maturities, prices, spots = calibrate_batch_book(torch, dev, f32)
+    n = strikes.shape[1]
+    cal = HestonCalibrator(seed=42, device=dev, dtype=f32, **budget)
+    out, walls = timed_walls(torch, dev, lambda: cal.calibrate_batch(
+        strikes, maturities, prices, spots, R, Q), timed_runs)
+    params = out["params"].cpu().double().numpy()
+    rel_rmse = np.sqrt(2.0 * out["cost"].cpu().double().numpy() / n)
+    ok = bool(np.all(np.abs(params[:, 4] - TRUE["v0"]) < 0.02) and np.all(rel_rmse < 0.05))
+
+    t = lambda a: torch.as_tensor(a, dtype=f32, device=dev)  # noqa: E731
+    unique_T, t_idx = group_maturities(maturities[0])
+    bounds = [t([cal.bounds[k][i] for k in PARAM_ORDER]) for i in (0, 1)]
+    args = (t(strikes[0]), torch.as_tensor(t_idx, dtype=torch.int64, device=dev), t(unique_T),
+            torch.ones(n, dtype=torch.bool, device=dev), t(prices[0]),
+            torch.ones(n, dtype=f32, device=dev), S0, R, Q, *bounds)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    seq = [_calibrate_pipeline(*args, gen, torch.zeros(5, dtype=f32, device=dev), False,
+                               **budget) for _ in range(CAL_U)]
+    sync(torch, dev)
+    seq_wall = time.perf_counter() - t0
+    seq_v0 = [float(o[3][4]) for o in seq]
+    ok = ok and all(abs(v - TRUE["v0"]) < 0.02 for v in seq_v0)
+
+    wall = statistics.median(walls)
+    emit(phase="calibrate_batch", surfaces=CAL_U, n_quotes=n, dtype="float32",
+         heston_batched_calibration_surfaces_per_sec=CAL_U / wall, wall_s=wall,
+         wall_s_runs=walls, v0=params[:, 4].tolist(), rel_rmse=rel_rmse.tolist(),
+         gate="|v0 - 0.04| < 0.02 and rel_rmse < 0.05 on every surface",
+         de_generations=out["de_n_iter"].tolist(),
+         de_generations_max=int(out["de_n_iter"].max()),
+         lm_iterations=out["lm_n_iter"].tolist(),
+         sequential_pipelines_wall_s=seq_wall,
+         sequential_surfaces_per_sec=CAL_U / seq_wall,
+         sequential_de_generations=[int(o[2]) for o in seq],
+         sequential_lm_iterations=[int(o[6]) for o in seq], sequential_v0=seq_v0, ok=ok)
+    if not ok:
+        raise AssertionError("a surface of the batched calibration missed bench.py's gate")
 
 
 def timed_walls(torch, dev, fn, reps):
@@ -1921,8 +2139,9 @@ def profile_rows(torch, dev, interp, top=4):
     the kernels that took most of the device time."""
     import numpy as np
 
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator
     from pde_tpu_torch.calibrate.sabr import SABRCalibrator
-    from pde_tpu_torch.models import ou, sabr
+    from pde_tpu_torch.models import heston, ou, sabr
     from pde_tpu_torch.ops import tridiag
     from pde_tpu_torch.solvers import bs_pde, heston_adi, hjb, lcp, local_vol_pde
 
@@ -1944,6 +2163,9 @@ def profile_rows(torch, dev, interp, top=4):
     gen.manual_seed(0)
     paths = ou.simulate(ou_p, OU["theta"], 1.0, OU_STEPS, gen, shape=(OU_PATHS,), device=dev)
     hbook = hjb_book(torch, dev)
+    pricing = pricing_book(torch, dev, torch.float32)
+    cal_book = calibrate_batch_book(torch, dev, torch.float32)
+    calibrator = HestonCalibrator(seed=42, device=dev, dtype=torch.float32, **BUDGET)
     rows = {
         "fused_adi_book": lambda: heston_adi.solve_fused_batch(
             2.0, 0.04, 0.3, -0.7, 0.04, R, Q, Tb, Kb, cb, S0, device=dev, **GRID),
@@ -1973,6 +2195,9 @@ def profile_rows(torch, dev, interp, top=4):
         "hjb_batch64_brennan_schwartz": lambda: hjb.boundaries_batch(**hbook, device=dev),
         "hjb_batch64_projection": lambda: hjb.boundaries_batch(**hbook, method="projection",
                                                                device=dev),
+        "heston_pricing_grouped_8192": lambda: heston.price_carr_madan_grouped(
+            *pricing, S0, R, Q),
+        "heston_calibrate_batch_16": lambda: calibrator.calibrate_batch(*cal_book, R, Q),
     }
     for name, fn in rows.items():
         wall, dev_us = profiled(torch, dev, fn)
@@ -2067,6 +2292,12 @@ def main() -> None:
         return counts, out
 
     path(phase_calibration, torch, dev, torch.float32)
+    # the Heston pricing and batched calibration rows launch no kernel, and
+    # their launch lines must say so
+    for fn in (phase_heston_extras, phase_calibrate_batch):
+        counts = path(fn, torch, dev)[0]
+        if any(counts.values()):
+            raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")
     launches = {"K1": path(phase_book, torch, dev, needs=("K1", "K1-smem"))[0]["K1"],
                 "K3": path(phase_local_vol_book, torch, dev, interp,
                            needs=("K3", "K3-smem"))[0]["K3"],

@@ -11,6 +11,9 @@ same fit-quality metrics (:588-643) and warnings (:645-674).
   Carr-Madan pricer.
 * Stage 2: :mod:`.lm`, with the top-k DE members and one data-informed
   start polished together as a batch.
+* :meth:`HestonCalibrator.calibrate_batch` fits U surfaces as one program
+  (a surface axis through both stages); :func:`parameter_sensitivities`
+  gives each quote's pull on the calibrated parameters.
 
 Runs on the card unless the caller passes ``device="cpu"``; the GPU path
 is float32/complex64, the parity tests float64/complex128 on the CPU.
@@ -26,14 +29,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.precision import default_float, resolve_device
+from ..core.precision import default_float, device_of, resolve_device, result_dtype
 from ..models import black_scholes as bs
 from ..models import heston as heston_model
 from ..models.heston import HestonParams
 from .de import differential_evolution
-from .lm import levenberg_marquardt
+from .lm import _full_fp32_matmul, levenberg_marquardt
 
-__all__ = ["CalibrationError", "CalibrationResult", "HestonCalibrator"]
+__all__ = ["CalibrationError", "CalibrationResult", "HestonCalibrator",
+           "parameter_sensitivities"]
 
 PARAM_ORDER = ("kappa", "theta", "sigma", "rho", "v0")
 
@@ -117,7 +121,7 @@ def _objective_population_gl_grouped(pop, strikes, t_idx, unique_T, is_calls,
     hit on deep-OTM short-dated quotes even at the true parameters.  NaN
     still gets the hard penalty."""
     prices = _price_vec_gl_grouped(pop, strikes, t_idx, unique_T, is_calls,
-                                   S0, r, q, n_points)          # (P, N)
+                                   S0, r, q, n_points)          # (..., P, N)
     # neutralize padded slots BEFORE the NaN check: NaN * 0 is NaN
     prices = torch.where(mask > 0, prices, market_prices)
     nan_bad = torch.any(torch.isnan(prices), dim=-1)
@@ -146,7 +150,8 @@ def _calibrate_pipeline(
     global_popsize: int = 15,
     local_max_iter: int = 60,
 ):
-    """The full two-stage calibration.
+    """The full two-stage calibration of one surface: the single-surface
+    case of :func:`_calibrate_pipeline_batch`.
 
     Maturities arrive grouped as ``(t_idx, unique_T)`` from
     :func:`pde_tpu_torch.models.heston.group_maturities`.  ``mask`` (1.0 =
@@ -158,11 +163,51 @@ def _calibrate_pipeline(
     Returns ``(de_x, de_fun, de_n_iter, lm_x, lm_cost, lm_converged,
     lm_n_iter, model_prices)``, the reference's tuple.
     """
+    S0 = torch.as_tensor(S0, dtype=strikes.dtype, device=strikes.device)
+    out = _calibrate_pipeline_batch(
+        strikes[None], t_idx[None], unique_T[None], is_calls[None],
+        market_prices[None], mask[None], S0[None], r, q, lower, upper, generator,
+        x0, use_x0, global_maxiter, global_popsize, local_max_iter)
+    return tuple(t[0] for t in out)
 
-    def objective(pop):
+
+def _calibrate_pipeline_batch(
+    strikes,
+    t_idx,
+    unique_T,
+    is_calls,
+    market_prices,
+    mask,
+    S0,
+    r,
+    q,
+    lower,
+    upper,
+    generator: torch.Generator,
+    x0,
+    use_x0: bool,
+    global_maxiter: int = 100,
+    global_popsize: int = 15,
+    local_max_iter: int = 60,
+):
+    """The two-stage calibration of U surfaces as one program, the
+    reference's ``vmap`` of its pipeline (pde_tpu/calibrate/heston.py:595-610).
+
+    Every quote tensor is (U, N), ``unique_T`` (U, M) (padded to a common
+    M), ``S0`` (U,); ``x0`` is (5,) or (U, 5).  The DE runs with a surface
+    axis (one objective call a generation prices every surface's
+    population); each LM pass is one call on the U x k starts, each start
+    given its own surface's quotes through ``data=``; each surface keeps
+    the best of its own starts.  Returns the tuple of
+    :func:`_calibrate_pipeline`, each entry with a leading U axis.
+    """
+    U = strikes.shape[0]
+
+    def objective(pop):  # (U, P, 5) -> (U, P)
         return _objective_population_gl_grouped(
-            pop, strikes, t_idx, unique_T, is_calls, market_prices, mask,
-            S0, r, q,
+            pop, strikes[:, None], t_idx[:, None], unique_T[:, None],
+            is_calls[:, None], market_prices[:, None], mask[:, None],
+            S0[:, None, None], r, q,
         )
 
     # warm start seeds the DE population (heston_calibrator.py:411-413)
@@ -180,10 +225,11 @@ def _calibrate_pipeline(
         # mean relative price error (basin capture for the multistart LM)
         param_tol=1e-2,
         stagnation_patience=12,
-        target_energy=1e-4 * torch.sum(mask),
+        target_energy=1e-4 * torch.sum(mask, dim=-1),
+        n_surfaces=U,
     )
 
-    def residuals(x):
+    def residuals(x, strikes, t_idx, unique_T, is_calls, market_prices, mask, S0):
         prices = _price_vec_gl_grouped(x, strikes, t_idx, unique_T, is_calls, S0, r, q)
         # padded slots must yield an EXACT zero residual even when the CF
         # NaNs there (mask * NaN = NaN would poison the cost and Jacobian)
@@ -191,47 +237,134 @@ def _calibrate_pipeline(
         prices = torch.clamp_min(prices, 1e-10)  # heston_calibrator.py:533
         return mask * (prices - market_prices) / market_prices
 
-    # MULTISTART local stage: the top-k DE members (the reference's
-    # deviation from a single least_squares, kept) ...
+    # MULTISTART local stage: the top-k DE members of each surface (the
+    # reference's deviation from a single least_squares, kept) ...
     k_starts = min(4, global_popsize * 5)
-    order = torch.argsort(de.population_energies)
-    starts = de.population[order[:k_starts]]
+    order = torch.argsort(de.population_energies, dim=-1)[:, :k_starts]
+    starts = torch.take_along_dim(de.population, order[..., None], dim=1)
 
-    # ... plus one INFORMED start: short-maturity ATM implied variance ~ v0,
-    # long-maturity ATM implied variance ~ theta
-    T_q = unique_T[t_idx.long()]
+    # ... plus one INFORMED start per surface: short-maturity ATM implied
+    # variance ~ v0, long-maturity ATM implied variance ~ theta
+    T_q = torch.take_along_dim(unique_T, t_idx.long(), dim=-1)
     big = 1e18
-    fwd = S0 * torch.exp((r - q) * T_q)
+    fwd = S0[:, None] * torch.exp((r - q) * T_q)
     # a rough vol level is enough to seed the start — 8 Newton iterations
-    iv = bs.implied_vol(market_prices, S0, strikes, r, q, T_q, is_calls,
+    iv = bs.implied_vol(market_prices, S0[:, None], strikes, r, q, T_q, is_calls,
                         max_iter=8)
     atm_pen = torch.abs(strikes - fwd) + (1.0 - mask) * big
-    t_short = torch.min(torch.where(mask > 0, T_q, torch.full_like(T_q, big)))
-    t_long = torch.max(torch.where(mask > 0, T_q, torch.full_like(T_q, -big)))
-    i_short = torch.argmin(atm_pen + big * (T_q != t_short))
-    i_long = torch.argmin(atm_pen + big * (T_q != t_long))
-    const = lambda c: torch.full((), c, dtype=strikes.dtype, device=strikes.device)  # noqa: E731
-    informed = torch.stack([const(2.0), iv[i_long] ** 2, const(0.5),
-                            const(-0.5), iv[i_short] ** 2])
+    t_short = torch.amin(torch.where(mask > 0, T_q, torch.full_like(T_q, big)),
+                         dim=-1, keepdim=True)
+    t_long = torch.amax(torch.where(mask > 0, T_q, torch.full_like(T_q, -big)),
+                        dim=-1, keepdim=True)
+    i_short = torch.argmin(atm_pen + big * (T_q != t_short), dim=-1, keepdim=True)
+    i_long = torch.argmin(atm_pen + big * (T_q != t_long), dim=-1, keepdim=True)
+    const = lambda c: torch.full((U,), c, dtype=strikes.dtype, device=strikes.device)  # noqa: E731
+    informed = torch.stack([const(2.0), torch.take_along_dim(iv, i_long, -1)[:, 0] ** 2,
+                            const(0.5), const(-0.5),
+                            torch.take_along_dim(iv, i_short, -1)[:, 0] ** 2], dim=-1)
     informed = torch.clamp(informed, lower, upper)
     informed = torch.where(torch.isfinite(informed), informed, 0.5 * (lower + upper))
-    starts = torch.cat([starts, informed[None, :]], dim=0)
+    starts = torch.cat([starts, informed[:, None, :]], dim=1)  # (U, k + 1, 5)
+    n_starts = starts.shape[1]
 
     # two chained LM passes with a FRESH damping state: long descents
     # through the ill-conditioned kappa-sigma ridge inflate lambda; the
     # restart from the first pass's iterate reaches the optimum quickly
-    first = levenberg_marquardt(residuals, starts, lower, upper,
-                                max_iter=local_max_iter, ftol=1e-8)
+    data = tuple(t.repeat_interleave(n_starts, dim=0) for t in
+                 (strikes, t_idx, unique_T, is_calls, market_prices, mask, S0))
+    first = levenberg_marquardt(residuals, starts.reshape(U * n_starts, 5), lower, upper,
+                                max_iter=local_max_iter, ftol=1e-8, data=data)
     lm_all = levenberg_marquardt(residuals, first.x, lower, upper,
-                                 max_iter=local_max_iter, ftol=1e-8)
-    best = torch.argmin(lm_all.cost)
-    lm_x = lm_all.x[best]
+                                 max_iter=local_max_iter, ftol=1e-8, data=data)
+    best = torch.argmin(lm_all.cost.reshape(U, n_starts), dim=-1)
+    rows = torch.arange(U, device=best.device) * n_starts + best
+    lm_x = lm_all.x[rows]
 
     # reported prices stay on the LITERAL reference grid; only the optimizer
     # hot loops use the corrected-GL rule
-    model_prices = _price_vec_grouped(lm_x, strikes, t_idx, unique_T, is_calls, S0, r, q)
-    return (de.x, de.fun, de.n_iter, lm_x, lm_all.cost[best],
-            lm_all.converged[best], lm_all.n_iter[best], model_prices)
+    model_prices = _price_vec_grouped(lm_x, strikes, t_idx, unique_T, is_calls,
+                                      S0[:, None], r, q)
+    return (de.x, de.fun, de.n_iter, lm_x, lm_all.cost[rows],
+            lm_all.converged[rows], lm_all.n_iter[rows], model_prices)
+
+
+def _sensitivities_impl(x, strikes, t_idx, unique_T, is_calls, market_prices,
+                        mask, S0, r, q):
+    """d(calibrated params)/d(market prices) at the LM optimum, by the
+    implicit function theorem on the Gauss-Newton normal equations.
+
+    Residuals are the pipeline's relative errors r_i = m_i(x)/p_i - 1, so
+    the stationarity condition J^T r = 0 differentiates to
+
+        dx*/dp = -(J^T J)^{-1} J^T  diag(dr/dp),   dr_i/dp_i = -m_i / p_i^2.
+
+    The Jacobian is exact, by forward-mode AD through the same corrected-GL
+    grouped pricer as the LM's residuals.  Returns ``(dxdp (5, N), model
+    prices (N,), J^T J (5, 5))``.
+    """
+
+    def model(xv):
+        return torch.clamp_min(
+            _price_vec_gl_grouped(xv, strikes, t_idx, unique_T, is_calls, S0, r, q), 1e-10)
+
+    m = model(x)
+    Jm = torch.func.jacfwd(model)(x)                 # (N, 5) dm/dx
+    J = Jm * (mask / market_prices)[:, None]         # (N, 5) dr/dx
+    with _full_fp32_matmul():  # TF32 would swamp the ill-conditioned J^T J
+        JTJ = J.T @ J
+    drdp = -mask * m / (market_prices ** 2)          # (N,) dr_i/dp_i
+    rhs = J.T * drdp[None, :]                        # (5, N)
+    ridge = 1e-12 * torch.trace(JTJ) * torch.eye(5, dtype=JTJ.dtype, device=JTJ.device)
+    dxdp = -torch.linalg.solve(JTJ + ridge, rhs)     # (5, N)
+    return dxdp, m, JTJ
+
+
+def parameter_sensitivities(params, strikes, maturities, is_calls, market_prices,
+                            S0, r, q=0.0, quote_noise_rel: float = 0.0,
+                            device=None, dtype: Optional[torch.dtype] = None):
+    """Quote-level sensitivities of a calibrated parameter set.
+
+    Returns a dict of numpy arrays:
+
+    * ``dparams_dprice`` — (5, N): first-order response of
+      (kappa, theta, sigma, rho, v0) to a unit bump of each market price;
+    * ``model_prices`` — (N,): the corrected-GL prices at ``params``;
+    * ``influence`` — (N,): L2 norm of each quote's parameter response
+      scaled by 1% of its price (which quotes move the calibration);
+    * ``param_cov`` / ``param_std`` — Gauss-Newton parameter covariance for
+      i.i.d. relative price noise ``quote_noise_rel`` (omitted when 0).
+
+    Computed on ``params``' tensors' device, else on ``device`` (default:
+    the CUDA card), in ``dtype`` (default: the fields' type, at least
+    torch's default float).
+    """
+    device = device_of(*params, default=device)
+    dtype = dtype or result_dtype(*params)
+    strikes = np.asarray(strikes, dtype=np.float64)
+    market_prices = np.asarray(market_prices, dtype=np.float64)
+    unique_T, t_idx = heston_model.group_maturities(maturities)
+
+    def tensor(a, dt=dtype):
+        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+
+    x = torch.stack([torch.as_tensor(getattr(params, k), dtype=dtype, device=device)
+                     for k in PARAM_ORDER])
+    dxdp, model_prices, _ = _sensitivities_impl(
+        x, tensor(strikes), tensor(t_idx, torch.int64), tensor(unique_T),
+        tensor(np.asarray(is_calls, dtype=bool), torch.bool), tensor(market_prices),
+        torch.ones(len(strikes), dtype=dtype, device=device), S0, r, q)
+    dxdp, model_prices = dxdp.cpu().numpy(), model_prices.cpu().numpy()
+    out = {
+        "dparams_dprice": dxdp,
+        "model_prices": model_prices,
+        "influence": np.linalg.norm(dxdp * 0.01 * market_prices[None, :], axis=0),
+    }
+    if quote_noise_rel > 0.0:
+        sig = quote_noise_rel * market_prices
+        cov = (dxdp * sig[None, :] ** 2) @ dxdp.T
+        out["param_cov"] = cov
+        out["param_std"] = np.sqrt(np.maximum(np.diag(cov), 0.0))
+    return out
 
 
 class HestonCalibrator:
@@ -384,6 +517,64 @@ class HestonCalibrator:
                 if cached is not None:
                     return cached
             raise CalibrationError(f"Calibration failed: {exc}") from exc
+
+    def calibrate_batch(
+        self,
+        strikes,
+        maturities,
+        market_prices,
+        S0,
+        r: float,
+        q: float,
+        is_calls=None,
+        mesh=None,
+    ):
+        """Calibrate MANY surfaces at once: all inputs carry a leading
+        surfaces axis, (U, n_options) and (U,) for ``S0``.
+
+        The U pipelines run as one program (:func:`_calibrate_pipeline_batch`):
+        each DE generation prices every surface's population in one call,
+        each LM pass polishes all U x k starts in one call.  Returns a dict
+        of tensors on the calibrator's device: ``params`` (U, 5), ``cost``,
+        ``converged``, ``model_prices`` (U, n_options), and the DE
+        generations ``de_n_iter`` and LM iterations ``lm_n_iter`` of each
+        surface.  ``mesh`` (the reference's device-mesh sharding) is not
+        ported and raises.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "calibrate_batch(mesh=...): sharding over a device mesh needs "
+                "parallel/, which the port has not ported yet (ROADMAP A.7)")
+        dev, dt = self.device, self.dtype
+
+        def tensor(a, dtype=dt):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        strikes = np.asarray(strikes, dtype=np.float64)
+        if is_calls is None:
+            is_calls = np.ones(strikes.shape, dtype=bool)
+        lower = tensor([self.bounds[k][0] for k in PARAM_ORDER])
+        upper = tensor([self.bounds[k][1] for k in PARAM_ORDER])
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(self.seed)
+
+        # per-surface maturity grouping, padded to a common M (padded CF
+        # rows are priced by no option)
+        grouped = [heston_model.group_maturities(m) for m in np.asarray(maturities)]
+        max_m = max(len(uT) for uT, _ in grouped)
+        unique_T = np.stack([np.concatenate([uT, np.full(max_m - len(uT), uT[-1])])
+                             for uT, _ in grouped])
+        t_idx = np.stack([idx for _, idx in grouped])
+        (_, _, de_iter, lm_x, lm_cost, lm_conv, lm_iter,
+         model_prices) = _calibrate_pipeline_batch(
+            tensor(strikes), tensor(t_idx, torch.int64), tensor(unique_T),
+            tensor(is_calls, torch.bool), tensor(market_prices),
+            torch.ones(strikes.shape, dtype=dt, device=dev), tensor(S0), float(r),
+            float(q), lower, upper, generator, torch.zeros(5, dtype=dt, device=dev),
+            False, global_maxiter=self.global_maxiter,
+            global_popsize=self.global_popsize, local_max_iter=self.local_max_iter)
+        return {"params": lm_x, "cost": lm_cost, "converged": lm_conv,
+                "model_prices": model_prices, "de_n_iter": de_iter, "lm_n_iter": lm_iter}
 
     # ------------------------------------------------------------ internals
 

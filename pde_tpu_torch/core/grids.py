@@ -9,12 +9,16 @@ shared by every point.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .precision import default_float, resolve_device
 
 __all__ = [
     "uniform_grid",
+    "log_grid",
+    "uniform_step",
     "linspace",
     "find_index",
     "interp_linear",
@@ -36,6 +40,31 @@ def uniform_grid(x_min: float, x_max: float, n_points: int, dtype=None,
     return torch.linspace(x_min, x_max, n_points,
                           dtype=dtype or default_float(),
                           device=resolve_device(device))
+
+
+def log_grid(x_min: float, x_max: float, n_points: int, dtype=None,
+             device=None) -> torch.Tensor:
+    """Grid of ``n_points`` points uniform in log(x) on [x_min, x_max], on
+    ``device`` (default: the CUDA card): more resolution near small x.
+    Matches the reference's log-space grid (src/cpp/solvers/pde_core.hpp:57-64)."""
+    if n_points < 3:
+        raise ValueError("grid requires at least 3 points")
+    if x_min <= 0:
+        raise ValueError("log grid requires x_min > 0")
+    if not (x_min < x_max):
+        raise ValueError("x_min must be less than x_max")
+    return torch.exp(torch.linspace(math.log(x_min), math.log(x_max), n_points,
+                                    dtype=dtype or default_float(),
+                                    device=resolve_device(device)))
+
+
+def uniform_step(grid: torch.Tensor, log_space: bool = False) -> torch.Tensor:
+    """Uniform step in the grid's natural coordinate: in log coordinates
+    for a log-space grid (src/cpp/solvers/pde_core.hpp:89-94)."""
+    n = grid.shape[-1]
+    if log_space:
+        return torch.log(grid[..., -1] / grid[..., 0]) / (n - 1)
+    return (grid[..., -1] - grid[..., 0]) / (n - 1)
 
 
 def linspace(start: torch.Tensor, stop: torch.Tensor, n: int) -> torch.Tensor:

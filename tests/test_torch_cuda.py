@@ -768,3 +768,108 @@ def test_ou_simulate_on_plain_numbers_runs_on_the_card(fn):
         fn(plain, 100.0, 1.0, 16, torch.Generator())
     with pytest.raises(ValueError, match="generator is on cuda"):
         fn(plain, torch.tensor(100.0), 1.0, 16, torch.Generator(device="cuda"))
+
+
+def _heston(dtype=torch.float64, device="cpu"):
+    from pde_tpu_torch.models import heston
+
+    return heston.HestonParams(*(torch.tensor(x, dtype=dtype, device=device)
+                                 for x in (2.0, 0.04, 0.3, -0.7, 0.04)))
+
+
+@pytest.mark.cuda
+def test_greeks_ad_on_card_matches_cpu():
+    """Exact Greeks by autograd in float64 on the card against the CPU."""
+    _need_cuda()
+    from pde_tpu_torch.models import heston
+
+    K = np.array([80.0, 95.0, 100.0, 105.0, 125.0])
+    T = np.array([0.25, 0.5, 1.0, 1.5, 2.0])
+    calls = np.array([True, False, True, False, True])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        out[dev] = heston.greeks_ad(_heston(device=dev), t(K), t(T), t(100.0), 0.05, 0.02,
+                                    torch.as_tensor(calls, device=dev))
+    for k, v in out["cuda"].items():
+        assert v.device.type == "cuda" and v.dtype == torch.float64, k
+        np.testing.assert_allclose(v.cpu().numpy(), out["cpu"][k].numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_price_fft_complex64_on_card_matches_cpu_complex128():
+    """The card's complex64 FFT (4096 x 0.25) against the CPU's complex128
+    run on strikes 50-200: within 1e-3 (1e-5 of the spot)."""
+    _need_cuda()
+    from pde_tpu_torch.models import heston
+
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda")  # noqa: E731
+    f64 = lambda x: torch.tensor(x, dtype=torch.float64)  # noqa: E731
+    k_card, c_card = heston.price_fft(_heston(torch.float32, "cuda"), f32(1.0), f32(100.0),
+                                      0.05, 0.02)
+    k_cpu, c_cpu = heston.price_fft(_heston(), f64(1.0), f64(100.0), 0.05, 0.02)
+    assert c_card.device.type == "cuda" and c_card.dtype == torch.float32
+    band = (torch.exp(k_cpu) > 50.0) & (torch.exp(k_cpu) < 200.0)
+    np.testing.assert_allclose(c_card.cpu().double()[band].numpy(), c_cpu[band].numpy(),
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_calibrate_batch_on_card_meets_the_jax_tests_gates():
+    """Two 16-quote surfaces in float32 on the card, at tests/test_parallel.py's
+    budget (DE 30 x 8, LM 20): cost < 1e-3, v0 and theta within 0.01."""
+    _need_cuda()
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator
+    from pde_tpu_torch.models import heston
+
+    U, n = 2, 16
+    strikes = np.tile(np.linspace(90.0, 110.0, n), (U, 1))
+    maturities = np.tile(np.repeat([0.5, 1.0], n // 2), (U, 1))
+    prices = np.maximum(heston.price_options(
+        _heston(), torch.as_tensor(strikes.ravel()), torch.as_tensor(maturities.ravel()),
+        100.0, 0.05, 0.02).numpy().reshape(U, n), 0.01)
+    cal = HestonCalibrator(global_maxiter=30, global_popsize=8, local_max_iter=20)
+    out = cal.calibrate_batch(strikes, maturities, prices, np.full(U, 100.0), 0.05, 0.02)
+    assert out["params"].device == torch.device("cuda", 0)
+    params = out["params"].cpu().double().numpy()
+    assert np.all(out["cost"].cpu().numpy() < 1e-3)
+    np.testing.assert_allclose(params[:, 4], 0.04, atol=0.01)
+    np.testing.assert_allclose(params[:, 1], 0.04, atol=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["log_grid", "delta", "barrier_price",
+                                  "implied_volatility_surface", "greeks_ad", "price_fft",
+                                  "calibrate_batch", "parameter_sensitivities"])
+def test_new_entry_points_on_plain_numbers_run_on_the_card(name):
+    """Each entry point called with plain numbers and no device computes on
+    cuda:0 (parameter_sensitivities returns numpy, as the reference does:
+    its model prices must equal the card's pricer's)."""
+    _need_cuda()
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator, parameter_sensitivities
+    from pde_tpu_torch.core import grids
+    from pde_tpu_torch.models import black_scholes, heston
+
+    plain = heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04)
+    calls = {
+        "log_grid": lambda: grids.log_grid(50.0, 200.0, 5),
+        "delta": lambda: black_scholes.delta(100.0, 100.0, 0.05, 0.0, 1.0, 0.2),
+        "barrier_price": lambda: black_scholes.barrier_price(
+            100.0, 100.0, 120.0, 0.05, 0.0, 1.0, 0.2),
+        "implied_volatility_surface": lambda: heston.implied_volatility_surface(
+            plain, np.array([90.0, 110.0]), np.array([0.5, 1.0]), 100.0),
+        "greeks_ad": lambda: heston.greeks_ad(plain, 100.0, 1.0, 100.0)["gamma"],
+        "price_fft": lambda: heston.price_fft(plain, 1.0, 100.0, n_fft=64)[1],
+        "calibrate_batch": lambda: HestonCalibrator(
+            global_maxiter=1, global_popsize=2, local_max_iter=1).calibrate_batch(
+            np.full((2, 4), 100.0), np.full((2, 4), 1.0), np.full((2, 4), 10.0),
+            np.full(2, 100.0), 0.05, 0.02)["params"],
+    }
+    if name == "parameter_sensitivities":
+        out = parameter_sensitivities(plain, [90.0, 110.0], [1.0, 1.0], [True, True],
+                                      [15.0, 5.0], 100.0, 0.05)
+        assert np.all(np.isfinite(out["model_prices"]))
+        assert out["model_prices"].dtype == np.float32
+        return
+    assert calls[name]().device == torch.device("cuda", 0)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from pde_tpu_torch.calibrate.heston import HestonCalibrator
+from pde_tpu_torch.calibrate.heston import HestonCalibrator, parameter_sensitivities
 from pde_tpu_torch.calibrate.sabr import SABRCalibrator
 from pde_tpu_torch.core import grids, precision
 from pde_tpu_torch.models import black_scholes, heston, local_vol, sabr
@@ -27,6 +27,9 @@ def _flat(s, t):
 
 
 _HP = heston_adi.HestonPDEParams(n_spot=8, n_vol=5, n_time=2)
+_HESTON = heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04)
+_BOOK = (np.full((2, 4), 100.0), np.full((2, 4), 1.0), np.full((2, 4), 10.0),
+         np.full(2, 100.0), 0.05, 0.02)
 
 
 ENTRY_POINTS = {
@@ -67,6 +70,18 @@ ENTRY_POINTS = {
         100.0, 100.0, 1.0, sabr.SABRParams(0.25, 0.5, -0.35, 0.45)),
     "heston.price_accurate": lambda: heston.price_accurate(
         heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04), 100.0, 1.0, 100.0),
+    "grids.log_grid": lambda: grids.log_grid(50.0, 200.0, 5),
+    "black_scholes.delta": lambda: black_scholes.delta(100.0, 100.0, 0.05, 0.0, 1.0, 0.2),
+    "black_scholes.barrier_price": lambda: black_scholes.barrier_price(
+        100.0, 100.0, 120.0, 0.05, 0.0, 1.0, 0.2),
+    "heston.implied_volatility_surface": lambda: heston.implied_volatility_surface(
+        _HESTON, np.array([90.0, 110.0]), np.array([0.5, 1.0]), 100.0),
+    "heston.greeks_ad": lambda: heston.greeks_ad(_HESTON, 100.0, 1.0, 100.0),
+    "heston.price_fft": lambda: heston.price_fft(_HESTON, 1.0, 100.0, n_fft=64),
+    "HestonCalibrator.calibrate_batch": lambda: HestonCalibrator(
+        global_maxiter=1, global_popsize=2, local_max_iter=1).calibrate_batch(*_BOOK),
+    "parameter_sensitivities": lambda: parameter_sensitivities(
+        _HESTON, [90.0, 110.0], [1.0, 1.0], [True, True], [15.0, 5.0], 100.0, 0.05),
 }
 
 
