@@ -67,7 +67,14 @@ checks every result:
    ``heston_pricing_grouped_options_per_sec`` (8192 options) and
    ``heston_batched_calibration_surfaces_per_sec`` (16 copies of the
    108-quote surface through ``HestonCalibrator.calibrate_batch``, every
-   surface held to bench.py's gate, beside 16 sequential pipelines);
+   surface held to bench.py's gate, beside 16 sequential pipelines); and
+   bench_full.py's Fourier-priced rows, one phase each, float32 against
+   the port's float64 run on the CPU: the Bates and digital books on the
+   8192-option grouped book, the 256-strike forward-start smile (and the
+   card's complex64 ``log1p``), the 64-strike rough-Heston smile (at twice
+   the CPU's own float32 error), the rough-Heston surface calibration
+   (rmse < 5e-3), the 1024-quote variance strip and the vol-swap strike
+   (1e-6 relative), and the 4096-quote spread and Stulz rainbow books;
 5. fused-ADI book: 512 options at 100x50x100 through
    ``heston_adi.solve_fused_batch``, checked against the converged
    Carr-Madan price;
@@ -139,12 +146,14 @@ repository root with no arguments:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --profile`` instead builds the kernels and traces
+``python3 chip_smoke.py --profile [ROW ...]`` instead builds the kernels and traces
 one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
 ``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls, of the
-OU and HJB rows, of the 8192-option grouped pricing and of the 16-surface
-``calibrate_batch`` under ``torch.profiler``: wall, the card's busy time
-and idle share, and the kernels that took most of the device time.
+OU and HJB rows, of the 8192-option grouped pricing, of the 16-surface
+``calibrate_batch`` and of the nine Fourier-priced rows under
+``torch.profiler``: wall, the card's busy time
+and idle share, and the kernels that took most of the device time.  Row
+names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 """
 
 from __future__ import annotations
@@ -214,6 +223,16 @@ FD_RTOL = dict(delta=1e-4, gamma=1e-4, rho=1e-4, vega=1e-4, theta=5e-3)
 # bench_full.py:224-243 and 925-944: the 8192-option grouped book over 8
 # maturities; U copies of the 108-quote surface calibrated as one batch
 PRICING_N, CAL_U = 8192, 16
+# the Fourier-priced rows (bench_full.py:245-347, 735-748), float32 on the
+# card against the port's float64 run on the CPU: the Bates set, the rough
+# Heston set and steps, the forward-start smile, the strip chain and the
+# two-asset book; the digital book at 1e-5 absolute, the strip and the
+# vol-swap strike at 1e-6 relative; the card's complex64 log1p (the
+# forward-start hook) within 1e-6 of complex128 on small arguments
+BATES = (2.0, 0.04, 0.3, -0.7, 0.04, 0.6, -0.08, 0.18)
+ROUGH, ROUGH_STEPS = (0.1, 2.0, 0.04, 0.3, -0.7, 0.04), 192
+FS_N, STRIP_N, TWO_ASSET_N = 256, 1024, 4096
+DIGITAL_ATOL, STRIP_REL, VOLSWAP_REL, LOG1P_ATOL = 1e-5, 1e-6, 1e-6, 1e-6
 # the card's peaks (H100 SXM data sheet): float32 outside the tensor cores
 # and HBM bandwidth; a kernel's bound is the larger of its operations over
 # the one and its bytes over the other
@@ -823,6 +842,259 @@ def phase_calibrate_batch(torch, dev, budget=BUDGET, timed_runs=3):
          sequential_lm_iterations=[int(o[6]) for o in seq], sequential_v0=seq_v0, ok=ok)
     if not ok:
         raise AssertionError("a surface of the batched calibration missed bench.py's gate")
+
+
+def fourier_params(torch, dev, dtype, which):
+    """bench_full.py's parameter sets as tensors of ``dtype`` on ``dev``:
+    Heston TRUE, Bates (:316), rough Heston (:250)."""
+    from pde_tpu_torch.models import bates, heston, rough_heston
+
+    cls, values = {"heston": (heston.HestonParams, TRUE.values()),
+                   "bates": (bates.BatesParams, BATES),
+                   "rough": (rough_heston.RoughHestonParams, ROUGH)}[which]
+    return cls(*(torch.tensor(v, dtype=dtype, device=dev) for v in values))
+
+
+def pricing_row(torch, dev, row, n, fn, ref, reps, also_ok=True, **extra):
+    """Time ``fn`` on the card (float32), hold it against the CPU's float64
+    ``ref`` at 1e-5 + 1e-4 |p| (and ``also_ok``) and emit the row: ``n``
+    options a call."""
+    card = fn()
+    err = (card.cpu().double() - ref.cpu().double()).abs()
+    over = float((err / (ATOL + RTOL * ref.cpu().double().abs())).max())
+    per_call_ms = time_ms(torch, fn, reps)
+    ok = over <= 1.0 and bool(torch.isfinite(card).all()) and also_ok
+    emit(phase=row, dtype="float32", n=n, per_call_ms=per_call_ms,
+         max_over_gate_vs_cpu_f64=over, gate=f"{ATOL} + {RTOL} |price|",
+         **{row: n / (per_call_ms * 1e-3)}, **extra, ok=ok)
+    if not ok:
+        raise AssertionError(f"{row} missed its gate")
+
+
+def phase_bates_pricing(torch, dev, reps=50):
+    """bench_full.py:305-311: ``price_carr_madan_gl_grouped`` on the Bates
+    set over the 8192-option grouped book of the Heston row."""
+    from pde_tpu_torch.models import bates
+
+    cpu = torch.device("cpu")
+    _, K, t_idx, uT = pricing_book(torch, dev, torch.float32)
+    p32 = fourier_params(torch, dev, torch.float32, "bates")
+    ref = bates.price_carr_madan_gl_grouped(
+        fourier_params(torch, cpu, torch.float64, "bates"), K.cpu().double(), t_idx.cpu(),
+        uT.cpu().double(), S0, R, Q)
+    pricing_row(torch, dev, "bates_pricing_grouped_options_per_sec", PRICING_N,
+                lambda: bates.price_carr_madan_gl_grouped(p32, K, t_idx, uT, S0, R, Q),
+                ref, reps)
+
+
+def phase_digital_pricing(torch, dev, reps=50):
+    """bench_full.py:313-321: ``digital.price_grouped`` (cash calls) on the
+    Heston set over the same book; 1e-5 absolute, every price in
+    [0, e^{-rT}]."""
+    from pde_tpu_torch.models import digital
+
+    cpu = torch.device("cpu")
+    _, K, t_idx, uT = pricing_book(torch, dev, torch.float32)
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    fn = lambda: digital.price_grouped(p32, K, t_idx, uT, S0, R, Q)  # noqa: E731
+    ref = digital.price_grouped(fourier_params(torch, cpu, torch.float64, "heston"),
+                                K.cpu().double(), t_idx.cpu(), uT.cpu().double(), S0, R, Q)
+    card = fn().cpu().double()
+    disc = torch.exp(-R * uT[t_idx].cpu().double())
+    in_range = bool((card >= 0.0).all() and (card <= disc * (1.0 + 2.0 ** -23)).all())
+    err = float((card - ref).abs().max())
+    per_call_ms = time_ms(torch, fn, reps)
+    ok = err <= DIGITAL_ATOL and in_range and bool(torch.isfinite(card).all())
+    emit(phase="digital_pricing", dtype="float32", n=PRICING_N, per_call_ms=per_call_ms,
+         max_abs_vs_cpu_f64=err, gate=DIGITAL_ATOL, prices_in_0_disc=in_range,
+         digital_pricing_grouped_options_per_sec=PRICING_N / (per_call_ms * 1e-3), ok=ok)
+    if not ok:
+        raise AssertionError("digital_pricing_grouped_options_per_sec missed its gate")
+
+
+def phase_forward_start(torch, dev, reps=20):
+    """bench_full.py:735-748: ``price_forward_start`` on 256 relative
+    strikes in [0.7, 1.3], fixing 0.5, maturity 1.0."""
+    from pde_tpu_torch.models import forward_start
+
+    cpu = torch.device("cpu")
+    k = lambda d, dt: torch.linspace(0.7, 1.3, FS_N, dtype=dt, device=d)  # noqa: E731
+    p32, k32 = fourier_params(torch, dev, torch.float32, "heston"), k(dev, torch.float32)
+    ref = forward_start.price_forward_start(
+        fourier_params(torch, cpu, torch.float64, "heston"), k(cpu, torch.float64), 0.5, 1.0,
+        rate=R, dividend=Q)
+    # the hook's complex log1p (sigma -> 0 needs its absolute accuracy near 0)
+    z = torch.tensor([1e-7 + 2e-7j, -3e-5 + 1e-6j, 0.01 - 0.02j, 0.3 - 0.2j],
+                     dtype=torch.complex128)
+    log1p_err = float((torch.log1p(z.to(torch.complex64).to(dev)).cpu().to(torch.complex128)
+                       - torch.log1p(z)).abs().max())
+    pricing_row(torch, dev, "forward_start_analytic_smile256_options_per_sec", FS_N,
+                lambda: forward_start.price_forward_start(p32, k32, 0.5, 1.0, rate=R,
+                                                          dividend=Q),
+                ref, reps, also_ok=log1p_err <= LOG1P_ATOL,
+                log1p_complex64_max_abs_vs_cpu_c128=log1p_err)
+
+
+def rough_smile(torch, d, dtype, params=None):
+    """bench_full.py:245-255's smile on ``d`` in ``dtype``."""
+    from pde_tpu_torch.models import rough_heston
+
+    if params is None:
+        params = fourier_params(torch, d, dtype, "rough")
+    return rough_heston.price_rough(
+        params, torch.linspace(80.0, 120.0, 64, dtype=dtype, device=d),
+        torch.tensor(0.25, dtype=dtype, device=d), S0, R, Q, n_steps=ROUGH_STEPS)
+
+
+def phase_rough_smile(torch, dev, reps=10):
+    """bench_full.py:245-255: ``price_rough`` on 64 strikes in [80, 120],
+    T = 0.25, 192 steps, float32; held at twice the CPU's own float32
+    error against its float64 run, measured here."""
+    cpu = torch.device("cpu")
+    ref = rough_smile(torch, cpu, torch.float64)
+    cpu_err = float((rough_smile(torch, cpu, torch.float32).double() - ref).abs().max())
+    p32 = fourier_params(torch, dev, torch.float32, "rough")
+    card, walls = timed_walls(torch, dev, lambda: rough_smile(torch, dev, torch.float32, p32),
+                              reps)
+    err = float((card.cpu().double() - ref).abs().max())
+    ok = err <= 2.0 * cpu_err and bool(torch.isfinite(card).all())
+    per = statistics.mean(walls)
+    emit(phase="rough_smile", dtype="float32", n_steps=ROUGH_STEPS, strikes=64,
+         max_abs_vs_cpu_f64=err, cpu_f32_max_abs_vs_cpu_f64=cpu_err, gate="2 x cpu f32 error",
+         wall_s_runs=walls, rough_heston_smile64_price_s=per, ok=ok)
+    if not ok:
+        raise AssertionError("rough_heston_smile64_price_s missed its gate")
+
+
+def phase_rough_calibration(torch, dev, timed_runs=3):
+    """bench_full.py:257-281: ``RoughHestonCalibrator(n_steps=96,
+    max_iter=40)`` on ``generate_synthetic_surface(n_steps=96)`` (3
+    maturities x 9 strikes), float32: one warm call, then the mean of 3;
+    bench_full.py's own gate rmse < 5e-3."""
+    from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
+
+    data = RoughHestonCalibrator.generate_synthetic_surface(n_steps=96, device=dev,
+                                                            dtype=torch.float32)
+    cal = RoughHestonCalibrator(n_steps=96, max_iter=40, device=dev, dtype=torch.float32)
+    res, walls = timed_walls(torch, dev, lambda: cal.calibrate(
+        data["strikes"], data["maturities"], data["mid_prices"], data["S0"], data["r"],
+        data["q"]), timed_runs)
+    ok = res.rmse < 5e-3
+    emit(phase="rough_calibration", dtype="float32", n_steps=96, max_iter=40,
+         rmse=res.rmse, gate="rmse < 5e-3", n_iter=res.n_iter, converged=res.converged,
+         params=list(res.params), true_params=list(data["true_params"]), wall_s_runs=walls,
+         rough_heston_surface_calibration_s=statistics.mean(walls), ok=ok)
+    if not ok:
+        raise AssertionError("rough_heston_surface_calibration_s missed its gate")
+
+
+def strip_chain(torch, d, dtype):
+    """bench_full.py:305-311: 1024 OTM strikes in [0.3F, 3F], T = 0.5,
+    priced by ``price_carr_madan`` (puts below F, calls above)."""
+    import numpy as np
+
+    from pde_tpu_torch.models import heston
+
+    fwd = S0 * float(np.exp(0.02 * 0.5))
+    ks = torch.as_tensor(np.linspace(0.3 * fwd, 3.0 * fwd, STRIP_N), dtype=dtype, device=d)
+    q = heston.price_carr_madan(fourier_params(torch, d, dtype, "heston"), ks,
+                                torch.tensor(0.5, dtype=dtype, device=d), S0, 0.03, 0.01,
+                                is_call=ks > fwd)
+    return ks, q, fwd
+
+
+def phase_varswap_strip(torch, dev, reps=50):
+    """bench_full.py:305-317: ``strip_variance`` on the 1024-quote chain,
+    float32, held at 1e-6 relative against float64 on the CPU of the same
+    quotes (the row times the strip, not the pricing of its quotes; the
+    float32 chain's own distance from the float64 chain is printed)."""
+    from pde_tpu_torch.models import varswap
+
+    cpu = torch.device("cpu")
+    ks, q, fwd = strip_chain(torch, dev, torch.float32)
+    fn = lambda: varswap.strip_variance(ks, q, fwd, 0.5, 0.03)  # noqa: E731
+    card = float(fn())
+    ref = float(varswap.strip_variance(ks.cpu().double(), q.cpu().double(), fwd, 0.5, 0.03))
+    ref_chain = float(varswap.strip_variance(*strip_chain(torch, cpu, torch.float64), 0.5,
+                                             0.03))
+    rel = abs(card - ref) / abs(ref)
+    per_call_ms = time_ms(torch, fn, reps)
+    ok = rel <= STRIP_REL
+    emit(phase="varswap_strip", dtype="float32", n=STRIP_N, strip_variance=card,
+         rel_vs_cpu_f64_same_quotes=rel, gate=STRIP_REL,
+         rel_vs_cpu_f64_chain=abs(card - ref_chain) / abs(ref_chain),
+         per_call_ms=per_call_ms, varswap_strip_evals_per_sec=1.0 / (per_call_ms * 1e-3),
+         ok=ok)
+    if not ok:
+        raise AssertionError("varswap_strip_evals_per_sec missed its gate")
+
+
+def phase_volswap(torch, dev, reps=50):
+    """bench_full.py:318-320: ``fair_volatility_strike`` on the Bates set at
+    T = 0.5 (128 nodes), float32, held at 1e-6 relative against float64 on
+    the CPU."""
+    from pde_tpu_torch.models import varswap
+
+    cpu = torch.device("cpu")
+    p32 = fourier_params(torch, dev, torch.float32, "bates")
+    T32 = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    fn = lambda: varswap.fair_volatility_strike(p32, T32)  # noqa: E731
+    card = float(fn())
+    ref = float(varswap.fair_volatility_strike(
+        fourier_params(torch, cpu, torch.float64, "bates"), torch.tensor(0.5, dtype=torch.float64)))
+    rel = abs(card - ref) / abs(ref)
+    per_call_ms = time_ms(torch, fn, reps)
+    ok = rel <= VOLSWAP_REL
+    emit(phase="volswap", dtype="float32", strike=card, rel_vs_cpu_f64=rel, gate=VOLSWAP_REL,
+         per_call_ms=per_call_ms, volswap_exact_strike_s=per_call_ms * 1e-3, ok=ok)
+    if not ok:
+        raise AssertionError("volswap_exact_strike_s missed its gate")
+
+
+def two_asset_book(torch, d, dtype):
+    """bench_full.py:322-347: 4096 strikes in [-15, 25] against 8
+    correlations in [-0.5, 0.9], tiled."""
+    import numpy as np
+
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=d)  # noqa: E731
+    return (t(np.linspace(-15.0, 25.0, TWO_ASSET_N)),
+            t(np.tile(np.linspace(-0.5, 0.9, 8), TWO_ASSET_N // 8)))
+
+
+TWO_ASSET = dict(spot1=100.0, spot2=96.0, maturity=0.9, vol1=0.25, vol2=0.35, rate=0.03,
+                 div1=0.01, div2=0.02)
+
+
+def phase_spread_quad(torch, dev, reps=50):
+    """bench_full.py:322-339: ``spread_price_quad`` (128 nodes) over the
+    4096 (K, rho) quotes in one call."""
+    from pde_tpu_torch.models import multi_asset
+
+    ks, rho = two_asset_book(torch, dev, torch.float32)
+    ks64, rho64 = two_asset_book(torch, torch.device("cpu"), torch.float64)
+    pricing_row(torch, dev, "spread_quad_prices_per_sec", TWO_ASSET_N,
+                lambda: multi_asset.spread_price_quad(strike=ks, rho=rho, **TWO_ASSET),
+                multi_asset.spread_price_quad(strike=ks64, rho=rho64, **TWO_ASSET), reps)
+
+
+def phase_rainbow(torch, dev, reps=50):
+    """bench_full.py:341-347: ``rainbow_two_asset_price(kind="call_on_min")``
+    over the same 4096 quotes, strikes |K| + 80, in one call."""
+    from pde_tpu_torch.models import multi_asset
+
+    ks, rho = two_asset_book(torch, dev, torch.float32)
+    ks64, rho64 = two_asset_book(torch, torch.device("cpu"), torch.float64)
+    pricing_row(torch, dev, "rainbow_stulz_prices_per_sec", TWO_ASSET_N,
+                lambda: multi_asset.rainbow_two_asset_price(
+                    strike=ks.abs() + 80.0, rho=rho, kind="call_on_min", **TWO_ASSET),
+                multi_asset.rainbow_two_asset_price(
+                    strike=ks64.abs() + 80.0, rho=rho64, kind="call_on_min", **TWO_ASSET),
+                reps)
+
+
+FOURIER_PHASES = (phase_bates_pricing, phase_digital_pricing, phase_forward_start,
+                  phase_rough_smile, phase_rough_calibration, phase_varswap_strip,
+                  phase_volswap, phase_spread_quad, phase_rainbow)
 
 
 def timed_walls(torch, dev, fn, reps):
@@ -2133,6 +2405,40 @@ def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path, extra=
     return out
 
 
+def fourier_profile_rows(torch, dev):
+    """One call of each Fourier-priced row, float32 on the card."""
+    from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
+    from pde_tpu_torch.models import bates, digital, forward_start, multi_asset, varswap
+
+    f32 = torch.float32
+    _, K, t_idx, uT = pricing_book(torch, dev, f32)
+    hp, bp = (fourier_params(torch, dev, f32, w) for w in ("heston", "bates"))
+    k_fs = torch.linspace(0.7, 1.3, FS_N, device=dev)
+    ks, q, fwd = strip_chain(torch, dev, f32)
+    k2, rho2 = two_asset_book(torch, dev, f32)
+    data = RoughHestonCalibrator.generate_synthetic_surface(n_steps=96, device=dev, dtype=f32)
+    rcal = RoughHestonCalibrator(n_steps=96, max_iter=40, device=dev, dtype=f32)
+    T32 = torch.tensor(0.5, device=dev)
+    return {
+        "bates_pricing_grouped_8192": lambda: bates.price_carr_madan_gl_grouped(
+            bp, K, t_idx, uT, S0, R, Q),
+        "digital_pricing_grouped_8192": lambda: digital.price_grouped(
+            hp, K, t_idx, uT, S0, R, Q),
+        "forward_start_smile256": lambda: forward_start.price_forward_start(
+            hp, k_fs, 0.5, 1.0, rate=R, dividend=Q),
+        "rough_heston_smile64": lambda: rough_smile(torch, dev, f32),
+        "rough_heston_surface_calibration": lambda: rcal.calibrate(
+            data["strikes"], data["maturities"], data["mid_prices"], data["S0"], data["r"],
+            data["q"]),
+        "varswap_strip_1024": lambda: varswap.strip_variance(ks, q, fwd, 0.5, 0.03),
+        "volswap_exact_strike": lambda: varswap.fair_volatility_strike(bp, T32),
+        "spread_quad_4096": lambda: multi_asset.spread_price_quad(
+            strike=k2, rho=rho2, **TWO_ASSET),
+        "rainbow_stulz_4096": lambda: multi_asset.rainbow_two_asset_price(
+            strike=k2.abs() + 80.0, rho=rho2, kind="call_on_min", **TWO_ASSET),
+    }
+
+
 def profile_rows(torch, dev, interp, top=4):
     """One warm call of each row under ``torch.profiler``: the call's wall,
     the card's busy time (device time of its kernels), the idle share and
@@ -2198,8 +2504,12 @@ def profile_rows(torch, dev, interp, top=4):
         "heston_pricing_grouped_8192": lambda: heston.price_carr_madan_grouped(
             *pricing, S0, R, Q),
         "heston_calibrate_batch_16": lambda: calibrator.calibrate_batch(*cal_book, R, Q),
+        **fourier_profile_rows(torch, dev),
     }
+    only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
+        if only and not any(name.startswith(o) for o in only):
+            continue
         wall, dev_us = profiled(torch, dev, fn)
         busy = sum(dev_us.values()) * 1e-6
         emit(phase="profile", row=name, wall_s=wall, device_busy_s=busy,
@@ -2283,9 +2593,11 @@ def main() -> None:
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         k5_inputs.path = k6_inputs.path = fn.__name__
+        t0 = time.perf_counter()
         out = fn(*args)
         counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-        emit(phase="launches", path=fn.__name__, counts={k: n for k, n in counts.items() if n})
+        emit(phase="launches", path=fn.__name__, seconds=time.perf_counter() - t0,
+             counts={k: n for k, n in counts.items() if n})
         missing = [k for k in needs if counts[k] == 0]
         if missing:
             raise AssertionError(f"{fn.__name__} never launched {missing}")
@@ -2294,7 +2606,7 @@ def main() -> None:
     path(phase_calibration, torch, dev, torch.float32)
     # the Heston pricing and batched calibration rows launch no kernel, and
     # their launch lines must say so
-    for fn in (phase_heston_extras, phase_calibrate_batch):
+    for fn in (phase_heston_extras, phase_calibrate_batch, *FOURIER_PHASES):
         counts = path(fn, torch, dev)[0]
         if any(counts.values()):
             raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")

@@ -10,16 +10,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.bates import BatesParams
+from .models.forward_start import ForwardStartParams
 from .models.heston import HestonParams
 from .models.local_vol import SurfaceInterpolator
 from .models.ou import OUParams
+from .models.rough_heston import RoughHestonParams
 from .models.sabr import SABRParams
+from .models.svcj import SVCJParams
+from .models.term_heston import TermHestonParams
 from .solvers.bs_pde import BSPDEParams
 from .solvers.heston_adi import HestonPDEParams
 from .solvers.hjb import HJBParams, StoppingProblem
 
 __all__ = ["tensor", "heston_params", "sabr_params", "ou_params", "quotes", "grouping",
-           "surface_interpolator", "heston_pde_params", "bs_pde_params", "hjb_params"]
+           "surface_interpolator", "heston_pde_params", "bs_pde_params", "hjb_params",
+           "bates_params", "svcj_params", "term_heston_params", "forward_start_params",
+           "rough_heston_params"]
 
 
 def tensor(x, device="cpu", dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -33,6 +40,41 @@ def heston_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> Heston
     package's ``HestonParams``) as the port's, field by field."""
     return HestonParams(*(tensor(getattr(p, k), device, dtype)
                           for k in HestonParams._fields))
+
+
+def _fields(cls, p, device, dtype):
+    """A parameter record as the port's ``cls``, field by field, each field
+    (number or array) a tensor of ``dtype`` on ``device``."""
+    return cls(*(tensor(getattr(p, k), device, dtype) for k in cls._fields))
+
+
+def bates_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> BatesParams:
+    """The JAX package's ``bates.BatesParams`` as the port's."""
+    return _fields(BatesParams, p, device, dtype)
+
+
+def svcj_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> SVCJParams:
+    """The JAX package's ``svcj.SVCJParams`` as the port's."""
+    return _fields(SVCJParams, p, device, dtype)
+
+
+def term_heston_params(p, device="cpu",
+                       dtype: torch.dtype = torch.float64) -> TermHestonParams:
+    """The JAX package's ``term_heston.TermHestonParams`` (edges and the
+    per-interval arrays included) as the port's."""
+    return _fields(TermHestonParams, p, device, dtype)
+
+
+def forward_start_params(p, device="cpu",
+                         dtype: torch.dtype = torch.float64) -> ForwardStartParams:
+    """The JAX package's ``forward_start.ForwardStartParams`` as the port's."""
+    return _fields(ForwardStartParams, p, device, dtype)
+
+
+def rough_heston_params(p, device="cpu",
+                        dtype: torch.dtype = torch.float64) -> RoughHestonParams:
+    """The JAX package's ``rough_heston.RoughHestonParams`` as the port's."""
+    return _fields(RoughHestonParams, p, device, dtype)
 
 
 def sabr_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> SABRParams:

@@ -873,3 +873,138 @@ def test_new_entry_points_on_plain_numbers_run_on_the_card(name):
         assert out["model_prices"].dtype == np.float32
         return
     assert calls[name]().device == torch.device("cuda", 0)
+
+
+# -- the Fourier-priced models (no kernel): float32 on the card against
+#    float64 on the CPU, and plain numbers landing on cuda:0
+
+_FOURIER_PARAMS = {
+    "heston": (2.0, 0.04, 0.3, -0.7, 0.04),
+    "bates": (2.0, 0.04, 0.3, -0.7, 0.04, 0.6, -0.08, 0.18),
+    "svcj": (2.0, 0.04, 0.3, -0.7, 0.04, 0.5, -0.1, 0.15, 0.05, -0.5),
+    "rough": (0.1, 2.0, 0.04, 0.3, -0.7, 0.04),
+}
+
+
+def _fourier(which, dtype=torch.float64, device="cpu"):
+    from pde_tpu_torch.models import bates, heston, rough_heston, svcj
+
+    cls = {"heston": heston.HestonParams, "bates": bates.BatesParams,
+           "svcj": svcj.SVCJParams, "rough": rough_heston.RoughHestonParams}[which]
+    return cls(*(torch.tensor(v, dtype=dtype, device=device)
+                 for v in _FOURIER_PARAMS[which]))
+
+
+def _fourier_calls(name):
+    """(fn(params, t), params kind, atol, rtol): ``t`` makes a tensor of the
+    call's dtype and device."""
+    from pde_tpu_torch.models import (digital, forward_start, heston, multi_asset,
+                                      rough_heston, term_heston, varswap, vix)
+
+    K = np.linspace(80.0, 120.0, 9)
+    T = np.array([0.1, 0.25, 0.5, 1.0, 1.5, 0.5, 0.25, 2.0, 1.0])
+    return {
+        "bates.price_carr_madan_gl": (lambda p, t: heston.price_carr_madan_gl(
+            p, t(K), t(T), 100.0, 0.05, 0.02), "bates", 1e-5, 1e-4),
+        "svcj.price_accurate": (lambda p, t: heston.price_accurate(
+            p, t(K), t(T), 100.0, 0.05, 0.02), "svcj", 1e-5, 1e-4),
+        "term_heston.price_term_heston": (lambda p, t: term_heston.price_term_heston(
+            term_heston.make_term_params([0.0, 0.5, 2.0], t([2.0, 1.0]), [0.04, 0.06],
+                                         [0.3, 0.5], [-0.7, -0.4], 0.04),
+            t(K), t(1.2), 100.0, 0.05, 0.02), "heston", 1e-5, 1e-4),
+        "forward_start.price_cliquet_strip": (
+            lambda p, t: forward_start.price_cliquet_strip(p, t(1.0), n_periods=4),
+            "heston", 1e-5, 1e-4),
+        "digital.price": (lambda p, t: digital.price(p, t(K), t(T), 100.0, 0.05, 0.02,
+                                                     kind="asset"), "bates", 1e-4, 1e-5),
+        # the vol-swap row's 1e-6, with Bates' and with SVCJ's jump-QV hooks
+        "varswap.fair_volatility_strike": (
+            lambda p, t: varswap.fair_volatility_strike(p, t(0.5)), "bates", 0.0, 1e-6),
+        "varswap.fair_volatility_strike(svcj)": (
+            lambda p, t: varswap.fair_volatility_strike(p, t(0.5)), "svcj", 0.0, 1e-6),
+        "varswap.volatility_convexity_approx": (
+            lambda p, t: varswap.volatility_convexity_approx(p, t(0.5)), "bates", 0.0, 1e-5),
+        "vix.vix_option": (lambda p, t: vix.vix_option(p, t(np.linspace(15.0, 30.0, 7)),
+                                                       t(0.5), 0.02), "bates", 1e-4, 1e-4),
+        "vix.vix_futures_term": (lambda p, t: vix.vix_futures_term(p, t([0.1, 0.5, 1.0])),
+                                 "heston", 0.0, 1e-5),
+        "rough_heston.price_rough": (lambda p, t: rough_heston.price_rough(
+            p, t(np.tile(K, (2, 1))), t([0.1, 0.5]), 100.0, 0.05, 0.02, n_steps=32),
+            "rough", 1e-4, 1e-4),
+        "multi_asset.spread_price_quad": (lambda p, t: multi_asset.spread_price_quad(
+            100.0, 96.0, t(np.linspace(-15.0, 25.0, 16)), 0.9, 0.25, 0.35,
+            t(np.tile(np.linspace(-0.5, 0.9, 8), 2)), 0.03, 0.01, 0.02), None, 1e-5, 1e-4),
+    }[name]
+
+
+_FOURIER_NAMES = ["bates.price_carr_madan_gl", "svcj.price_accurate",
+                  "term_heston.price_term_heston", "forward_start.price_cliquet_strip",
+                  "digital.price", "varswap.fair_volatility_strike",
+                  "varswap.fair_volatility_strike(svcj)",
+                  "varswap.volatility_convexity_approx", "vix.vix_option",
+                  "vix.vix_futures_term", "rough_heston.price_rough",
+                  "multi_asset.spread_price_quad"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _FOURIER_NAMES)
+def test_fourier_model_float32_on_card_matches_cpu_float64(name):
+    _need_cuda()
+    fn, kind, atol, rtol = _fourier_calls(name)
+    out = {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        t = lambda a, dev=dev, dt=dt: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+        out[dev] = fn(_fourier(kind, dt, dev) if kind else None, t)
+    assert out["cuda"].device.type == "cuda" and out["cuda"].dtype == torch.float32
+    np.testing.assert_allclose(out["cuda"].cpu().double().numpy(), out["cpu"].numpy(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bates", "digital", "forward_start", "term_heston",
+                                  "varswap", "vix", "rough", "multi_asset",
+                                  "BatesCalibrator", "RoughHestonCalibrator"])
+def test_fourier_entry_points_on_plain_numbers_run_on_the_card(name):
+    _need_cuda()
+    from pde_tpu_torch.calibrate.bates import BatesCalibrator
+    from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
+    from pde_tpu_torch.models import (bates, digital, forward_start, multi_asset,
+                                      rough_heston, term_heston, varswap, vix)
+
+    plain = _FOURIER_PARAMS
+    calls = {
+        "bates": lambda: bates.price_accurate(bates.BatesParams(*plain["bates"]), 100.0,
+                                              1.0, 100.0),
+        "digital": lambda: digital.price(bates.BatesParams(*plain["bates"]), 100.0, 1.0,
+                                         100.0),
+        "forward_start": lambda: forward_start.price_forward_start(
+            bates.BatesParams(*plain["bates"]).heston(), 1.0, 0.5, 1.0),
+        "term_heston": lambda: term_heston.make_term_params(
+            [0.0, 1.0], [2.0], [0.04], [0.3], [-0.7], 0.04).edges,
+        "varswap": lambda: varswap.fair_variance_strike(bates.BatesParams(*plain["bates"]),
+                                                        1.0),
+        "vix": lambda: vix.vix_spot(bates.BatesParams(*plain["bates"])),
+        "rough": lambda: rough_heston.price_rough(
+            rough_heston.RoughHestonParams(*plain["rough"]), 100.0, 0.5, 100.0, n_steps=8),
+        "multi_asset": lambda: multi_asset.rainbow_two_asset_price(
+            100.0, 96.0, 100.0, 0.9, 0.25, 0.35, 0.5),
+        "BatesCalibrator": lambda: torch.empty(0, device=BatesCalibrator().device),
+        "RoughHestonCalibrator": lambda: RoughHestonCalibrator()._start(None, None),
+    }
+    assert calls[name]().device == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_rough_calibration_on_card_recovers_its_surface():
+    """Float32 on the card at a small size: the fit recovers the generator
+    (bench_full.py's gate rmse < 5e-3)."""
+    _need_cuda()
+    from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
+
+    data = RoughHestonCalibrator.generate_synthetic_surface(maturities=(0.1, 0.5),
+                                                            n_steps=24)
+    res = RoughHestonCalibrator(n_steps=24, max_iter=20).calibrate(
+        data["strikes"], data["maturities"], data["mid_prices"], data["S0"], data["r"],
+        data["q"])
+    assert res.rmse < 5e-3
+    assert abs(res.params.hurst - 0.15) < 0.02

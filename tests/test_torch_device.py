@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from pde_tpu_torch.calibrate.bates import BatesCalibrator
 from pde_tpu_torch.calibrate.heston import HestonCalibrator, parameter_sensitivities
+from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
 from pde_tpu_torch.calibrate.sabr import SABRCalibrator
 from pde_tpu_torch.core import grids, precision
-from pde_tpu_torch.models import black_scholes, heston, local_vol, sabr
+from pde_tpu_torch.models import (bates, black_scholes, digital, forward_start, heston,
+                                  local_vol, multi_asset, rough_heston, sabr, svcj,
+                                  term_heston, varswap, vix)
 from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
 
 
@@ -28,6 +32,9 @@ def _flat(s, t):
 
 _HP = heston_adi.HestonPDEParams(n_spot=8, n_vol=5, n_time=2)
 _HESTON = heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04)
+_BATES = bates.BatesParams(2.0, 0.04, 0.3, -0.7, 0.04, 0.5, -0.1, 0.15)
+_SVCJ = svcj.SVCJParams(2.0, 0.04, 0.3, -0.7, 0.04, 0.5, -0.1, 0.15, 0.05, -0.5)
+_ROUGH = rough_heston.RoughHestonParams(0.1, 2.0, 0.04, 0.3, -0.7, 0.04)
 _BOOK = (np.full((2, 4), 100.0), np.full((2, 4), 1.0), np.full((2, 4), 10.0),
          np.full(2, 100.0), 0.05, 0.02)
 
@@ -82,6 +89,45 @@ ENTRY_POINTS = {
         global_maxiter=1, global_popsize=2, local_max_iter=1).calibrate_batch(*_BOOK),
     "parameter_sensitivities": lambda: parameter_sensitivities(
         _HESTON, [90.0, 110.0], [1.0, 1.0], [True, True], [15.0, 5.0], 100.0, 0.05),
+    # the Fourier-priced models: plain numbers take the card
+    "bates.price_accurate": lambda: bates.price_accurate(_BATES, 100.0, 1.0, 100.0),
+    "bates.to_array": lambda: _BATES.to_array(),
+    "svcj.price_carr_madan_gl": lambda: svcj.price_carr_madan_gl(_SVCJ, 100.0, 1.0, 100.0),
+    "svcj.mean_jump": lambda: _SVCJ.mean_jump(),
+    "term_heston.make_term_params": lambda: term_heston.make_term_params(
+        [0.0, 1.0], [2.0], [0.04], [0.3], [-0.7], 0.04),
+    "forward_start.price_forward_start": lambda: forward_start.price_forward_start(
+        _HESTON, 1.0, 0.5, 1.0),
+    "forward_start.price_cliquet_strip": lambda: forward_start.price_cliquet_strip(
+        _HESTON, 1.0, n_periods=2),
+    "digital.price": lambda: digital.price(_HESTON, 100.0, 1.0, 100.0),
+    "digital.price_grouped": lambda: digital.price_grouped(
+        _HESTON, [100.0], [0], [1.0], 100.0),
+    "varswap.fair_variance_strike": lambda: varswap.fair_variance_strike(_HESTON, 1.0),
+    "varswap.fair_volatility_strike": lambda: varswap.fair_volatility_strike(_BATES, 0.5),
+    "varswap.strip_variance": lambda: varswap.strip_variance(
+        [80.0, 100.0, 120.0], [1.0, 2.0, 1.0], 100.0, 0.5, 0.03),
+    "varswap.strip_jump_bias": lambda: varswap.strip_jump_bias(_HESTON),
+    "vix.vix_futures": lambda: vix.vix_futures(_HESTON, 0.5),
+    "vix.vix_option": lambda: vix.vix_option(_HESTON, 20.0, 0.5),
+    "vix.vix_futures_term": lambda: vix.vix_futures_term(_HESTON, [0.1, 0.5]),
+    "rough_heston.cf_reduced_rough": lambda: rough_heston.cf_reduced_rough(
+        _ROUGH, [0.5], 1.0, n_steps=4),
+    "rough_heston.price_rough": lambda: rough_heston.price_rough(
+        _ROUGH, [100.0], 1.0, 100.0, n_steps=4),
+    "multi_asset.spread_price_quad": lambda: multi_asset.spread_price_quad(
+        100.0, 96.0, 5.0, 0.9, 0.25, 0.35, 0.5),
+    "multi_asset.rainbow_two_asset_price": lambda: multi_asset.rainbow_two_asset_price(
+        100.0, 96.0, 100.0, 0.9, 0.25, 0.35, 0.5),
+    "multi_asset.bivariate_norm_cdf": lambda: multi_asset.bivariate_norm_cdf(0.1, 0.2, 0.3),
+    "multi_asset.implied_correlation": lambda: multi_asset.implied_correlation(
+        5.0, 100.0, 96.0, 5.0, 0.9, 0.25, 0.35),
+    "BatesCalibrator": lambda: BatesCalibrator(),
+    "BatesCalibrator.generate_synthetic_data": lambda: (
+        BatesCalibrator.generate_synthetic_data(n_strikes=3, n_maturities=2)),
+    "RoughHestonCalibrator": lambda: RoughHestonCalibrator(),
+    "RoughHestonCalibrator.generate_synthetic_surface": lambda: (
+        RoughHestonCalibrator.generate_synthetic_surface(n_steps=4)),
 }
 
 
@@ -111,3 +157,19 @@ def test_model_functions_follow_their_inputs(no_card):
     p = heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04)
     price = heston.price_accurate_gl(p, torch.tensor([100.0]), torch.tensor([1.0]), 100.0)
     assert price.device.type == "cpu"
+
+
+def test_fourier_models_follow_their_inputs(no_card):
+    """The Fourier-priced models on CPU tensors stay on the CPU, as their
+    plain-number calls above go to the card."""
+    cpu = torch.tensor(1.0, dtype=torch.float64)
+    p = bates.BatesParams(*(cpu * v for v in (2.0, 0.04, 0.3, -0.7, 0.04, 0.5, -0.1, 0.15)))
+    assert varswap.fair_volatility_strike(p, cpu * 0.5).device.type == "cpu"
+    assert vix.vix_futures(p, cpu * 0.5).device.type == "cpu"
+    assert digital.price(p, cpu * 100.0, cpu, 100.0).device.type == "cpu"
+    r = rough_heston.RoughHestonParams(*(cpu * v for v in (0.1, 2.0, 0.04, 0.3, -0.7, 0.04)))
+    assert rough_heston.price_rough(r, cpu * 100.0, cpu, 100.0, n_steps=4).device.type == "cpu"
+    assert multi_asset.spread_price_quad(100.0, 96.0, cpu * 5.0, 0.9, 0.25, 0.35,
+                                         0.5).device.type == "cpu"
+    assert term_heston.make_term_params([0.0, 1.0], cpu[None] * 2.0, [0.04], [0.3], [-0.7],
+                                        0.04).kappa.device.type == "cpu"
