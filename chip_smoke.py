@@ -74,7 +74,15 @@ checks every result:
    card's complex64 ``log1p``), the 64-strike rough-Heston smile (at twice
    the CPU's own float32 error), the rough-Heston surface calibration
    (rmse < 5e-3), the 1024-quote variance strip and the vol-swap strike
-   (1e-6 relative), and the 4096-quote spread and Stulz rainbow books;
+   (1e-6 relative), and the 4096-quote spread and Stulz rainbow books; and
+   bench_full.py's rates and credit rows: the 256-swaption Hull-White and
+   128-swaption G2++ panels (one broadcast call each, within 1e-7 + 1e-4
+   |p| of the port's float64 on the CPU, or twice the CPU's own float32
+   error where that is larger), the 16-caplet Hull-White fit (rmse <=
+   1e-4, sigma within 1%), the 4-swaption G2++ fit (rmse <= 1e-3), the
+   5-pillar CDS bootstrap (hazards positive, repriced within 5e-4, within
+   1e-4 of float64 on the CPU), and one daily orchestrator run with the
+   rates, G2++ and credit stages, which must end in SUCCESS with no error;
 5. fused-ADI book: 512 options at 100x50x100 through
    ``heston_adi.solve_fused_batch``, checked against the converged
    Carr-Madan price;
@@ -150,7 +158,8 @@ repository root with no arguments:
 one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
 ``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls, of the
 OU and HJB rows, of the 8192-option grouped pricing, of the 16-surface
-``calibrate_batch`` and of the nine Fourier-priced rows under
+``calibrate_batch``, of the nine Fourier-priced rows and of the five rates
+and credit rows under
 ``torch.profiler``: wall, the card's busy time
 and idle share, and the kernels that took most of the device time.  Row
 names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
@@ -233,6 +242,21 @@ BATES = (2.0, 0.04, 0.3, -0.7, 0.04, 0.6, -0.08, 0.18)
 ROUGH, ROUGH_STEPS = (0.1, 2.0, 0.04, 0.3, -0.7, 0.04), 192
 FS_N, STRIP_N, TWO_ASSET_N = 256, 1024, 4096
 DIGITAL_ATOL, STRIP_REL, VOLSWAP_REL, LOG1P_ATOL = 1e-5, 1e-6, 1e-6, 1e-6
+# the rates and credit rows (bench_full.py:425-552), float32 on the card: the
+# 6-pillar zero curve, HW(a 0.1, sigma 0.012), G2(0.5, 0.05, 0.01, 0.008,
+# -0.6); 256 (HW) and 128 (G2) expiries in [0.5, 10] each into a 5-year
+# semi-annual swap at its par strike; the panels within 1e-7 + 1e-4 |p| of
+# the port's float64 on the CPU (or twice the CPU's own float32 error when
+# that is larger); the CDS pillars and spreads; the bootstrap's repricing
+# within 5e-4 relative, its hazards within 1e-4 relative of float64 on the
+# CPU
+RATES_TIMES = (0.5, 1.0, 2.0, 5.0, 10.0, 30.0)
+RATES_ZEROS = (0.030, 0.032, 0.035, 0.040, 0.042, 0.043)
+HW, G2 = (0.1, 0.012), (0.5, 0.05, 0.01, 0.008, -0.6)
+HW_PANEL_N, G2_PANEL_N = 256, 128
+PANEL_ATOL, PANEL_RTOL = 1e-7, 1e-4
+CDS_PILLARS, CDS_SPREADS = (1.0, 3.0, 5.0, 7.0, 10.0), (0.008, 0.011, 0.013, 0.014, 0.015)
+CDS_REPRICE_REL, CDS_HAZARD_REL = 5e-4, 1e-4
 # the card's peaks (H100 SXM data sheet): float32 outside the tensor cores
 # and HBM bandwidth; a kernel's bound is the larger of its operations over
 # the one and its bytes over the other
@@ -1097,9 +1121,231 @@ FOURIER_PHASES = (phase_bates_pricing, phase_digital_pricing, phase_forward_star
                   phase_volswap, phase_spread_quad, phase_rainbow)
 
 
+def rates_curve(torch, d, dtype):
+    """bench_full.py:425-428's zero curve on ``d`` in ``dtype``."""
+    from pde_tpu_torch.models import rates
+
+    t = lambda a: torch.tensor(a, dtype=dtype, device=d)  # noqa: E731
+    return rates.curve_from_zero_rates(t(RATES_TIMES), t(RATES_ZEROS))
+
+
+def swaption_panel(torch, d, dtype, model, n, **kw):
+    """bench_full.py:431-441 (HW) and 493-505 (G2): ``n`` expiries in [0.5,
+    10], each into 10 semi-annual pay dates at its par strike, priced as one
+    broadcast panel (expiries (n,), pay dates (n, 10)); the par strikes are
+    part of the timed call, as in the bench."""
+    from pde_tpu_torch.models import g2, rates
+
+    curve = rates_curve(torch, d, dtype)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=d)  # noqa: E731
+    ex = torch.linspace(0.5, 10.0, n, dtype=dtype, device=d)
+    pay = ex[:, None] + torch.arange(1, 11, dtype=dtype, device=d) * 0.5
+    if model == "hw":
+        p = rates.HullWhiteParams(*map(t, HW), curve)
+        return lambda: rates.hw_swaption(p, rates.hw_swap_rate(curve, ex, pay), ex, pay)
+    p = g2.G2Params(*map(t, G2), curve)
+    return lambda: g2.g2_swaption(p, rates.hw_swap_rate(curve, ex, pay), ex, pay, **kw)
+
+
+def panel_phase(torch, dev, row, model, n, reps, **kw):
+    """Time the panel on the card (median of ``reps`` warm calls) and hold
+    it against the port's float64 run on the CPU: at 1e-7 + 1e-4 |p|, or at
+    twice the CPU's own float32 error where that error is larger."""
+    cpu = torch.device("cpu")
+    ref = swaption_panel(torch, cpu, torch.float64, model, n, **kw)()
+    cpu32 = swaption_panel(torch, cpu, torch.float32, model, n, **kw)().double()
+    card, walls = timed_walls(torch, dev, swaption_panel(torch, dev, torch.float32, model, n,
+                                                         **kw), reps)
+    limit = PANEL_ATOL + PANEL_RTOL * ref.abs()
+    err = (card.cpu().double() - ref).abs()
+    cpu_err = (cpu32 - ref).abs()
+    if bool((cpu_err <= limit).all()):
+        gate, ok = f"{PANEL_ATOL} + {PANEL_RTOL} |p|", bool((err <= limit).all())
+    else:
+        gate = "2 x cpu f32 error"
+        ok = float(err.max()) <= 2.0 * float(cpu_err.max())
+    ok = ok and bool(torch.isfinite(card).all()) and bool((card > 0).all())
+    per = statistics.median(walls)
+    emit(phase=row, dtype="float32", n=n, gate=gate, max_abs_vs_cpu_f64=float(err.max()),
+         max_over_limit=float((err / limit).max()),
+         cpu_f32_max_abs_vs_cpu_f64=float(cpu_err.max()), median_call_s=per,
+         **{row: n / per}, ok=ok)
+    if not ok:
+        raise AssertionError(f"{row} missed its gate")
+
+
+def phase_hw_swaption_panel(torch, dev, reps=50):
+    """bench_full.py:431-441: 256 Jamshidian swaptions, median of 50."""
+    panel_phase(torch, dev, "hw_swaption_panel_prices_per_sec", "hw", HW_PANEL_N, reps)
+
+
+def phase_g2_swaption_panel(torch, dev, reps=20):
+    """bench_full.py:493-505: 128 G2++ swaptions at 64 Gauss-Hermite
+    nodes, median of 20."""
+    panel_phase(torch, dev, "g2_swaption_panel_prices_per_sec", "g2", G2_PANEL_N, reps,
+                n_gh=64)
+
+
+def hw_caplet_desk(torch, d, dtype):
+    """bench_full.py:443-456: 16 ATM caplets, starts 0.5-8.0, each 0.5 long,
+    quoted by HW(0.1, 0.012)."""
+    from pde_tpu_torch.models import rates
+
+    curve = rates_curve(torch, d, dtype)
+    starts = torch.arange(1, 17, dtype=dtype, device=d) * 0.5
+    ends = starts + 0.5
+    ks = curve.forward(starts, ends)
+    hw = rates.HullWhiteParams(*(torch.tensor(v, dtype=dtype, device=d) for v in HW), curve)
+    return curve, starts, ends, ks, rates.hw_caplet(hw, ks, starts, ends)
+
+
+def phase_hw_caplet_calibration(torch, dev, timed_runs=5):
+    """bench_full.py:443-456: ``HullWhiteCalibrator(max_iter=60)`` on the
+    16-caplet strip, one warm fit, then the mean of 5; rmse <= 1e-4 and
+    sigma within 1% of 0.012."""
+    from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
+
+    desk = hw_caplet_desk(torch, dev, torch.float32)
+    cal = HullWhiteCalibrator(max_iter=60, device=dev, dtype=torch.float32)
+    res, walls = timed_walls(torch, dev, lambda: cal.calibrate_caplets(*desk), timed_runs)
+    a, sigma = float(res.params.a), float(res.params.sigma)
+    ok = res.rmse <= 1e-4 and abs(sigma / HW[1] - 1.0) <= 0.01
+    emit(phase="hw_caplet_calibration", dtype="float32", n_caplets=16, max_iter=60,
+         rmse=res.rmse, max_rel_error=res.max_rel_error, a=a, sigma=sigma,
+         converged=res.converged, n_iter=res.n_iter, gate="rmse <= 1e-4, sigma within 1%",
+         wall_s_runs=walls, hw_caplet_calibration_wall_s=statistics.mean(walls), ok=ok)
+    if not ok:
+        raise AssertionError("hw_caplet_calibration_wall_s missed its gate")
+
+
+def g2_swaption_desk(torch, d, dtype, truth=G2, n_gh=64):
+    """bench_full.py:507-517 (and tests/test_calibrate.py:440-452 with its
+    own truth): 4 swaptions, expiries 1, 2, 3, 5, each paying e + 0.5 ...
+    e + 3, at their par strikes, quoted by G2 ``truth``."""
+    import numpy as np
+
+    from pde_tpu_torch.models import g2, rates
+
+    curve = rates_curve(torch, d, dtype)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=d)  # noqa: E731
+    exps = [1.0, 2.0, 3.0, 5.0]
+    pts = [t(np.arange(e + 0.5, e + 3.01, 0.5)) for e in exps]
+    ks = [float(rates.hw_swap_rate(curve, e, pt)) for e, pt in zip(exps, pts)]
+    p = g2.G2Params(*map(t, truth), curve)
+    quotes = torch.stack([g2.g2_swaption(p, k, e, pt, n_gh=n_gh)
+                          for e, pt, k in zip(exps, pts, ks)])
+    return curve, exps, pts, ks, quotes
+
+
+def phase_g2_swaption_calibration(torch, dev, timed_runs=3):
+    """bench_full.py:507-521: ``G2Calibrator(max_iter=60)`` on the 4-swaption
+    panel, the mean of 3 fits; rmse <= 1e-3 (the five parameters are
+    under-identified by 4 quotes, tests/test_g2.py:164-167), after one warm
+    fit as every row."""
+    from pde_tpu_torch.calibrate.g2 import G2Calibrator
+
+    desk = g2_swaption_desk(torch, dev, torch.float32)
+    cal = G2Calibrator(max_iter=60, device=dev, dtype=torch.float32)
+    res, walls = timed_walls(torch, dev, lambda: cal.calibrate_swaptions(*desk), timed_runs)
+    ok = res.rmse <= 1e-3
+    emit(phase="g2_swaption_calibration", dtype="float32", n_swaptions=4, max_iter=60,
+         rmse=res.rmse, max_rel_error=res.max_rel_error,
+         params=[float(v) for v in res.params[:5]], converged=res.converged,
+         n_iter=res.n_iter, gate="rmse <= 1e-3", wall_s_runs=walls,
+         g2_swaption_calibration_wall_s=statistics.mean(walls), ok=ok)
+    if not ok:
+        raise AssertionError("g2_swaption_calibration_wall_s missed its gate")
+
+
+def cds_bootstrap(torch, d, dtype):
+    from pde_tpu_torch.models import credit
+
+    curve = rates_curve(torch, d, dtype)
+    spreads = torch.tensor(CDS_SPREADS, dtype=dtype, device=d)
+    return curve, lambda: credit.bootstrap_hazard(curve, CDS_PILLARS, spreads)
+
+
+def phase_cds_bootstrap(torch, dev, timed_runs=3):
+    """bench_full.py:527-538: the 5-pillar hazard bootstrap, one warm call,
+    then the mean of 3: every hazard positive, the pillars repriced within
+    5e-4 relative, the hazards within 1e-4 relative of float64 on the CPU."""
+    from pde_tpu_torch.models import credit
+
+    curve, fn = cds_bootstrap(torch, dev, torch.float32)
+    (hc, hazards), walls = timed_walls(torch, dev, fn, timed_runs)
+    ref = cds_bootstrap(torch, torch.device("cpu"), torch.float64)[1]()[1]
+    reprice = credit.cds_par_spreads(curve, hc, CDS_PILLARS).cpu().double()
+    hz = hazards.cpu().double()
+    reprice_rel = float((reprice / torch.tensor(CDS_SPREADS, dtype=torch.float64) - 1).abs().max())
+    hazard_rel = float((hz / ref - 1.0).abs().max())
+    ok = (bool((hz > 0).all()) and reprice_rel <= CDS_REPRICE_REL
+          and hazard_rel <= CDS_HAZARD_REL)
+    emit(phase="cds_bootstrap", dtype="float32", pillars=list(CDS_PILLARS),
+         hazards=hz.tolist(), reprice_max_rel=reprice_rel, hazards_max_rel_vs_cpu_f64=hazard_rel,
+         gate=f"hazards > 0, reprice {CDS_REPRICE_REL}, hazards {CDS_HAZARD_REL} of f64",
+         wall_s_runs=walls, cds_bootstrap_5pillar_wall_s=statistics.mean(walls), ok=ok)
+    if not ok:
+        raise AssertionError("cds_bootstrap_5pillar_wall_s missed its gate")
+
+
+def phase_orchestrator_rates(torch, dev):
+    """``CalibrationOrchestrator.run_daily_calibration`` on the card with
+    the rates, G2 and credit stages, on the desks of
+    tests/test_calibrate.py:418-482 (HW(0.12, 0.011) caplets 0.5-5.0, the
+    4-swaption G2 panel, 4 CDS pillars) with that test's calibrators
+    (HW 40, G2 25 LM iterations), float32: SUCCESS with no error, every
+    stage's result present."""
+    from pde_tpu_torch.calibrate.g2 import G2Calibrator
+    from pde_tpu_torch.calibrate.orchestrator import (CalibrationConfig,
+                                                      CalibrationOrchestrator,
+                                                      CalibrationStatus)
+    from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
+    from pde_tpu_torch.models import rates
+
+    f32 = torch.float32
+    curve = rates_curve(torch, dev, f32)
+    starts = torch.arange(1, 11, dtype=f32, device=dev) * 0.5
+    ends = starts + 0.5
+    ks = curve.forward(starts, ends)
+    hw = rates.HullWhiteParams(torch.tensor(0.12, device=dev), torch.tensor(0.011, device=dev),
+                               curve)
+    _, exps, pts, g2_ks, g2_quotes = g2_swaption_desk(torch, dev, f32,
+                                                      truth=(0.5, 0.05, 0.011, 0.0085, -0.55))
+    rates_market = {"curve": curve,
+                    "caplets": {"starts": starts, "ends": ends, "strikes": ks,
+                                "quotes": rates.hw_caplet(hw, ks, starts, ends)},
+                    "swaptions": {"expiries": exps, "pay_times": pts, "strikes": g2_ks,
+                                  "quotes": g2_quotes}}
+    credit_market = {"curve": curve, "pillars": [1.0, 3.0, 5.0, 10.0],
+                     "spreads": [0.008, 0.011, 0.013, 0.015], "recovery": 0.4}
+    orch = CalibrationOrchestrator(
+        config=CalibrationConfig(calibrate_heston=False, calibrate_sabr=False,
+                                 calibrate_rates=True, calibrate_g2=True,
+                                 calibrate_credit=True),
+        rates_calibrator=HullWhiteCalibrator(max_iter=40, device=dev, dtype=f32),
+        g2_calibrator=G2Calibrator(max_iter=25, device=dev, dtype=f32), device=dev, dtype=f32)
+    res = orch.run_daily_calibration("USD", {"strike": []}, S0=100.0,
+                                     rates_market=rates_market, credit_market=credit_market)
+    ok = (res.status == CalibrationStatus.SUCCESS and res.errors == []
+          and None not in (res.rates_result, res.g2_result, res.credit_result))
+    emit(phase="orchestrator_rates", dtype="float32", status=str(res.status.value),
+         errors=res.errors, run_time_s=res.run_time,
+         hw=dict(a=float(res.rates_result.params.a), sigma=float(res.rates_result.params.sigma),
+                 max_rel_error=res.rates_result.max_rel_error) if res.rates_result else None,
+         g2_max_rel_error=res.g2_result.max_rel_error if res.g2_result else None,
+         credit_max_roundtrip_error=(res.credit_result or {}).get("max_roundtrip_error"),
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"the daily orchestrator run was {res.status.value}: {res.errors}")
+
+
+RATES_PHASES = (phase_hw_swaption_panel, phase_hw_caplet_calibration, phase_g2_swaption_panel,
+                phase_g2_swaption_calibration, phase_cds_bootstrap, phase_orchestrator_rates)
+
+
 def timed_walls(torch, dev, fn, reps):
     """One warm call, then ``reps`` host-clock walls, each ending in a sync."""
-    res = fn()
+    fn()
     sync(torch, dev)
     walls = []
     for _ in range(reps):
@@ -2439,6 +2685,25 @@ def fourier_profile_rows(torch, dev):
     }
 
 
+def rates_profile_rows(torch, dev):
+    """One call of each rates and credit row, float32 on the card."""
+    from pde_tpu_torch.calibrate.g2 import G2Calibrator
+    from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
+
+    f32 = torch.float32
+    caplets = hw_caplet_desk(torch, dev, f32)
+    swaptions = g2_swaption_desk(torch, dev, f32)
+    hw_cal = HullWhiteCalibrator(max_iter=60, device=dev, dtype=f32)
+    g2_cal = G2Calibrator(max_iter=60, device=dev, dtype=f32)
+    return {
+        "hw_swaption_panel_256": swaption_panel(torch, dev, f32, "hw", HW_PANEL_N),
+        "hw_caplet_calibration": lambda: hw_cal.calibrate_caplets(*caplets),
+        "g2_swaption_panel_128": swaption_panel(torch, dev, f32, "g2", G2_PANEL_N, n_gh=64),
+        "g2_swaption_calibration": lambda: g2_cal.calibrate_swaptions(*swaptions),
+        "cds_bootstrap_5pillar": cds_bootstrap(torch, dev, f32)[1],
+    }
+
+
 def profile_rows(torch, dev, interp, top=4):
     """One warm call of each row under ``torch.profiler``: the call's wall,
     the card's busy time (device time of its kernels), the idle share and
@@ -2505,6 +2770,7 @@ def profile_rows(torch, dev, interp, top=4):
             *pricing, S0, R, Q),
         "heston_calibrate_batch_16": lambda: calibrator.calibrate_batch(*cal_book, R, Q),
         **fourier_profile_rows(torch, dev),
+        **rates_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -2606,7 +2872,7 @@ def main() -> None:
     path(phase_calibration, torch, dev, torch.float32)
     # the Heston pricing and batched calibration rows launch no kernel, and
     # their launch lines must say so
-    for fn in (phase_heston_extras, phase_calibrate_batch, *FOURIER_PHASES):
+    for fn in (phase_heston_extras, phase_calibrate_batch, *FOURIER_PHASES, *RATES_PHASES):
         counts = path(fn, torch, dev)[0]
         if any(counts.values()):
             raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")

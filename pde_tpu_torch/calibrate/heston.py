@@ -308,9 +308,9 @@ def _sensitivities_impl(x, strikes, t_idx, unique_T, is_calls, market_prices,
             _price_vec_gl_grouped(xv, strikes, t_idx, unique_T, is_calls, S0, r, q), 1e-10)
 
     m = model(x)
-    Jm = torch.func.jacfwd(model)(x)                 # (N, 5) dm/dx
-    J = Jm * (mask / market_prices)[:, None]         # (N, 5) dr/dx
     with _full_fp32_matmul():  # TF32 would swamp the ill-conditioned J^T J
+        Jm = torch.func.jacfwd(model)(x)             # (N, 5) dm/dx
+        J = Jm * (mask / market_prices)[:, None]     # (N, 5) dr/dx
         JTJ = J.T @ J
     drdp = -mask * m / (market_prices ** 2)          # (N,) dr_i/dp_i
     rhs = J.T * drdp[None, :]                        # (5, N)

@@ -17,6 +17,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -32,19 +33,31 @@ class LMResult(NamedTuple):
     grad_norm: torch.Tensor
 
 
+# PyTorch keeps forward-mode AD levels, and the TF32 flag set below, per
+# process, not per thread: two threads inside ``jacfwd`` at once corrupt
+# each other's level ("no level exists"), and one thread's restore of the
+# flag can turn TF32 back on under another's solve.  So every region that
+# runs ``jacfwd`` under full-fp32 matmuls (the LM's march, the Heston quote
+# sensitivities) holds this one lock; callers on other threads (the
+# orchestrator's concurrent ``run_all``) overlap everything else.
+_MARCH = threading.RLock()
+
+
 @contextlib.contextmanager
 def _full_fp32_matmul():
-    """J^T J in full float32: TF32 keeps ~3 decimal digits, which turns the
-    normal equations of a 1e8-conditioned Jacobian into noise and stalls the
-    march (the reference needed ``Precision.HIGHEST`` on the TPU for the
-    same reason).  False is torch's default; it is set here, for the LM's
-    duration only, rather than relied on."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    """J^T J in full float32, one region at a time (``_MARCH``): TF32 keeps
+    ~3 decimal digits, which turns the normal equations of a 1e8-conditioned
+    Jacobian into noise and stalls the march (the reference needed
+    ``Precision.HIGHEST`` on the TPU for the same reason).  False is torch's
+    default; it is set here, for the region's duration only, rather than
+    relied on.  Run the region's ``jacfwd`` inside it too."""
+    with _MARCH:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def levenberg_marquardt(

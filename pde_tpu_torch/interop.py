@@ -11,10 +11,13 @@ import numpy as np
 import torch
 
 from .models.bates import BatesParams
+from .models.credit import HazardCurve, SwapTrade
 from .models.forward_start import ForwardStartParams
+from .models.g2 import G2Params
 from .models.heston import HestonParams
 from .models.local_vol import SurfaceInterpolator
 from .models.ou import OUParams
+from .models.rates import CIRParams, DiscountCurve, HullWhiteParams, VasicekParams
 from .models.rough_heston import RoughHestonParams
 from .models.sabr import SABRParams
 from .models.svcj import SVCJParams
@@ -26,7 +29,8 @@ from .solvers.hjb import HJBParams, StoppingProblem
 __all__ = ["tensor", "heston_params", "sabr_params", "ou_params", "quotes", "grouping",
            "surface_interpolator", "heston_pde_params", "bs_pde_params", "hjb_params",
            "bates_params", "svcj_params", "term_heston_params", "forward_start_params",
-           "rough_heston_params"]
+           "rough_heston_params", "discount_curve", "vasicek_params", "cir_params",
+           "hull_white_params", "g2_params", "hazard_curve", "swap_trade"]
 
 
 def tensor(x, device="cpu", dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -75,6 +79,45 @@ def rough_heston_params(p, device="cpu",
                         dtype: torch.dtype = torch.float64) -> RoughHestonParams:
     """The JAX package's ``rough_heston.RoughHestonParams`` as the port's."""
     return _fields(RoughHestonParams, p, device, dtype)
+
+
+def discount_curve(c, device="cpu", dtype: torch.dtype = torch.float64) -> DiscountCurve:
+    """The JAX package's ``rates.DiscountCurve`` (times, dfs) as the port's."""
+    return _fields(DiscountCurve, c, device, dtype)
+
+
+def vasicek_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> VasicekParams:
+    """The JAX package's ``rates.VasicekParams`` as the port's."""
+    return _fields(VasicekParams, p, device, dtype)
+
+
+def cir_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> CIRParams:
+    """The JAX package's ``rates.CIRParams`` as the port's."""
+    return _fields(CIRParams, p, device, dtype)
+
+
+def hull_white_params(p, device="cpu",
+                      dtype: torch.dtype = torch.float64) -> HullWhiteParams:
+    """The JAX package's ``rates.HullWhiteParams`` (its curve included) as
+    the port's."""
+    return HullWhiteParams(tensor(p.a, device, dtype), tensor(p.sigma, device, dtype),
+                           discount_curve(p.curve, device, dtype))
+
+
+def g2_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> G2Params:
+    """The JAX package's ``g2.G2Params`` (its curve included) as the port's."""
+    return G2Params(*(tensor(getattr(p, k), device, dtype) for k in G2Params._fields[:5]),
+                    discount_curve(p.curve, device, dtype))
+
+
+def hazard_curve(h, device="cpu", dtype: torch.dtype = torch.float64) -> HazardCurve:
+    """The JAX package's ``credit.HazardCurve`` as the port's."""
+    return _fields(HazardCurve, h, device, dtype)
+
+
+def swap_trade(t, device="cpu", dtype: torch.dtype = torch.float64) -> SwapTrade:
+    """The JAX package's ``credit.SwapTrade`` as the port's."""
+    return _fields(SwapTrade, t, device, dtype)
 
 
 def sabr_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> SABRParams:

@@ -2,17 +2,21 @@
 the models that plug into their characteristic-function hook (Bates, SVCJ,
 term-structure and forward-start Heston), digitals, variance and VIX
 products, rough Heston, two-asset closed forms, Dupire local volatility,
-the SABR smile and the Ornstein-Uhlenbeck process."""
+the SABR smile, the Ornstein-Uhlenbeck process, the short-rate models
+(Vasicek, CIR, Hull-White, G2++) and credit (hazard curves, CDS)."""
 
 from . import (  # noqa: F401
     bates,
     black_scholes,
+    credit,
     digital,
     forward_start,
+    g2,
     heston,
     local_vol,
     multi_asset,
     ou,
+    rates,
     rough_heston,
     sabr,
     svcj,
@@ -20,3 +24,5 @@ from . import (  # noqa: F401
     varswap,
     vix,
 )
+from .g2 import G2Params  # noqa: F401
+from .rates import CIRParams, DiscountCurve, HullWhiteParams, VasicekParams  # noqa: F401

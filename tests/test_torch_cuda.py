@@ -1008,3 +1008,154 @@ def test_rough_calibration_on_card_recovers_its_surface():
         data["q"])
     assert res.rmse < 5e-3
     assert abs(res.params.hurst - 0.15) < 0.02
+
+
+# -- the rates and credit desk (no kernel): float32 on the card against
+#    float64 on the CPU, at bench_full.py:425-552's shapes where they are
+#    cheap, and plain numbers landing on cuda:0
+
+def _rates_curve(dtype, device):
+    from pde_tpu_torch.models import rates
+
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return rates.curve_from_zero_rates(t([0.5, 1.0, 2.0, 5.0, 10.0, 30.0]),
+                                       t([0.030, 0.032, 0.035, 0.040, 0.042, 0.043]))
+
+
+def _panel(model, n, dtype, device):
+    from pde_tpu_torch.models import g2, rates
+
+    curve = _rates_curve(dtype, device)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    ex = torch.linspace(0.5, 10.0, n, dtype=dtype, device=device)
+    pay = ex[:, None] + torch.arange(1, 11, dtype=dtype, device=device) * 0.5
+    par = rates.hw_swap_rate(curve, ex, pay)
+    if model == "hw":
+        return rates.hw_swaption(rates.HullWhiteParams(t(0.1), t(0.012), curve), par, ex, pay)
+    p = g2.G2Params(*map(t, (0.5, 0.05, 0.01, 0.008, -0.6)), curve)
+    return g2.g2_swaption(p, par, ex, pay, n_gh=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,n", [("hw", 256), ("g2", 128)])
+def test_swaption_panel_float32_on_card_matches_cpu_float64(model, n):
+    """The bench panels: within 1e-7 + 1e-4 |p| of float64 on the CPU."""
+    _need_cuda()
+    card = _panel(model, n, torch.float32, "cuda")
+    assert card.device.type == "cuda" and card.dtype == torch.float32 and card.shape == (n,)
+    np.testing.assert_allclose(card.cpu().double().numpy(),
+                               _panel(model, n, torch.float64, "cpu").numpy(),
+                               rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_hw_caplet_fit_on_card_recovers_sigma():
+    """bench_full.py:443-456 in float32 on the card: rmse <= 1e-4, sigma
+    within 1%."""
+    _need_cuda()
+    from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
+    from pde_tpu_torch.models import rates
+
+    curve = _rates_curve(torch.float32, "cuda")
+    starts = torch.arange(1, 17, dtype=torch.float32, device="cuda") * 0.5
+    ends = starts + 0.5
+    ks = curve.forward(starts, ends)
+    quotes = rates.hw_caplet(rates.HullWhiteParams(0.1, 0.012, curve), ks, starts, ends)
+    res = HullWhiteCalibrator(max_iter=60).calibrate_caplets(curve, starts, ends, ks, quotes)
+    assert res.params.a.device == torch.device("cuda", 0)
+    assert res.rmse <= 1e-4 and abs(float(res.params.sigma) / 0.012 - 1.0) <= 0.01
+
+
+@pytest.mark.cuda
+def test_g2_fit_on_card_reprices_its_panel():
+    """bench_full.py:507-521 in float32 on the card at 25 LM iterations:
+    rmse <= 1e-3."""
+    _need_cuda()
+    from pde_tpu_torch.calibrate.g2 import G2Calibrator
+    from pde_tpu_torch.models import g2, rates
+
+    curve = _rates_curve(torch.float32, "cuda")
+    p = g2.G2Params(0.5, 0.05, 0.01, 0.008, -0.6, curve)
+    exps = [1.0, 2.0, 3.0, 5.0]
+    pts = [torch.arange(1, 7, dtype=torch.float32, device="cuda") * 0.5 + e for e in exps]
+    ks = [float(rates.hw_swap_rate(curve, e, pt)) for e, pt in zip(exps, pts)]
+    quotes = torch.stack([g2.g2_swaption(p, k, e, pt) for e, pt, k in zip(exps, pts, ks)])
+    res = G2Calibrator(max_iter=25).calibrate_swaptions(curve, exps, pts, ks, quotes)
+    assert res.params.rho.device == torch.device("cuda", 0)
+    assert res.rmse <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cds_bootstrap_on_card_matches_cpu_float64():
+    """bench_full.py:527-538: hazards positive, pillars repriced within 5e-4,
+    hazards within 1e-4 of float64 on the CPU."""
+    _need_cuda()
+    from pde_tpu_torch.models import credit
+
+    pillars, spreads = [1.0, 3.0, 5.0, 7.0, 10.0], [0.008, 0.011, 0.013, 0.014, 0.015]
+    curve = _rates_curve(torch.float32, "cuda")
+    hc, hz = credit.bootstrap_hazard(curve, pillars, torch.tensor(spreads, device="cuda"))
+    assert hz.device.type == "cuda" and bool((hz > 0).all())
+    _, ref = credit.bootstrap_hazard(_rates_curve(torch.float64, "cpu"), pillars,
+                                     torch.tensor(spreads, dtype=torch.float64))
+    np.testing.assert_allclose(hz.cpu().double().numpy(), ref.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(credit.cds_par_spreads(curve, hc, pillars).cpu().numpy(),
+                               spreads, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_orchestrator_rates_and_credit_stages_succeed_on_the_card():
+    _need_cuda()
+    from pde_tpu_torch.calibrate.g2 import G2Calibrator
+    from pde_tpu_torch.calibrate.orchestrator import (CalibrationConfig,
+                                                      CalibrationOrchestrator,
+                                                      CalibrationStatus)
+    from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
+    from pde_tpu_torch.models import rates
+
+    curve = _rates_curve(torch.float32, "cuda")
+    starts = torch.arange(1, 11, dtype=torch.float32, device="cuda") * 0.5
+    ks = curve.forward(starts, starts + 0.5)
+    quotes = rates.hw_caplet(rates.HullWhiteParams(0.12, 0.011, curve), ks, starts,
+                             starts + 0.5)
+    orch = CalibrationOrchestrator(
+        config=CalibrationConfig(calibrate_heston=False, calibrate_sabr=False,
+                                 calibrate_rates=True, calibrate_credit=True),
+        rates_calibrator=HullWhiteCalibrator(max_iter=40), g2_calibrator=G2Calibrator())
+    res = orch.run_daily_calibration(
+        "USD", {"strike": []}, S0=100.0,
+        rates_market={"curve": curve, "caplets": {"starts": starts, "ends": starts + 0.5,
+                                                  "strikes": ks, "quotes": quotes}},
+        credit_market={"curve": curve, "pillars": [1.0, 3.0, 5.0, 10.0],
+                       "spreads": [0.008, 0.011, 0.013, 0.015]})
+    assert res.status == CalibrationStatus.SUCCESS and res.errors == [], res.errors
+    assert res.credit_result["hazard_curve"].survival.device == torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flat_curve", "curve_from_zero_rates", "vasicek_bond",
+                                  "cir_bond", "bachelier_price", "flat_hazard",
+                                  "HullWhiteCalibrator", "G2Calibrator",
+                                  "CalibrationOrchestrator"])
+def test_rates_entry_points_on_plain_numbers_run_on_the_card(name):
+    _need_cuda()
+    from pde_tpu_torch.calibrate.g2 import G2Calibrator
+    from pde_tpu_torch.calibrate.orchestrator import CalibrationOrchestrator
+    from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
+    from pde_tpu_torch.models import credit, rates
+
+    calls = {
+        "flat_curve": lambda: rates.flat_curve(0.03).dfs,
+        "curve_from_zero_rates": lambda: rates.curve_from_zero_rates([1.0, 2.0],
+                                                                     [0.03, 0.04]).dfs,
+        "vasicek_bond": lambda: rates.vasicek_bond(rates.VasicekParams(0.5, 0.04, 0.015, 0.03),
+                                                   2.0),
+        "cir_bond": lambda: rates.cir_bond(rates.CIRParams(0.5, 0.04, 0.1, 0.03), 2.0),
+        "bachelier_price": lambda: rates.bachelier_price(0.03, 0.03, 0.0075, 1.0),
+        "flat_hazard": lambda: credit.flat_hazard(0.02).survival,
+        "HullWhiteCalibrator": lambda: torch.empty(0, device=HullWhiteCalibrator().device),
+        "G2Calibrator": lambda: torch.empty(0, device=G2Calibrator().device),
+        "CalibrationOrchestrator": lambda: torch.empty(
+            0, device=CalibrationOrchestrator().device),
+    }
+    assert calls[name]().device == torch.device("cuda", 0)

@@ -11,13 +11,16 @@ import pytest
 import torch
 
 from pde_tpu_torch.calibrate.bates import BatesCalibrator
+from pde_tpu_torch.calibrate.g2 import G2Calibrator
 from pde_tpu_torch.calibrate.heston import HestonCalibrator, parameter_sensitivities
+from pde_tpu_torch.calibrate.orchestrator import CalibrationOrchestrator
+from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
 from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
 from pde_tpu_torch.calibrate.sabr import SABRCalibrator
 from pde_tpu_torch.core import grids, precision
-from pde_tpu_torch.models import (bates, black_scholes, digital, forward_start, heston,
-                                  local_vol, multi_asset, rough_heston, sabr, svcj,
-                                  term_heston, varswap, vix)
+from pde_tpu_torch.models import (bates, black_scholes, credit, digital, forward_start, g2,
+                                  heston, local_vol, multi_asset, rates, rough_heston, sabr,
+                                  svcj, term_heston, varswap, vix)
 from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
 
 
@@ -37,6 +40,45 @@ _SVCJ = svcj.SVCJParams(2.0, 0.04, 0.3, -0.7, 0.04, 0.5, -0.1, 0.15, 0.05, -0.5)
 _ROUGH = rough_heston.RoughHestonParams(0.1, 2.0, 0.04, 0.3, -0.7, 0.04)
 _BOOK = (np.full((2, 4), 100.0), np.full((2, 4), 1.0), np.full((2, 4), 10.0),
          np.full(2, 100.0), 0.05, 0.02)
+
+
+def _plain_curve(device):
+    return rates.curve_from_zero_rates([1.0, 2.0, 5.0], [0.03, 0.035, 0.04], device=device)
+
+
+# each takes the device (None: the card) and computes on it
+RATES_ENTRY_POINTS = {
+    "rates.flat_curve": lambda d: rates.flat_curve(0.03, device=d).dfs,
+    "rates.curve_from_zero_rates": lambda d: _plain_curve(d).dfs,
+    "rates.vasicek_bond": lambda d: rates.vasicek_bond(
+        rates.VasicekParams(0.5, 0.04, 0.015, 0.03), _plain_curve(d).times),
+    "rates.vasicek_bond_option": lambda d: rates.vasicek_bond_option(
+        rates.VasicekParams(0.5, 0.04, 0.015, 0.03), 0.9, 1.0, _plain_curve(d).times + 1.0),
+    "rates.cir_bond": lambda d: rates.cir_bond(rates.CIRParams(0.5, 0.04, 0.1, 0.03),
+                                               _plain_curve(d).times),
+    "rates.hw_swaption": lambda d: rates.hw_swaption(
+        rates.HullWhiteParams(0.1, 0.012, _plain_curve(d)), 0.035, 1.0, [1.5, 2.0, 2.5]),
+    "rates.hw_cap": lambda d: rates.hw_cap(
+        rates.HullWhiteParams(0.1, 0.012, _plain_curve(d)), 0.035, [1.0, 1.5, 2.0]),
+    "rates.hw_simulate": lambda d: rates.hw_simulate(
+        rates.HullWhiteParams(0.1, 0.012, _plain_curve(d)), 1.0,
+        torch.Generator(device=d or "cuda"), n_steps=2, n_paths=4)[1],
+    "rates.bachelier_implied_vol": lambda d: rates.bachelier_implied_vol(
+        rates.bachelier_price(0.03, _plain_curve(d).dfs * 0.03, 0.0075, 1.0), 0.03, 0.03, 1.0),
+    "rates.strip_caplet_vols": lambda d: rates.strip_caplet_vols(
+        _plain_curve(d), 0.035, [1.0, 2.0], [0.2, 0.22])[2],
+    "g2.g2_swaption": lambda d: g2.g2_swaption(
+        g2.G2Params(0.5, 0.05, 0.01, 0.008, -0.6, _plain_curve(d)), 0.035, 1.0, [1.5, 2.0],
+        n_gh=8),
+    "credit.flat_hazard": lambda d: credit.flat_hazard(0.02, device=d).survival,
+    "credit.bootstrap_hazard": lambda d: credit.bootstrap_hazard(
+        _plain_curve(d), [1.0, 3.0], [0.01, 0.012], n_buckets=8, n_newton=2)[1],
+    "HullWhiteCalibrator": lambda d: torch.empty(0, device=HullWhiteCalibrator(
+        device=d).device),
+    "G2Calibrator": lambda d: torch.empty(0, device=G2Calibrator(device=d).device),
+    "CalibrationOrchestrator": lambda d: torch.empty(0, device=CalibrationOrchestrator(
+        device=d).device),
+}
 
 
 ENTRY_POINTS = {
@@ -128,6 +170,10 @@ ENTRY_POINTS = {
     "RoughHestonCalibrator": lambda: RoughHestonCalibrator(),
     "RoughHestonCalibrator.generate_synthetic_surface": lambda: (
         RoughHestonCalibrator.generate_synthetic_surface(n_steps=4)),
+    # the rates and credit desk: curves and models built from plain numbers
+    # take the card, and every pricer follows its curve
+    **{name: (lambda fn=fn: fn(None)) for name, fn in RATES_ENTRY_POINTS.items()},
+    "rates.bachelier_price": lambda: rates.bachelier_price(0.03, 0.03, 0.0075, 1.0),
 }
 
 
@@ -173,3 +219,11 @@ def test_fourier_models_follow_their_inputs(no_card):
                                          0.5).device.type == "cpu"
     assert term_heston.make_term_params([0.0, 1.0], cpu[None] * 2.0, [0.04], [0.3], [-0.7],
                                         0.04).kappa.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", sorted(RATES_ENTRY_POINTS))
+def test_rates_entry_points_run_on_the_cpu_when_asked(no_card, name):
+    """The same calls with ``device="cpu"`` compute there."""
+    out = RATES_ENTRY_POINTS[name]("cpu")
+    assert out.device.type == "cpu"
+    assert bool(torch.isfinite(out).all())
