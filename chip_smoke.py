@@ -83,6 +83,18 @@ checks every result:
    5-pillar CDS bootstrap (hazards positive, repriced within 5e-4, within
    1e-4 of float64 on the CPU), and one daily orchestrator run with the
    rates, G2++ and credit stages, which must end in SUCCESS with no error;
+   and bench_full.py's Heston Monte Carlo rows, float32: QE paths (2^17 x
+   64; a martingale within 4 s.e., the call within 4 s.e. + 0.2% of
+   ``price_accurate``, and the terminal state on a replay of a CPU
+   generator's float64 draws within twice the CPU's own float32 error), the
+   LSM put (2^16 x 64; within max(2%, 5 s.e.) of the IT-LCP put, above the
+   European MC put), the 128-strike LSM book (calls fall with strike; on a
+   replay, book against single at 4 strikes: float64 at 1e-10 on the card,
+   float32 within twice the CPU's float32 tolerance or a quarter s.e.), the
+   dual bound (12 dates; the sandwich and a gap under 4% + 4 s.e.), the
+   16-strike pathwise Greeks (delta within 0.02 of ``greeks_ad``), a Sobol
+   European (8 replicates, within 4 s.e. of ``price_accurate``) and a
+   Bates American put by LSM (at least its European less 4 s.e.);
 5. fused-ADI book: 512 options at 100x50x100 through
    ``heston_adi.solve_fused_batch``, checked against the converged
    Carr-Madan price;
@@ -158,8 +170,8 @@ repository root with no arguments:
 one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
 ``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls, of the
 OU and HJB rows, of the 8192-option grouped pricing, of the 16-surface
-``calibrate_batch``, of the nine Fourier-priced rows and of the five rates
-and credit rows under
+``calibrate_batch``, of the nine Fourier-priced rows, of the five rates
+and credit rows and of the five Heston Monte Carlo rows under
 ``torch.profiler``: wall, the card's busy time
 and idle share, and the kernels that took most of the device time.  Row
 names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
@@ -168,6 +180,7 @@ names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1343,6 +1356,286 @@ RATES_PHASES = (phase_hw_swaption_panel, phase_hw_caplet_calibration, phase_g2_s
                 phase_g2_swaption_calibration, phase_cds_bootstrap, phase_orchestrator_rates)
 
 
+# the Heston Monte Carlo rows (bench_full.py:673-759), float32 on the card,
+# Heston TRUE from S0 = 100 to T = 1: QE paths x steps, the LSM path count,
+# the 128-strike LSM book, the dual bound's dates and path counts, the
+# 16-strike Greeks; every MC gate at MC_Z standard errors
+MC_PATHS, MC_STEPS, LSM_PATHS, LSM_BOOK = 1 << 17, 64, 1 << 16, 128
+DUAL = dict(n_steps=12, n_reg_paths=1 << 15, n_outer=1024, n_inner=64)
+MC_Z, QE_CALL_REL, LSM_ADI_REL, GREEKS_DELTA_ATOL = 4.0, 2e-3, 0.02, 0.02
+LSM_BOOK_PICKS = (0, 43, 86, 127)
+
+
+def cpu_replay(torch, seed):
+    """A replay of a CPU generator's draws: made once, in the dtype and on
+    the device of the first run that asks, then handed to every later run
+    (moved to its dtype and device)."""
+    from pde_tpu_torch.models import heston_mc
+
+    cpu = torch.device("cpu")
+    return heston_mc._Replay(heston_mc._draws(torch.Generator().manual_seed(seed), cpu))
+
+
+def phase_heston_mc_qe(torch, dev, reps=20):
+    """bench_full.py:680-688: ``simulate_qe`` of 2^17 paths x 64 steps (r
+    0.05, q 0.02), median of 20 warm calls.  The discounted spot is a
+    martingale within 4 s.e.; the call from the paths is within 4 s.e. +
+    0.2% of ``price_accurate``; and on one replay of a CPU generator's
+    float64 draws, the card's terminal state sits within twice the CPU's
+    own float32 error of the CPU's float64 run."""
+    from pde_tpu_torch.models import heston, heston_mc
+
+    cpu = torch.device("cpu")
+    kw = dict(n_steps=MC_STEPS, n_paths=MC_PATHS, rate=R, dividend=Q)
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    paths, walls = timed_walls(torch, dev, lambda: heston_mc.simulate_qe(
+        p32, S0, 1.0, gen, **kw), reps)
+    spot = paths.spot.double()
+    disc = float(torch.exp(torch.tensor(-R, dtype=torch.float64)))
+    mean, se = (float(x) for x in heston_mc._mc_estimate(disc * spot, MC_PATHS, True))
+    fwd = S0 * float(torch.exp(torch.tensor(-Q, dtype=torch.float64)))
+    call, call_se = (float(x) for x in heston_mc._mc_estimate(
+        disc * (spot - S0).clamp_min(0.0), MC_PATHS, True))
+    exact = float(heston.price_accurate(fourier_params(torch, cpu, torch.float64, "heston"),
+                                        torch.tensor(S0, dtype=torch.float64), 1.0, S0, R, Q))
+    replay = cpu_replay(torch, 1)
+    ref, cpu32 = (heston_mc.simulate_qe(fourier_params(torch, cpu, dt, "heston"), S0, 1.0,
+                                        replay, **kw) for dt in (torch.float64, torch.float32))
+    card = heston_mc.simulate_qe(p32, S0, 1.0, replay, **kw)
+    errs = {f: (float((getattr(card, f).cpu().double() - getattr(ref, f)).abs().max()),
+                float((getattr(cpu32, f).double() - getattr(ref, f)).abs().max()))
+            for f in ("spot", "variance")}
+    ok = (abs(mean - fwd) <= MC_Z * se
+          and abs(call - exact) <= MC_Z * call_se + QE_CALL_REL * exact
+          and all(e <= 2.0 * c for e, c in errs.values())
+          and bool(torch.isfinite(spot).all()))
+    per = statistics.median(walls)
+    emit(phase="heston_mc_qe", dtype="float32", n_paths=MC_PATHS, n_steps=MC_STEPS,
+         discounted_mean_spot=mean, forward=fwd, martingale_se=se, call=call, call_se=call_se,
+         call_price_accurate=exact,
+         terminal_max_abs_vs_cpu_f64={f: e for f, (e, _) in errs.items()},
+         cpu_f32_max_abs_vs_cpu_f64={f: c for f, (_, c) in errs.items()},
+         gate=f"martingale {MC_Z} se; call {MC_Z} se + {QE_CALL_REL}; 2 x cpu f32 error",
+         wall_s_runs=walls, median_call_s=per,
+         heston_mc_qe_pathsteps_per_sec=MC_PATHS * MC_STEPS / per, ok=ok)
+    if not ok:
+        raise AssertionError("heston_mc_qe_pathsteps_per_sec missed its gate")
+
+
+def adi_american_put(torch):
+    """tests/test_lsm.py:25-43: the port's IT-LCP American put (K 100, r
+    0.05, q 0, T 1) at the reference's default 100x50x100 grid, float64 on
+    the CPU (the scan route launches no kernel there)."""
+    from pde_tpu_torch.solvers import heston_adi
+
+    hp = heston_adi.HestonPDEParams(**TRUE, r=R, q=0.0, T=1.0, K=100.0, is_call=False,
+                                    american=True, american_method="it_lcp")
+    return float(heston_adi.solve(hp, S0, device="cpu", dtype=torch.float64).price)
+
+
+def phase_lsm_american(torch, dev, reps=10):
+    """bench_full.py:690-701: ``price_american_lsm`` of the ATM put (r 0.05)
+    on 2^16 paths x 64 steps, median of 10 warm calls: within max(2%, 5 s.e.)
+    of the IT-LCP put, and above the European MC put on its own paths less
+    4 s.e."""
+    from pde_tpu_torch.models import heston_mc
+    from pde_tpu_torch.solvers import lsm
+
+    kw = dict(rate=R, n_steps=MC_STEPS, n_paths=LSM_PATHS)
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    (price, se), walls = timed_walls(torch, dev, lambda: lsm.price_american_lsm(
+        p32, 100.0, 1.0, S0, gen, is_call=False, **kw), reps)
+    price, se = float(price), float(se)
+    euro, euro_se = (float(x) for x in heston_mc.price_european_mc(
+        p32, 100.0, 1.0, S0, gen, is_call=False, **kw))
+    adi = adi_american_put(torch)
+    ok = (abs(price - adi) <= max(LSM_ADI_REL * adi, 5.0 * se)
+          and price >= euro - MC_Z * (se * se + euro_se * euro_se) ** 0.5)
+    per = statistics.median(walls)
+    emit(phase="lsm_american", dtype="float32", n_paths=LSM_PATHS, n_steps=MC_STEPS,
+         price=price, stderr=se, adi_it_lcp_f64=adi, european_mc=euro, european_se=euro_se,
+         gate=f"|lsm - adi| <= max({LSM_ADI_REL} adi, 5 se); lsm >= european - {MC_Z} se",
+         wall_s_runs=walls, heston_american_lsm_solve_s=per, ok=ok)
+    if not ok:
+        raise AssertionError("heston_american_lsm_solve_s missed its gate")
+
+
+def lsm_book(torch, d, dtype):
+    k = torch.linspace(70.0, 130.0, LSM_BOOK, dtype=dtype, device=d)
+    return k, torch.arange(LSM_BOOK, device=d) % 2 == 0
+
+
+def phase_lsm_batch(torch, dev, reps=5):
+    """bench_full.py:703-717: ``price_american_lsm_batch`` on 128 strikes in
+    [70, 130], calls at even indices, 2^16 paths x 64 steps, median of 5
+    warm calls; call prices fall with strike.  On one replay of a CPU
+    generator's draws, the book's entries at 4 strikes against
+    ``price_american_lsm`` on the card: in float64 at 1e-10 relative (the
+    CPU's float64 shows ~1e-14), in float32 within twice the float32
+    tolerance the CPU shows on those draws (the largest float32 move, from
+    float64, of the CPU's book and single prices at the 4 strikes), or a
+    quarter of the entry's standard error where that is larger: float32
+    moves an LSM price only by flipping exercise decisions at near ties, a
+    noise of at most 0.17 s.e., and up to 1.98 times the CPU's tolerance,
+    in 14 seeds on the CPU (``scripts/torch_lsm_f32_noise.py``)."""
+    from pde_tpu_torch.solvers import lsm
+
+    cpu = torch.device("cpu")
+    kw = dict(rate=R, n_steps=MC_STEPS, n_paths=LSM_PATHS)
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k, calls = lsm_book(torch, dev, torch.float32)
+    (prices, _), walls = timed_walls(torch, dev, lambda: lsm.price_american_lsm_batch(
+        p32, k, calls, 1.0, S0, gen, **kw), reps)
+    falls = bool((torch.diff(prices[calls].cpu()) < 0).all())
+
+    replay, picks = cpu_replay(torch, 4), list(LSM_BOOK_PICKS)
+
+    def book_and_singles(d, dtype, full):
+        """(book, single prices, the book's s.e.) at the picks: on the full
+        book, or on a book of the 4 picked contracts."""
+        p = fourier_params(torch, d, dtype, "heston")
+        bk, bc = lsm_book(torch, d, dtype)
+        rows = picks
+        if not full:
+            bk, bc, rows = bk[picks], bc[picks], list(range(len(picks)))
+        book, book_se = lsm.price_american_lsm_batch(p, bk, bc, 1.0, S0, replay, **kw)
+        single = torch.stack([lsm.price_american_lsm(p, float(bk[r]), 1.0, S0, replay,
+                                                     is_call=bool(bc[r]), **kw)[0]
+                              for r in rows])
+        return (book[rows].cpu().double(), single.cpu().double(),
+                book_se[rows].cpu().double())
+
+    b64, s64, _ = book_and_singles(cpu, torch.float64, False)
+    b32, s32, _ = book_and_singles(cpu, torch.float32, False)
+    cpu_tol = max(float((b32 - b64).abs().max()), float((s32 - s64).abs().max()))
+    card64 = book_and_singles(dev, torch.float64, True)
+    card32 = book_and_singles(dev, torch.float32, True)
+    rel64 = float(((card64[0] - card64[1]).abs() / card64[1].abs()).max())
+    gap32 = (card32[0] - card32[1]).abs()
+    tol32 = torch.clamp_min(0.25 * card32[2], 2.0 * cpu_tol)
+    ok = (falls and rel64 <= 1e-10 and bool((gap32 <= tol32).all())
+          and bool(torch.isfinite(prices).all()))
+    per = statistics.median(walls)
+    emit(phase="lsm_batch", dtype="float32", n_paths=LSM_PATHS, n_steps=MC_STEPS,
+         book=LSM_BOOK, call_prices_fall=falls, picks=picks,
+         book_vs_single_card_f64_max_rel=rel64, book_vs_single_card_f32=gap32.tolist(),
+         cpu_f32_tolerance=cpu_tol, card_f32_limit=tol32.tolist(),
+         gate="calls fall; card f64 book = single at 1e-10; card f32 within "
+              "max(2 x cpu f32 tolerance, 0.25 se)",
+         wall_s_runs=walls, heston_american_lsm_batch128_options_per_sec=LSM_BOOK / per,
+         ok=ok)
+    if not ok:
+        raise AssertionError("heston_american_lsm_batch128_options_per_sec missed its gate")
+
+
+def phase_lsm_dual(torch, dev, reps=3):
+    """bench_full.py:719-732: ``dual_upper_bound`` of the ATM put, 12 dates,
+    2^15 regression paths, 1024 x 64 outer x inner paths, median of 3 warm
+    calls: upper + 4 s.e. >= lower - 4 s.e. and a gap under 4% + 4 s.e.
+    (tests/test_lsm_dual.py:34-37)."""
+    from pde_tpu_torch.solvers import lsm_dual
+
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out, walls = timed_walls(torch, dev, lambda: lsm_dual.dual_upper_bound(
+        p32, 100.0, 1.0, S0, gen, rate=R, is_call=False, **DUAL), reps)
+    lo, sel, up, seu = (float(x) for x in out)
+    ok = (up + MC_Z * seu >= lo - MC_Z * sel and up - lo < 0.04 * lo + MC_Z * (sel + seu)
+          and all(map(math.isfinite, (lo, sel, up, seu))))
+    per = statistics.median(walls)
+    emit(phase="lsm_dual", dtype="float32", **DUAL, lower=lo, se_lower=sel, upper=up,
+         se_upper=seu, gate="upper + 4 se >= lower - 4 se; gap < 4% + 4 se",
+         wall_s_runs=walls, lsm_dual_sandwich_wall_s=per,
+         lsm_dual_gap_pct=100.0 * (up - lo) / max(lo, 1e-12), ok=ok)
+    if not ok:
+        raise AssertionError("lsm_dual_sandwich_wall_s missed its gate")
+
+
+def phase_mc_greeks(torch, dev, reps=5):
+    """bench_full.py:750-759: ``greeks_european_mc`` on 16 strikes in [80,
+    120] (r 0.05, q 0.02), 2^16 paths x 64 steps, median of 5 warm calls:
+    delta within 0.02 of ``heston.greeks_ad`` (float64, CPU;
+    tests/test_exotics_mc.py:137)."""
+    from pde_tpu_torch.models import heston, heston_mc
+
+    cpu = torch.device("cpu")
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    k = torch.linspace(80.0, 120.0, 16, device=dev)
+    g, walls = timed_walls(torch, dev, lambda: heston_mc.greeks_european_mc(
+        p32, k, 1.0, S0, gen, rate=R, dividend=Q, n_steps=MC_STEPS, n_paths=LSM_PATHS), reps)
+    # one spot per strike: greeks_ad's delta has its spot's shape
+    k64 = k.cpu().double()
+    exact = heston.greeks_ad(fourier_params(torch, cpu, torch.float64, "heston"), k64, 1.0,
+                             torch.full_like(k64, S0), R, Q)["delta"]
+    err = float((g["delta"].cpu().double() - exact).abs().max())
+    ok = err <= GREEKS_DELTA_ATOL and all(bool(torch.isfinite(v).all()) for v in g.values())
+    per = statistics.median(walls)
+    emit(phase="mc_greeks", dtype="float32", strikes=16, n_paths=LSM_PATHS, n_steps=MC_STEPS,
+         delta_max_abs_vs_greeks_ad=err, gate=GREEKS_DELTA_ATOL, wall_s_runs=walls,
+         heston_mc_ad_greeks_16strike_s=per, ok=ok)
+    if not ok:
+        raise AssertionError("heston_mc_ad_greeks_16strike_s missed its gate")
+
+
+def phase_sobol_european(torch, dev):
+    """A randomized-QMC European (Sobol, 8 replicates of 8192 paths x 64
+    steps, calls at 90, 100, 110): within 4 s.e. of ``price_accurate``."""
+    from pde_tpu_torch.models import heston, heston_mc
+
+    cpu = torch.device("cpu")
+    k = [90.0, 100.0, 110.0]
+    t0 = time.perf_counter()
+    price, se = heston_mc.price_european_mc(
+        fourier_params(torch, dev, torch.float32, "heston"), k, 1.0, S0,
+        torch.Generator(device=dev).manual_seed(7),
+        rate=R, dividend=Q, n_steps=MC_STEPS, n_paths=LSM_PATHS, antithetic=False,
+        sampler="sobol", n_replicates=8)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    exact = heston.price_accurate(fourier_params(torch, cpu, torch.float64, "heston"),
+                                  torch.tensor(k, dtype=torch.float64), 1.0, S0, R, Q)
+    err = (price.cpu().double() - exact).abs()
+    ok = bool((err <= MC_Z * se.cpu().double()).all())
+    emit(phase="sobol_european", dtype="float32", replicates=8, n_paths=LSM_PATHS,
+         n_steps=MC_STEPS, price=price.tolist(), stderr=se.tolist(),
+         price_accurate=exact.tolist(), gate=f"{MC_Z} se", wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("the Sobol European missed its gate")
+
+
+def phase_bates_american(torch, dev):
+    """Bates' ``price_american_mc`` (LSM on the jump paths) of the ATM put,
+    2^16 paths x 64 steps: at least the Bates European put
+    (``price_accurate``, float64 on the CPU) less 4 s.e."""
+    from pde_tpu_torch.models import bates
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    price, se = bates.price_american_mc(
+        fourier_params(torch, dev, torch.float32, "bates"), 100.0, 1.0, S0,
+        torch.Generator(device=dev).manual_seed(8), rate=R, is_call=False, n_steps=MC_STEPS,
+        n_paths=LSM_PATHS)
+    price, se = float(price), float(se)
+    wall = time.perf_counter() - t0
+    euro = float(bates.price_accurate(fourier_params(torch, cpu, torch.float64, "bates"),
+                                      torch.tensor(S0, dtype=torch.float64), 1.0, S0, R, 0.0,
+                                      is_call=False))
+    ok = price >= euro - MC_Z * se and math.isfinite(price)
+    emit(phase="bates_american", dtype="float32", n_paths=LSM_PATHS, n_steps=MC_STEPS,
+         price=price, stderr=se, european_price_accurate=euro, gate=f"european - {MC_Z} se",
+         wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("the Bates American missed its gate")
+
+
+MC_PHASES = (phase_heston_mc_qe, phase_lsm_american, phase_lsm_batch, phase_lsm_dual,
+             phase_mc_greeks, phase_sobol_european, phase_bates_american)
+
+
 def timed_walls(torch, dev, fn, reps):
     """One warm call, then ``reps`` host-clock walls, each ending in a sync."""
     fn()
@@ -1817,8 +2110,11 @@ def profiled(torch, dev, fn):
         fn()
         sync(torch, dev)
         wall = time.perf_counter() - t0
-    return wall, {e.key[:60]: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = {}  # kernels whose names share their first 60 characters add up
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            busy[e.key[:60]] = busy.get(e.key[:60], 0.0) + e.self_device_time_total
+    return wall, busy
 
 
 def wrapper_profile(torch, dev, fn, reps):
@@ -2704,6 +3000,30 @@ def rates_profile_rows(torch, dev):
     }
 
 
+def mc_profile_rows(torch, dev):
+    """One call of each Heston Monte Carlo row, float32 on the card."""
+    from pde_tpu_torch.models import heston_mc
+    from pde_tpu_torch.solvers import lsm, lsm_dual
+
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(rate=R, n_steps=MC_STEPS, n_paths=LSM_PATHS)
+    k, calls = lsm_book(torch, dev, torch.float32)
+    k16 = torch.linspace(80.0, 120.0, 16, device=dev)
+    return {
+        "heston_mc_qe_131072x64": lambda: heston_mc.simulate_qe(
+            p32, S0, 1.0, gen, n_steps=MC_STEPS, n_paths=MC_PATHS, rate=R, dividend=Q),
+        "heston_american_lsm_65536x64": lambda: lsm.price_american_lsm(
+            p32, 100.0, 1.0, S0, gen, is_call=False, **kw),
+        "heston_american_lsm_batch128": lambda: lsm.price_american_lsm_batch(
+            p32, k, calls, 1.0, S0, gen, **kw),
+        "lsm_dual_sandwich": lambda: lsm_dual.dual_upper_bound(
+            p32, 100.0, 1.0, S0, gen, rate=R, is_call=False, **DUAL),
+        "heston_mc_ad_greeks_16strike": lambda: heston_mc.greeks_european_mc(
+            p32, k16, 1.0, S0, gen, rate=R, dividend=Q, n_steps=MC_STEPS, n_paths=LSM_PATHS),
+    }
+
+
 def profile_rows(torch, dev, interp, top=4):
     """One warm call of each row under ``torch.profiler``: the call's wall,
     the card's busy time (device time of its kernels), the idle share and
@@ -2771,6 +3091,7 @@ def profile_rows(torch, dev, interp, top=4):
         "heston_calibrate_batch_16": lambda: calibrator.calibrate_batch(*cal_book, R, Q),
         **fourier_profile_rows(torch, dev),
         **rates_profile_rows(torch, dev),
+        **mc_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -2872,7 +3193,8 @@ def main() -> None:
     path(phase_calibration, torch, dev, torch.float32)
     # the Heston pricing and batched calibration rows launch no kernel, and
     # their launch lines must say so
-    for fn in (phase_heston_extras, phase_calibrate_batch, *FOURIER_PHASES, *RATES_PHASES):
+    for fn in (phase_heston_extras, phase_calibrate_batch, *FOURIER_PHASES, *RATES_PHASES,
+               *MC_PHASES):
         counts = path(fn, torch, dev)[0]
         if any(counts.values()):
             raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")

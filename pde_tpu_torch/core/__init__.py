@@ -1,3 +1,3 @@
-"""Core numerics: precision policy and functional grids."""
+"""Core numerics: precision policy, functional grids and Sobol' QMC."""
 
-from . import grids, precision  # noqa: F401
+from . import grids, precision, qmc  # noqa: F401

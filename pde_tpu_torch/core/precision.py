@@ -32,6 +32,7 @@ __all__ = [
     "device_of",
     "to_tensor",
     "where_flag",
+    "check_generator",
 ]
 
 
@@ -104,3 +105,18 @@ def where_flag(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if isinstance(flag, torch.Tensor):
         return torch.where(flag.to(device=a.device) != 0, a, b)
     return a if flag else b
+
+
+def _card_index(d: torch.device):
+    """The index of the card ``d`` names (a bare ``cuda``: the current one)."""
+    return torch.cuda.current_device() if d.index is None else d.index
+
+
+def check_generator(generator: torch.Generator, device) -> None:
+    """Raise ``ValueError`` unless ``generator`` lives on ``device``: a draw
+    never moves a path to another device."""
+    gdev, device = torch.device(generator.device), torch.device(device)
+    if gdev.type != device.type or (
+            device.type == "cuda" and _card_index(gdev) != _card_index(device)):
+        raise ValueError(f"the generator is on {gdev} but the path runs on {device}; "
+                         f"pass a torch.Generator(device={str(device)!r})")

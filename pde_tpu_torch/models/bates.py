@@ -18,9 +18,9 @@ module adds no quadrature.  Its fields may be numbers or tensors of one
 shape, or of shapes that broadcast, as ``(P, 1, 1)`` fields price a
 population of P parameter sets against the pricers' ``(M, n_u)`` rows.
 
-The Monte Carlo names of the reference (``simulate_qe``,
-``simulate_qe_paths``, ``price_*_mc``) come with the port's Monte Carlo
-module.
+Monte Carlo reuses the Andersen QE step of
+:mod:`pde_tpu_torch.models.heston_mc` with a per-step compound-Poisson
+overlay, so the exotic payoff estimators price under jumps too.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ import torch
 
 from ..core.precision import device_of, result_dtype, to_tensor
 from . import heston as heston_model
+from . import heston_mc
 from .heston import HestonParams, _host
+from .heston_mc import MCPaths, _make_qe_step
 
 __all__ = [
     "BatesParams",
@@ -44,6 +46,9 @@ __all__ = [
     "price_fft",
     "implied_volatility",
     "implied_volatility_grouped",
+    "simulate_qe",
+    "price_european_mc",
+    "price_path_payoff_mc",
     "merton_reference_price",
 ]
 
@@ -150,6 +155,117 @@ price_accurate_grouped = heston_model.price_accurate_grouped
 price_fft = heston_model.price_fft
 implied_volatility = heston_model.implied_volatility
 implied_volatility_grouped = heston_model.implied_volatility_grouped
+
+
+# -- Monte Carlo: QE diffusion + per-step compound-Poisson jump overlay ------
+
+def _jump_step(params: BatesParams, spot, maturity, generator, rate, dividend, n_steps,
+               n_paths, antithetic, martingale_correction, device):
+    """The step ``(ln_s, v, k_t) -> (ln_s', v')`` of a Bates simulation (QE
+    diffusion with the ``-lam kbar dt`` compensator, then the step's jumps),
+    the ``n_steps`` step sources of ``generator``, and the start state
+    ``(s0, ln_s0, v0)``."""
+    dtype = result_dtype(spot, maturity, params.kappa)
+    device = device_of(spot, maturity, *params, default=device)
+    xs = heston_mc._draws(generator, device).split(n_steps)
+    lam, mu_j, sigma_j = (to_tensor(x, dtype, device)
+                          for x in (params.lam, params.mu_j, params.sigma_j))
+    kbar = torch.exp(mu_j + 0.5 * sigma_j * sigma_j) - 1.0
+    _, _, dt, consts, theta, drift, s0, ln_s0, v0 = heston_mc._setup(
+        params, spot, maturity, rate, dividend, n_steps, n_paths, antithetic, device,
+        extra_drift=lam * kbar)
+    E, c1, c2, k0_plain, k1, k2, k3, k4 = consts
+    qe_step = _make_qe_step(
+        E, c1, c2, theta, k0_plain, k1, k2, k3, k4, drift,
+        n_paths // 2 if antithetic else n_paths, antithetic, martingale_correction, dtype,
+    )
+
+    def step(ln_s, v, k_t):
+        k_diff, k_n, k_j = k_t.split(3)
+        ln_s_new, v_new = qe_step(ln_s, v, k_diff)
+        n_jumps = k_n.poisson(lam * dt, (n_paths,))
+        z_j = k_j.normal((n_paths,), dtype, device)
+        return ln_s_new + n_jumps * mu_j + torch.sqrt(n_jumps) * sigma_j * z_j, v_new
+
+    return step, xs, s0, ln_s0, v0
+
+
+def simulate_qe(
+    params: BatesParams,
+    spot,
+    maturity,
+    generator,
+    *,
+    n_steps: int = 64,
+    n_paths: int = 65536,
+    rate=0.0,
+    dividend=0.0,
+    antithetic: bool = True,
+    martingale_correction: bool = True,
+    device=None,
+) -> MCPaths:
+    """Simulate Bates paths: Andersen QE for (ln S, v) plus jumps.
+
+    Per step the log-price gains ``sum_{k<=N_t} J_k`` with ``N_t ~
+    Poisson(lam dt)``, drawn as ``N_t mu_j + sqrt(N_t) sigma_j Z`` (exact:
+    a sum of ``N_t`` i.i.d. normals), while the diffusion drift carries the
+    ``-lam kbar dt`` compensator.  The jumps land inside the step loop, so
+    the running average/max/min see them.  Antithetic mirroring applies to
+    the diffusion draws only.  ``generator`` is a ``torch.Generator`` on the
+    path's device or a replay (:mod:`pde_tpu_torch.models.heston_mc`).
+    """
+    step, xs, s0, ln_s0, v0 = _jump_step(params, spot, maturity, generator, rate, dividend,
+                                         n_steps, n_paths, antithetic, martingale_correction,
+                                         device)
+    return heston_mc._simulate_stats(step, xs, s0, ln_s0, v0, n_steps)
+
+
+def simulate_qe_paths(
+    params: BatesParams,
+    spot,
+    maturity,
+    generator,
+    *,
+    n_steps: int = 64,
+    n_paths: int = 65536,
+    rate=0.0,
+    dividend=0.0,
+    antithetic: bool = True,
+    martingale_correction: bool = True,
+    device=None,
+):
+    """Stored-path Bates simulation: ``(S, v)`` of shape ``(n_steps,
+    n_paths)`` at t_1..t_N, the jump-overlay twin of
+    :func:`heston_mc.simulate_qe_paths`; American exercise under jumps via
+    :func:`pde_tpu_torch.solvers.lsm.price_american_lsm` with
+    ``simulate_paths_fn=`` this."""
+    step, xs, _, ln_s0, v0 = _jump_step(params, spot, maturity, generator, rate, dividend,
+                                        n_steps, n_paths, antithetic, martingale_correction,
+                                        device)
+    return heston_mc._simulate_stored(step, xs, ln_s0, v0)
+
+
+def price_american_mc(params: BatesParams, strike, maturity, spot, generator, **kwargs):
+    """American vanilla under Bates via Longstaff-Schwartz on the
+    jump-overlay paths.  Returns ``(price, stderr)``."""
+    from ..solvers import lsm
+
+    return lsm.price_american_lsm(params, strike, maturity, spot, generator,
+                                  simulate_paths_fn=simulate_qe_paths, **kwargs)
+
+
+def price_path_payoff_mc(params: BatesParams, payoff_fn, spot, maturity, generator, **kwargs):
+    """Bates path-payoff pricing: heston_mc's estimator machinery (control
+    variate, antithetic pair-folding) over :func:`simulate_qe`."""
+    return heston_mc.price_path_payoff_mc(params, payoff_fn, spot, maturity, generator,
+                                          simulate_fn=simulate_qe, **kwargs)
+
+
+def price_european_mc(params: BatesParams, strikes, maturity, spot, generator, **kwargs):
+    """European vanilla under Bates via QE + jump overlay MC.  Returns
+    (price, stderr) shaped like ``strikes``."""
+    return heston_mc.price_european_mc(params, strikes, maturity, spot, generator,
+                                       simulate_fn=simulate_qe, **kwargs)
 
 
 def merton_reference_price(

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.precision import device_of, result_dtype, to_tensor
+from ..core.precision import check_generator, device_of, result_dtype, to_tensor
 
 __all__ = [
     "OUParams",
@@ -191,20 +191,11 @@ def fit_mle(x, dt) -> OUFitResult:
                        converged=~degenerate, b_clamped=clamped)
 
 
-def _card_index(d: torch.device):
-    """The index of the card ``d`` names (a bare ``cuda``: the current one)."""
-    return torch.cuda.current_device() if d.index is None else d.index
-
-
 def _normals(generator: torch.Generator, shape, dtype, device):
     """Standard normals of ``shape`` drawn from ``generator`` on ``device``,
     which must be the generator's own: a draw never moves the path to
     another device."""
-    gdev, device = torch.device(generator.device), torch.device(device)
-    if gdev.type != device.type or (
-            device.type == "cuda" and _card_index(gdev) != _card_index(device)):
-        raise ValueError(f"the generator is on {gdev} but the path runs on {device}; "
-                         f"pass a torch.Generator(device={str(device)!r})")
+    check_generator(generator, device)
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 

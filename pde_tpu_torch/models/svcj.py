@@ -24,9 +24,12 @@ in closed form (:func:`_int_recip_affine`).  It plugs into the same
 ``qv_mean_extra`` and ``qv_log_laplace_extra`` serve
 :mod:`pde_tpu_torch.models.varswap`.
 
+Monte Carlo overlays gamma-distributed variance jumps and conditionally
+normal price jumps on the Andersen QE step of
+:mod:`pde_tpu_torch.models.heston_mc`.
+
 Reductions: ``mu_v = 0`` recovers Bates ``(lam, mu_x, sigma_x)``;
-``lam = 0`` recovers Heston.  The Monte Carlo names of the reference
-(``simulate_qe*``, ``price_*_mc``) come with the port's Monte Carlo module.
+``lam = 0`` recovers Heston.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ import torch
 
 from ..core.precision import device_of, result_dtype, to_tensor
 from . import heston as heston_model
+from . import heston_mc
 from .heston import HestonParams
+from .heston_mc import MCPaths, _make_qe_step
 
 __all__ = [
     "SVCJParams",
@@ -48,6 +53,12 @@ __all__ = [
     "price_accurate_grouped",
     "price_fft",
     "implied_volatility",
+    "simulate_qe",
+    "simulate_qe_paths",
+    "simulate_qe_qv",
+    "price_european_mc",
+    "price_american_mc",
+    "price_path_payoff_mc",
 ]
 
 
@@ -227,3 +238,145 @@ price_accurate_grouped = heston_model.price_accurate_grouped
 price_fft = heston_model.price_fft
 implied_volatility = heston_model.implied_volatility
 implied_volatility_grouped = heston_model.implied_volatility_grouped
+
+
+def _jump_overlay(k_t, n_paths, lam_dt, mu_x, sigma_x, mu_v, rho_j, dtype):
+    """One step's co-jump draws: (x-jump total, v-jump total) per path.
+
+    ``N ~ Poisson(lam dt)``; the summed v-jump is ``Gamma(N, mu_v)`` (a sum
+    of N exponentials) and the summed x-jump given it is ``N mu_x + rho_j
+    J_v + sqrt(N) sigma_x Z``, both exact for any N.
+    """
+    k_n, k_v, k_z = k_t.split(3)
+    n = k_n.poisson(lam_dt, (n_paths,))
+    has = n > 0
+    gam = k_v.gamma(torch.where(has, n, 1.0))
+    jv = torch.where(has, mu_v * gam, 0.0)
+    z = k_z.normal((n_paths,), dtype, lam_dt.device)
+    jx = n * mu_x + rho_j * jv + torch.sqrt(n) * sigma_x * z
+    return jx, jv
+
+
+def _qe_setup(params, spot, maturity, generator, rate, dividend, n_steps, n_paths, antithetic,
+              martingale_correction, device):
+    """The QE step (its drift carries the ``-lam kbar dt`` compensator), a
+    step's co-jump overlay, dt, the ``n_steps`` step sources of
+    ``generator`` and the start state ``(s0, ln_s0, v0)`` of an SVCJ
+    simulation."""
+    dtype = result_dtype(spot, maturity, params.kappa)
+    device = device_of(spot, maturity, *params, default=device)
+    xs = heston_mc._draws(generator, device).split(n_steps)
+    p = params._on(dtype, device)
+    _, _, dt, consts, theta, drift, s0, ln_s0, v0 = heston_mc._setup(
+        p, spot, maturity, rate, dividend, n_steps, n_paths, antithetic, device,
+        extra_drift=p.lam * p.mean_jump())
+    E, c1, c2, k0_plain, k1, k2, k3, k4 = consts
+    qe_step = _make_qe_step(
+        E, c1, c2, theta, k0_plain, k1, k2, k3, k4, drift,
+        n_paths // 2 if antithetic else n_paths, antithetic, martingale_correction, dtype,
+    )
+    lam_dt = p.lam * dt
+
+    def jumps(k_jump):
+        return _jump_overlay(k_jump, n_paths, lam_dt, p.mu_x, p.sigma_x, p.mu_v, p.rho_j,
+                             dtype)
+
+    return qe_step, jumps, dt, xs, s0, ln_s0, v0
+
+
+def _cojump_step(qe_step, jumps):
+    """The step ``(ln_s, v, k_t) -> (ln_s', v')``: QE diffusion, then the
+    step's co-jumps in both the log-price and the variance."""
+
+    def step(ln_s, v, k_t):
+        k_diff, k_jump = k_t.split(2)
+        ln_s_new, v_new = qe_step(ln_s, v, k_diff)
+        jx, jv = jumps(k_jump)
+        return ln_s_new + jx, v_new + jv
+
+    return step
+
+
+def simulate_qe(
+    params: SVCJParams, spot, maturity, generator, *,
+    n_steps: int = 64, n_paths: int = 65536, rate=0.0, dividend=0.0,
+    antithetic: bool = True, martingale_correction: bool = True, device=None,
+) -> MCPaths:
+    """SVCJ paths: Andersen QE diffusion + per-step correlated co-jumps.
+
+    The overlay bumps both the log-price and the variance inside the step
+    loop, so the running average/max/min and every exotic estimator of
+    :mod:`pde_tpu_torch.models.heston_mc` stay valid under co-jumps.
+    ``generator`` is a ``torch.Generator`` on the path's device or a
+    replay.
+    """
+    qe_step, jumps, _, xs, s0, ln_s0, v0 = _qe_setup(
+        params, spot, maturity, generator, rate, dividend, n_steps, n_paths, antithetic,
+        martingale_correction, device)
+    return heston_mc._simulate_stats(_cojump_step(qe_step, jumps), xs, s0, ln_s0, v0, n_steps)
+
+
+def simulate_qe_paths(
+    params: SVCJParams, spot, maturity, generator, *,
+    n_steps: int = 64, n_paths: int = 65536, rate=0.0, dividend=0.0,
+    antithetic: bool = True, martingale_correction: bool = True, device=None,
+):
+    """Stored-path SVCJ simulation ``(S, v)`` of shape ``(n_steps,
+    n_paths)``: feeds Longstaff-Schwartz exercise under co-jump risk through
+    the ``simulate_paths_fn`` seam of :mod:`pde_tpu_torch.solvers.lsm`."""
+    qe_step, jumps, _, xs, _, ln_s0, v0 = _qe_setup(
+        params, spot, maturity, generator, rate, dividend, n_steps, n_paths, antithetic,
+        martingale_correction, device)
+    return heston_mc._simulate_stored(_cojump_step(qe_step, jumps), xs, ln_s0, v0)
+
+
+def simulate_qe_qv(
+    params: SVCJParams, spot, maturity, generator, *,
+    n_steps: int = 64, n_paths: int = 65536, rate=0.0, dividend=0.0,
+    antithetic: bool = True, martingale_correction: bool = True, device=None,
+):
+    """Per-path realized quadratic variation ``(int_0^T v dt, sum Z_x^2)``.
+
+    The MC oracle of the variance-swap hooks with both co-jump legs live:
+    the continuous leg is a trapezoid sum of the variance path (which the
+    v-jumps feed), the jump leg the squared per-step price-jump total.  With
+    at most one arrival per step almost surely, ``jx^2`` is the per-jump sum
+    of squares up to an ``O((lam dt)^2)`` collision bias.
+    """
+    qe_step, jumps, dt, xs, _, ln_s, v = _qe_setup(
+        params, spot, maturity, generator, rate, dividend, n_steps, n_paths, antithetic,
+        martingale_correction, device)
+    iv = qj = torch.zeros_like(ln_s)
+    for k_t in xs:
+        k_diff, k_jump = k_t.split(2)
+        ln_s_new, v_new = qe_step(ln_s, v, k_diff)
+        jx, jv = jumps(k_jump)
+        # trapezoid on the diffused (pre-jump) endpoint: the jump lands at
+        # the step boundary and feeds the NEXT interval's integrand
+        iv = iv + 0.5 * (v + v_new) * dt
+        qj = qj + jx * jx
+        ln_s, v = ln_s_new + jx, v_new + jv
+    return iv, qj
+
+
+def price_european_mc(params: SVCJParams, strikes, maturity, spot, generator, **kwargs):
+    """European vanillas under SVCJ via the QE + co-jump engine.  Returns
+    ``(price, stderr)`` shaped like ``strikes``."""
+    return heston_mc.price_european_mc(params, strikes, maturity, spot, generator,
+                                       simulate_fn=simulate_qe, **kwargs)
+
+
+def price_american_mc(params: SVCJParams, strike, maturity, spot, generator, **kwargs):
+    """American vanilla under SVCJ via Longstaff-Schwartz on the co-jump
+    paths; returns ``(price, stderr)``."""
+    from ..solvers import lsm
+
+    return lsm.price_american_lsm(params, strike, maturity, spot, generator,
+                                  simulate_paths_fn=simulate_qe_paths, **kwargs)
+
+
+def price_path_payoff_mc(params: SVCJParams, payoff_fn, spot, maturity, generator, **kwargs):
+    """Generic path-payoff estimator under SVCJ (Asian/lookback/custom):
+    heston_mc's estimator machinery over :func:`simulate_qe`."""
+    return heston_mc.price_path_payoff_mc(params, payoff_fn, spot, maturity, generator,
+                                          simulate_fn=simulate_qe, **kwargs)

@@ -1159,3 +1159,77 @@ def test_rates_entry_points_on_plain_numbers_run_on_the_card(name):
             0, device=CalibrationOrchestrator().device),
     }
     assert calls[name]().device == torch.device("cuda", 0)
+
+
+def _mc_params(dtype, device):
+    from pde_tpu_torch.models.heston import HestonParams
+
+    return HestonParams(*(torch.tensor(v, dtype=dtype, device=device)
+                          for v in (2.0, 0.04, 0.3, -0.7, 0.04)))
+
+
+def _cpu_replay(seed):
+    from pde_tpu_torch.models import heston_mc
+
+    cpu = torch.device("cpu")
+    return heston_mc._Replay(heston_mc._draws(torch.Generator().manual_seed(seed), cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["pseudo", "sobol"])
+def test_qe_on_card_matches_cpu_on_the_same_draws(sampler):
+    """One replay of a CPU generator's float64 draws: the card's float64
+    paths at 1e-10 relative of the CPU's (libm rounding only), or 1e-12
+    absolute for the barrier weights and variances near 0 (a weight takes
+    the difference of the log-spot and the log-barrier, which cancels near
+    the barrier: a weight of 4.7e-5 sat 2.9e-14 off on the H100); its
+    float32 terminal state within twice the CPU's own float32 error."""
+    _need_cuda()
+    from pde_tpu_torch.models import heston_mc
+
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    kw = dict(n_steps=16, n_paths=4096, rate=0.05, dividend=0.02, sampler=sampler,
+              antithetic=sampler == "pseudo", barrier=125.0)
+    replay = _cpu_replay(3)
+    ref = heston_mc.simulate_qe(_mc_params(torch.float64, cpu), 100.0, 1.0, replay, **kw)
+    card64 = heston_mc.simulate_qe(_mc_params(torch.float64, card), 100.0, 1.0, replay, **kw)
+    assert card64.spot.device == card
+    for got, want in zip(card64, ref):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-10, atol=1e-12)
+    cpu32 = heston_mc.simulate_qe(_mc_params(torch.float32, cpu), 100.0, 1.0, replay, **kw)
+    card32 = heston_mc.simulate_qe(_mc_params(torch.float32, card), 100.0, 1.0, replay, **kw)
+    for field in ("spot", "variance"):
+        want = getattr(ref, field)
+        cpu_err = float((getattr(cpu32, field).double() - want).abs().max())
+        card_err = float((getattr(card32, field).cpu().double() - want).abs().max())
+        assert card_err <= 2.0 * cpu_err, (field, card_err, cpu_err)
+
+
+@pytest.mark.cuda
+def test_lsm_book_on_card():
+    """The LSM book on the card: in float64 each entry equals the single
+    contract's price on the same draws (1e-10) and the CPU's book (1e-10);
+    in float32 the calls fall with strike and the puts rise."""
+    _need_cuda()
+    from pde_tpu_torch.solvers import lsm
+
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    kw = dict(rate=0.05, n_steps=16, n_paths=4096)
+    strikes = [85.0, 95.0, 105.0, 115.0]
+    replay = _cpu_replay(4)
+    ref, _ = lsm.price_american_lsm_batch(_mc_params(torch.float64, cpu), strikes, False, 1.0,
+                                          100.0, replay, **kw)
+    book, _ = lsm.price_american_lsm_batch(_mc_params(torch.float64, card), strikes, False,
+                                           1.0, 100.0, replay, **kw)
+    assert book.device == card
+    np.testing.assert_allclose(book.cpu().numpy(), ref.numpy(), rtol=1e-10)
+    for i, k in enumerate(strikes):
+        single, _ = lsm.price_american_lsm(_mc_params(torch.float64, card), k, 1.0, 100.0,
+                                           replay, **kw)
+        np.testing.assert_allclose(float(book[i]), float(single), rtol=1e-10)
+    p32 = _mc_params(torch.float32, card)
+    g = torch.Generator(device=card).manual_seed(0)
+    puts, _ = lsm.price_american_lsm_batch(p32, strikes, False, 1.0, 100.0, g, **kw)
+    g = torch.Generator(device=card).manual_seed(0)
+    calls, _ = lsm.price_american_lsm_batch(p32, strikes, True, 1.0, 100.0, g, **kw)
+    assert bool((torch.diff(puts) > 0).all()) and bool((torch.diff(calls) < 0).all())

@@ -17,11 +17,11 @@ from pde_tpu_torch.calibrate.orchestrator import CalibrationOrchestrator
 from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
 from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
 from pde_tpu_torch.calibrate.sabr import SABRCalibrator
-from pde_tpu_torch.core import grids, precision
+from pde_tpu_torch.core import grids, precision, qmc
 from pde_tpu_torch.models import (bates, black_scholes, credit, digital, forward_start, g2,
-                                  heston, local_vol, multi_asset, rates, rough_heston, sabr,
-                                  svcj, term_heston, varswap, vix)
-from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde
+                                  heston, heston_mc, local_vol, multi_asset, rates,
+                                  rough_heston, sabr, svcj, term_heston, varswap, vix)
+from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde, lsm, lsm_dual
 
 
 @pytest.fixture()
@@ -78,6 +78,58 @@ RATES_ENTRY_POINTS = {
     "G2Calibrator": lambda d: torch.empty(0, device=G2Calibrator(device=d).device),
     "CalibrationOrchestrator": lambda d: torch.empty(0, device=CalibrationOrchestrator(
         device=d).device),
+}
+
+
+_MC = dict(n_steps=2, n_paths=8)
+# the Monte Carlo entry points: each takes the generator (a CPU one) and
+# the device (None: the card; "cuda" with the CPU generator raises
+# ValueError before it computes)
+MC_ENTRY_POINTS = {
+    "heston_mc.simulate_qe": lambda g, d: heston_mc.simulate_qe(
+        _HESTON, 100.0, 1.0, g, device=d, **_MC),
+    "heston_mc.simulate_qe(sobol)": lambda g, d: heston_mc.simulate_qe(
+        _HESTON, 100.0, 1.0, g, antithetic=False, sampler="sobol", device=d, **_MC),
+    "heston_mc.simulate_qe_paths": lambda g, d: heston_mc.simulate_qe_paths(
+        _HESTON, 100.0, 1.0, g, device=d, **_MC),
+    "heston_mc.price_european_mc": lambda g, d: heston_mc.price_european_mc(
+        _HESTON, [90.0, 110.0], 1.0, 100.0, g, device=d, **_MC),
+    "heston_mc.price_asian_mc": lambda g, d: heston_mc.price_asian_mc(
+        _HESTON, 100.0, 1.0, 100.0, g, device=d, **_MC),
+    "heston_mc.price_barrier_mc": lambda g, d: heston_mc.price_barrier_mc(
+        _HESTON, 100.0, 120.0, 1.0, 100.0, g, continuity_correction=True, device=d, **_MC),
+    "heston_mc.price_digital_mc": lambda g, d: heston_mc.price_digital_mc(
+        _HESTON, 100.0, 1.0, 100.0, g, device=d, **_MC),
+    "heston_mc.price_touch_mc": lambda g, d: heston_mc.price_touch_mc(
+        _HESTON, 120.0, 1.0, 100.0, g, device=d, **_MC),
+    "heston_mc.price_lookback_mc": lambda g, d: heston_mc.price_lookback_mc(
+        _HESTON, 1.0, 100.0, g, device=d, **_MC),
+    "heston_mc.price_path_payoff_mc": lambda g, d: heston_mc.price_path_payoff_mc(
+        _HESTON, lambda p: p.spot, 100.0, 1.0, g, device=d, **_MC),
+    "heston_mc.price_forward_start_mc": lambda g, d: heston_mc.price_forward_start_mc(
+        _HESTON, 1.0, 0.5, 1.0, 100.0, g, device=d, **_MC),
+    "heston_mc.price_cliquet_mc": lambda g, d: heston_mc.price_cliquet_mc(
+        _HESTON, 1.0, 100.0, g, n_periods=2, device=d, **_MC),
+    "heston_mc.greeks_european_mc": lambda g, d: heston_mc.greeks_european_mc(
+        _HESTON, 100.0, 1.0, 100.0, g, device=d, **_MC),
+    "lsm.price_american_lsm": lambda g, d: lsm.price_american_lsm(
+        _HESTON, 100.0, 1.0, 100.0, g, device=d, **_MC),
+    "lsm.price_american_lsm_batch": lambda g, d: lsm.price_american_lsm_batch(
+        _HESTON, [90.0, 110.0], False, 1.0, 100.0, g, device=d, **_MC),
+    "lsm_dual.dual_upper_bound": lambda g, d: lsm_dual.dual_upper_bound(
+        _HESTON, 100.0, 1.0, 100.0, g, n_steps=2, n_reg_paths=8, n_outer=2, n_inner=2,
+        device=d),
+    "bates.simulate_qe": lambda g, d: bates.simulate_qe(_BATES, 100.0, 1.0, g, device=d, **_MC),
+    "bates.price_american_mc": lambda g, d: bates.price_american_mc(
+        _BATES, 100.0, 1.0, 100.0, g, device=d, **_MC),
+    "svcj.simulate_qe_qv": lambda g, d: svcj.simulate_qe_qv(_SVCJ, 100.0, 1.0, g, device=d,
+                                                            **_MC),
+    "svcj.price_european_mc": lambda g, d: svcj.price_european_mc(
+        _SVCJ, 100.0, 1.0, 100.0, g, device=d, **_MC),
+    "qmc.scramble_direction_numbers": lambda g, d: qmc.scramble_direction_numbers(
+        qmc.sobol_direction_numbers(4), g, device=d),
+    "qmc.sobol_normal": lambda g, d: qmc.sobol_normal(qmc.sobol_direction_numbers(4), 8, g,
+                                                      device=d),
 }
 
 
@@ -174,6 +226,9 @@ ENTRY_POINTS = {
     # take the card, and every pricer follows its curve
     **{name: (lambda fn=fn: fn(None)) for name, fn in RATES_ENTRY_POINTS.items()},
     "rates.bachelier_price": lambda: rates.bachelier_price(0.03, 0.03, 0.0075, 1.0),
+    # the Monte Carlo engine: plain numbers take the card
+    **{name: (lambda fn=fn: fn(torch.Generator(), None)) for name, fn in MC_ENTRY_POINTS.items()},
+    "qmc.gray_codes": lambda: qmc.gray_codes(8),
 }
 
 
@@ -227,3 +282,19 @@ def test_rates_entry_points_run_on_the_cpu_when_asked(no_card, name):
     out = RATES_ENTRY_POINTS[name]("cpu")
     assert out.device.type == "cpu"
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("name", sorted(MC_ENTRY_POINTS))
+def test_mc_generator_on_another_device_raises(no_card, name):
+    """A CPU generator for a path on the card: ``ValueError`` before any
+    tensor is made there."""
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        MC_ENTRY_POINTS[name](torch.Generator(), "cuda")
+
+
+@pytest.mark.parametrize("name", sorted(MC_ENTRY_POINTS))
+def test_mc_entry_points_run_on_the_cpu_when_asked(no_card, name):
+    out = MC_ENTRY_POINTS[name](torch.Generator().manual_seed(0), "cpu")
+    first = out if isinstance(out, torch.Tensor) else (
+        next(iter(out.values())) if isinstance(out, dict) else out[0])
+    assert first.device.type == "cpu"
