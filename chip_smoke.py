@@ -94,7 +94,20 @@ checks every result:
    dual bound (12 dates; the sandwich and a gap under 4% + 4 s.e.), the
    16-strike pathwise Greeks (delta within 0.02 of ``greeks_ad``), a Sobol
    European (8 replicates, within 4 s.e. of ``price_accurate``) and a
-   Bates American put by LSM (at least its European less 4 s.e.);
+   Bates American put by LSM (at least its European less 4 s.e.); and the
+   rest of the Monte Carlo desk, float32: the 8-asset basket with two
+   controls (2^20 paths x 16 strikes, within 4 s.e. of a plain float64 run
+   on the CPU, the controls cutting the s.e.), the SLV particle
+   calibration (65,536 x 48 steps, 31 bins; the leverage in its clamp, the
+   martingale within 4 s.e.; the binning's one-hot product timed beside a
+   float32 ``index_add_``), the Hull-White Bermudan MC sandwich (2^15,
+   512 x 32; ordered within 4 s.e.), the four-swap netted CVA (2^16; within
+   4 s.e. of float64 on the CPU), the lifted rough engine (European within
+   4 s.e. + 1% of ``price_rough``, the American put by LSM at least its
+   European less 4 s.e.), the G2++ Bermudan sandwich at its defaults, the
+   spread and rainbow MC (within 4 s.e. of the quadrature and Stulz), and
+   a European through ``lv_simulate_fn`` on bench.py's Dupire surface
+   (within 4 s.e. + 1% of the local-vol PDE, float64 on the CPU);
 5. fused-ADI book: 512 options at 100x50x100 through
    ``heston_adi.solve_fused_batch``, checked against the converged
    Carr-Madan price;
@@ -132,7 +145,13 @@ checks every result:
     ``boundaries_batch`` for the 64-config book by Brennan-Schwartz and by
     projection (K5 on (256, 256)) against ``solve_all_boundaries`` on four
     of its configs; the five OU/HJB rows printed under bench_full.py's
-    metric names.
+    metric names;
+13. the Hull-White Bermudan PDE ladder of bench_full.py (461-479): 64
+    strikes as ONE march of (64, 257) systems, 160 steps, one K5 launch a
+    step on its lane route with the bands shared (exactly 160), within
+    1e-7 + 1e-4 |p| of float64 on the CPU (or twice the CPU's own float32
+    error), the ATM price inside the MC sandwich +- 4 s.e.; timed outside
+    the counted path (``hw_bermudan_pde_ladder_prices_per_sec``).
 
 Before the paths, each of the six kernel wrappers is called on the card
 with an input that requires grad: each must raise (the kernels have no
@@ -140,7 +159,7 @@ backward) and launch nothing, and run under ``torch.no_grad()``; the
 fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
-Each main path (4-12) runs with every kernel's launch count set to 0 just
+Each main path (4-13) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails
 (the rows of item 4 after the headline must launch none),
 and so do the two Heston and local-vol books and the 108-option surface if
@@ -154,12 +173,15 @@ While they run, the first input set of each shape that each path hands K5
 and K6 is kept; afterwards both kernels are held against their plain twins
 on those very inputs, and timed at the shapes of the path whose launches
 the kernel line reports (K5: ``heston_adi.solve``; K6: ``bs_pde.solve`` by
-PSOR), and on lines of their own at the HJB paths' shapes.  Outside the
+PSOR), and on lines of their own at the HJB paths' and the Bermudan ladder's
+shapes.  Outside the
 counted paths, the HJB rows are timed, and the 108-option surface and the
 512-book run through K1's shared-memory route and its first design in
 turns, and each route's options/s is printed.
 Each phase prints one JSON line; then the kernel table (K5's and K6's rows
-with their launches on the HJB paths, ``launches_hjb``), the card's
+with their launches on the HJB paths, ``launches_hjb``; K5's with its
+launches on the Bermudan ladder, ``launches_bermudan``, and its times and
+bound at that shape, ``bermudan``), the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  Run from the
 repository root with no arguments:
@@ -171,8 +193,8 @@ one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
 ``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls, of the
 OU and HJB rows, of the 8192-option grouped pricing, of the 16-surface
 ``calibrate_batch``, of the nine Fourier-priced rows, of the five rates
-and credit rows and of the five Heston Monte Carlo rows under
-``torch.profiler``: wall, the card's busy time
+and credit rows, of the five Heston Monte Carlo rows and of the five rows
+of the rest of the Monte Carlo desk under ``torch.profiler``: wall, the card's busy time
 and idle share, and the kernels that took most of the device time.  Row
 names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 """
@@ -1636,6 +1658,424 @@ MC_PHASES = (phase_heston_mc_qe, phase_lsm_american, phase_lsm_batch, phase_lsm_
              phase_mc_greeks, phase_sobol_european, phase_bates_american)
 
 
+# the rest of the Monte Carlo desk (bench_full.py:349-361, 410-419,
+# 461-489, 540-564) at the bench's full sizes
+BASKET_N, BASKET_REF_N, BASKET_K = 1 << 20, 1 << 21, 16
+SLV = dict(n_steps=48, n_paths=65536, n_bins=31, rate=R)
+SLV_T, SLV_L = 0.5, (0.05, 20.0)
+BERM_SCHED, BERM_LADDER, BERM_NX, BERM_SUB = (1.0, 6.0, 0.5), 64, 257, 16
+BERM_STEPS = 160  # 10 intervals x 16 sub-steps: one K5 launch a step
+BERM_MC = dict(n_paths=1 << 15, n_outer=512, n_inner=32)
+CVA_N, CVA_TRADES = 1 << 16, ((1.0, 1.0, 1.0), (0.9, -1.0, 0.4), (1.1, 1.0, 0.7),
+                              (1.05, -1.0, 0.3))
+MC_REL = 0.01  # the Euler and kernel-fit bias allowed beside 4 s.e. (rough, local vol)
+SANDWICH = {}  # the Bermudan MC sandwich, for the ladder's ATM gate
+
+
+def basket_book(torch, d, dtype):
+    """bench_full.py:349-357: 8 assets, equal weights, spots in [90, 115],
+    vols in [0.18, 0.42], a flat 0.45 correlation, 16 strikes in [85, 120]."""
+    import numpy as np
+
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=d)  # noqa: E731
+    return (t(np.linspace(90.0, 115.0, 8)), t(np.full(8, 0.125)),
+            t(np.linspace(85.0, 120.0, BASKET_K)), t(np.linspace(0.18, 0.42, 8)),
+            t(0.45 * np.ones((8, 8)) + 0.55 * np.eye(8)))
+
+
+def basket_f64_cpu(torch, n, seed, chunk=1 << 19):
+    """The basket book's calls by plain float64 Monte Carlo on the CPU (exact
+    terminal sampling, antithetic pairs, no control): (price, s.e.)."""
+    cpu = torch.device("cpu")
+    spots, w, ks, vols, corr = basket_book(torch, cpu, torch.float64)
+    L = torch.linalg.cholesky(corr)
+    g = torch.Generator().manual_seed(seed)
+    drift = (0.03 - 0.5 * vols**2) * 0.9
+    df = math.exp(-0.03 * 0.9)
+    pairs, chunk = [], min(chunk, n // 2)
+    for _ in range(n // (2 * chunk)):
+        z = torch.randn((chunk, 8), generator=g, dtype=torch.float64) @ L.T
+        legs = [(spots * torch.exp(drift + 0.9**0.5 * vols * sz) @ w)[:, None]
+                for sz in (z, -z)]
+        pairs.append(0.5 * df * sum(torch.clamp_min(b - ks, 0.0) for b in legs))
+    pay = torch.cat(pairs)
+    return pay.mean(0), pay.std(0) / math.sqrt(pay.shape[0])
+
+
+def phase_basket_mc(torch, dev, reps=20):
+    """bench_full.py:349-361: ``price_basket_mc`` (two controls) on 2^20
+    paths x 8 assets x 16 strikes (T 0.9, r 0.03), median of 20 warm calls.
+    Each price within 4 s.e. of a plain float64 run on the CPU on 2^21
+    paths, and the controls cut the s.e. against the same call without
+    them."""
+    from pde_tpu_torch.models import multi_asset
+
+    book = basket_book(torch, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    run = lambda cv: multi_asset.price_basket_mc(  # noqa: E731
+        gen, book[0], book[1], book[2], 0.9, book[3], book[4], rate=0.03, n_paths=BASKET_N,
+        control_variate=cv)
+    (price, se), walls = timed_walls(torch, dev, lambda: run(True), reps)
+    _, se_raw = run(False)
+    ref, ref_se = basket_f64_cpu(torch, BASKET_REF_N, 42)
+    price, se, se_raw = (a.cpu().double() for a in (price, se, se_raw))
+    z = (price - ref).abs() / torch.sqrt(se**2 + ref_se**2)
+    ok = (bool((z <= MC_Z).all()) and bool((se < se_raw).all())
+          and bool(torch.isfinite(price).all()))
+    per = statistics.median(walls)
+    emit(phase="basket_mc", dtype="float32", n_paths=BASKET_N, strikes=BASKET_K,
+         price=price.tolist(), stderr=se.tolist(), stderr_without_controls=se_raw.tolist(),
+         cpu_f64_price=ref.tolist(), cpu_f64_stderr=ref_se.tolist(), max_z=float(z.max()),
+         gate=f"{MC_Z} se of float64 on the CPU; controls cut the se", wall_s_runs=walls,
+         basket_mc_cv_paths_per_sec=BASKET_N / per, ok=ok)
+    if not ok:
+        raise AssertionError("basket_mc_cv_paths_per_sec missed its gate")
+
+
+def bin_forms_ms(torch, dev, reps=50):
+    """One binning of 65,536 particles into 31 bins on the card, both forms:
+    the port's one-hot product (``slv._bin_expectation``) and a float32
+    ``index_add_`` (atomic order), with the spread of the latter's sums
+    over ten runs."""
+    from pde_tpu_torch.models import slv
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    ln_s = math.log(S0) + 0.2 * torch.randn(SLV["n_paths"], generator=g, device=dev)
+    v = 0.04 * torch.rand(SLV["n_paths"], generator=g, device=dev)
+    edges = torch.linspace(math.log(S0) - 0.9, math.log(S0) + 0.9, SLV["n_bins"] + 1,
+                           device=dev)
+    nb = SLV["n_bins"]
+
+    def index_add():
+        idx = torch.clamp(torch.searchsorted(edges, ln_s) - 1, 0, nb - 1)
+        sums = torch.zeros(2, nb, device=dev)
+        sums[0].index_add_(0, idx, torch.ones_like(v))
+        sums[1].index_add_(0, idx, v)
+        return sums
+
+    one_hot = time_ms(torch, lambda: slv._bin_expectation(ln_s, v, edges, nb), reps)
+    atomic = time_ms(torch, index_add, reps)
+    runs = torch.stack([index_add()[1] for _ in range(10)])
+    return dict(one_hot_ms=one_hot, index_add_ms=atomic,
+                index_add_sum_spread=float((runs.max(0).values - runs.min(0).values).max()))
+
+
+def phase_slv_calibration(torch, dev, reps=20):
+    """bench_full.py:410-419: ``calibrate_leverage`` of 65,536 particles x
+    48 steps into 31 bins (flat 0.2 target, Heston TRUE, T 0.5, r 0.05),
+    median of 20 warm calls: the leverage finite and in [l_min, l_max],
+    and the sweep's discounted terminal spot within 4 s.e. of S0 e^{-qT}
+    (q 0); with the binning's two forms timed beside it."""
+    from pde_tpu_torch.models import heston_mc, slv
+
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (lev, paths), walls = timed_walls(torch, dev, lambda: slv.calibrate_leverage(
+        p32, lambda s, t: torch.full_like(s, 0.2), S0, SLV_T, gen, **SLV), reps)
+    disc = math.exp(-R * SLV_T)
+    mean, se = (float(x) for x in heston_mc._mc_estimate(disc * paths.spot.double(),
+                                                          SLV["n_paths"], True))
+    vals = lev.values
+    ok = (bool(torch.isfinite(vals).all()) and float(vals.min()) >= SLV_L[0]
+          and float(vals.max()) <= SLV_L[1] and abs(mean - S0) <= MC_Z * se)
+    per = statistics.median(walls)
+    emit(phase="slv_calibration", dtype="float32", **SLV, maturity=SLV_T,
+         leverage_min=float(vals.min()), leverage_max=float(vals.max()),
+         discounted_mean_spot=mean, martingale_se=se, binning=bin_forms_ms(torch, dev),
+         gate=f"leverage finite in {list(SLV_L)}; martingale {MC_Z} se", wall_s_runs=walls,
+         slv_calibration_particle_steps_per_sec=SLV["n_paths"] * SLV["n_steps"] / per, ok=ok)
+    if not ok:
+        raise AssertionError("slv_calibration_particle_steps_per_sec missed its gate")
+
+
+def hw_params(torch, d, dtype):
+    from pde_tpu_torch.models import rates
+
+    return rates.HullWhiteParams(*(torch.tensor(v, dtype=dtype, device=d) for v in HW),
+                                 rates_curve(torch, d, dtype))
+
+
+def bermudan_ladder(torch, d, dtype):
+    """bench_full.py:461-479: the schedule 1.0 to 6.0 by 0.5, the par rate
+    of the swap from 1.0, and 64 strikes in [0.6, 1.4] par: (params,
+    schedule, par, strikes)."""
+    import numpy as np
+
+    from pde_tpu_torch.models import rates
+
+    p = hw_params(torch, d, dtype)
+    lo, hi, step = BERM_SCHED
+    sched = torch.as_tensor(np.arange(lo, hi + 0.01, step), dtype=dtype, device=d)
+    par = float(rates.hw_swap_rate(p.curve, 1.0, sched[1:]))
+    ks = torch.as_tensor(np.linspace(0.6, 1.4, BERM_LADDER) * par, dtype=dtype, device=d)
+    return p, sched, par, ks
+
+
+def ladder_prices(torch, d, dtype, strikes=None):
+    from pde_tpu_torch.solvers import bermudan_hw
+
+    p, sched, par, ks = bermudan_ladder(torch, d, dtype)
+    return bermudan_hw.bermudan_swaption_pde(p, ks if strikes is None else strikes, sched,
+                                             n_x=BERM_NX, n_sub=BERM_SUB)[0]
+
+
+def phase_hw_bermudan_mc(torch, dev, reps=3):
+    """bench_full.py:481-489: ``bermudan_swaption_mc`` of the ATM payer
+    (2^15 regression paths, 512 x 32 outer x inner), median of 3 warm
+    calls: upper + 4 s.e. >= lower - 4 s.e."""
+    from pde_tpu_torch.solvers import bermudan_hw
+
+    p, sched, par, _ = bermudan_ladder(torch, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out, walls = timed_walls(torch, dev, lambda: bermudan_hw.bermudan_swaption_mc(
+        p, par, sched, gen, **BERM_MC), reps)
+    lo, sel, up, seu = (float(x) for x in out)
+    SANDWICH.update(lower=lo, se_lower=sel, upper=up, se_upper=seu)
+    ok = up + MC_Z * seu >= lo - MC_Z * sel and all(map(math.isfinite, (lo, sel, up, seu)))
+    per = statistics.median(walls)
+    emit(phase="hw_bermudan_mc", dtype="float32", **BERM_MC, lower=lo, se_lower=sel,
+         upper=up, se_upper=seu, gate=f"upper + {MC_Z} se >= lower - {MC_Z} se",
+         wall_s_runs=walls, hw_bermudan_mc_sandwich_wall_s=per,
+         hw_bermudan_duality_gap_pct=100.0 * (up - lo) / max(lo, 1e-12), ok=ok)
+    if not ok:
+        raise AssertionError("hw_bermudan_mc_sandwich_wall_s missed its gate")
+
+
+def cva_desk(torch, d, dtype):
+    """bench_full.py:540-564: four swaps on 0.5 to 5.0 by 0.5 around the
+    par rate from 0.5, uneven notionals, a flat 2% hazard."""
+    import numpy as np
+
+    from pde_tpu_torch.models import credit, rates
+
+    p = hw_params(torch, d, dtype)
+    sched = torch.as_tensor(np.arange(0.5, 5.01, 0.5), dtype=dtype, device=d)
+    k = float(rates.hw_swap_rate(p.curve, 0.5, sched[1:]))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=d)  # noqa: E731
+    trades = [credit.SwapTrade(t(k * m), t(sgn), t(nt)) for m, sgn, nt in CVA_TRADES]
+    return p, credit.flat_hazard(t(0.02)), trades, sched
+
+
+def cva_se(ee_se, dq):
+    """A bound on the CVA's s.e.: the dates' EE errors taken as perfectly
+    correlated (they share paths)."""
+    return 0.6 * float((ee_se * dq).sum())
+
+
+def phase_cva_netting(torch, dev, reps=5):
+    """bench_full.py:540-564: ``cva_netting_hw_mc`` of the four-swap set on
+    2^16 paths, median of 5 warm calls: CVA > 0 and within 4 s.e. of the
+    port's float64 run on the CPU."""
+    from pde_tpu_torch.models import credit
+
+    cpu = torch.device("cpu")
+    desk = cva_desk(torch, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    (cva, ee, ee_se), walls = timed_walls(torch, dev, lambda: credit.cva_netting_hw_mc(
+        *desk, gen, n_paths=CVA_N), reps)
+    desk64 = cva_desk(torch, cpu, torch.float64)
+    ref, _, ref_se = credit.cva_netting_hw_mc(*desk64, torch.Generator().manual_seed(11),
+                                              n_paths=CVA_N)
+    q = desk64[1].q(desk64[3])
+    dq = q[:-1] - q[1:]
+    se = math.hypot(cva_se(ee_se.cpu().double(), dq), cva_se(ref_se, dq))
+    cva, ref = float(cva), float(ref)
+    ok = cva > 0.0 and abs(cva - ref) <= MC_Z * se and math.isfinite(cva)
+    per = statistics.median(walls)
+    emit(phase="cva_netting", dtype="float32", n_paths=CVA_N, trades=len(CVA_TRADES),
+         cva=cva, cpu_f64_cva=ref, combined_se=se, ee=ee.tolist(),
+         gate=f"cva > 0; {MC_Z} se of float64 on the CPU", wall_s_runs=walls,
+         cva_netting4_wall_s=per, ok=ok)
+    if not ok:
+        raise AssertionError("cva_netting4_wall_s missed its gate")
+
+
+def phase_rough_mc(torch, dev):
+    """The lifted rough engine at its defaults, float32 on the card: the
+    European (256 steps, 2^16 paths, strikes 90 and 100, T 0.25) within 4
+    s.e. + 1% of ``price_rough`` (float64 on the CPU), and the American put
+    by LSM (128 steps; K 100, T 0.5, r 0.05) at least its European less 4
+    s.e."""
+    from pde_tpu_torch.models import rough_heston, rough_heston_mc
+
+    cpu = torch.device("cpu")
+    p32 = fourier_params(torch, dev, torch.float32, "rough")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    t0 = time.perf_counter()
+    k = [90.0, 100.0]
+    mc, se = rough_heston_mc.price_european_rough_mc(p32, k, 0.25, S0, gen, rate=0.03)
+    cf = rough_heston.price_rough(fourier_params(torch, cpu, torch.float64, "rough"),
+                                  torch.tensor(k, dtype=torch.float64), 0.25, S0, 0.03, 0.0,
+                                  n_steps=256)
+    mc, se = mc.cpu().double(), se.cpu().double()
+    euro_ok = bool(((mc - cf).abs() <= MC_Z * se + MC_REL * cf).all())
+    amer, amer_se = (float(x) for x in rough_heston_mc.price_american_rough_lsm(
+        p32, 100.0, 0.5, S0, gen, rate=0.05))
+    eur, eur_se = (float(x) for x in rough_heston_mc.price_european_rough_mc(
+        p32, 100.0, 0.5, S0, gen, rate=0.05, is_call=False))
+    sync(torch, dev)
+    ok = euro_ok and amer >= eur - MC_Z * math.hypot(amer_se, eur_se) and math.isfinite(amer)
+    emit(phase="rough_mc", dtype="float32", european=mc.tolist(), european_se=se.tolist(),
+         price_rough_f64=cf.tolist(), american_put=amer, american_se=amer_se,
+         european_put=eur, european_put_se=eur_se,
+         gate=f"european {MC_Z} se + {MC_REL}; american >= european - {MC_Z} se",
+         wall_s=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("the rough Monte Carlo missed its gate")
+
+
+def phase_g2_bermudan(torch, dev):
+    """``bermudan_swaption_g2_mc`` at its defaults (2^16 regression paths,
+    512 x 64) on the ATM payer 1.0 into 4.0 semi-annual: the sandwich
+    ordered within 4 s.e., and the lower bound at least the best European
+    (``g2_swaption``, float64 on the CPU) less 4 s.e."""
+    import numpy as np
+
+    from pde_tpu_torch.models import g2, rates
+    from pde_tpu_torch.solvers import bermudan_g2
+
+    cpu = torch.device("cpu")
+    t = lambda a, d, dt: torch.as_tensor(a, dtype=dt, device=d)  # noqa: E731
+    sched = np.arange(1.0, 4.01, 0.5)
+    p32 = g2.G2Params(*(t(v, dev, torch.float32) for v in G2),
+                      rates_curve(torch, dev, torch.float32))
+    p64 = g2.G2Params(*(t(v, cpu, torch.float64) for v in G2),
+                      rates_curve(torch, cpu, torch.float64))
+    s64 = t(sched, cpu, torch.float64)
+    par = float(rates.hw_swap_rate(p64.curve, 1.0, s64[1:]))
+    t0 = time.perf_counter()
+    lo, sel, up, seu = (float(x) for x in bermudan_g2.bermudan_swaption_g2_mc(
+        p32, par, t(sched, dev, torch.float32), torch.Generator(device=dev).manual_seed(13)))
+    wall = time.perf_counter() - t0
+    best = max(float(g2.g2_swaption(p64, par, float(s64[j]), s64[j + 1:]))
+               for j in range(len(sched) - 1))
+    ok = (up + MC_Z * seu >= lo - MC_Z * sel and lo >= best - MC_Z * sel
+          and all(map(math.isfinite, (lo, sel, up, seu))))
+    emit(phase="g2_bermudan", dtype="float32", lower=lo, se_lower=sel, upper=up, se_upper=seu,
+         best_european_f64=best, gate=f"sandwich ordered; lower >= best european - {MC_Z} se",
+         wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("the G2 Bermudan sandwich missed its gate")
+
+
+def phase_two_asset_mc(torch, dev):
+    """``price_spread_mc`` (Margrabe control; K -5, 5, 10) and
+    ``price_rainbow_mc`` (the four kinds, K 100) at their defaults (2^17
+    paths) on the bench's two assets (rho 0.55): within 4 s.e. + 1e-5 of
+    the price of ``spread_price_quad`` and of Stulz's closed form, float64
+    on the CPU."""
+    from pde_tpu_torch.models import multi_asset
+
+    cpu = torch.device("cpu")
+    two = {k: torch.tensor(v, dtype=torch.float64) for k, v in TWO_ASSET.items()}
+    rho = torch.tensor(0.55, dtype=torch.float64)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    t0 = time.perf_counter()
+    ks = torch.tensor([-5.0, 5.0, 10.0], dtype=torch.float64)
+    rows = {}
+    mc, se = multi_asset.price_spread_mc(gen, strikes=ks.float().to(dev), rho=0.55,
+                                         **TWO_ASSET)
+    rows["spread"] = (mc, se, multi_asset.spread_price_quad(strike=ks, rho=rho, **two))
+    for kind in ("call_on_max", "call_on_min", "put_on_max", "put_on_min"):
+        mc, se = multi_asset.price_rainbow_mc(gen, strikes=100.0, rho=0.55, kind=kind,
+                                              device=dev, **TWO_ASSET)
+        rows[kind] = (mc, se, multi_asset.rainbow_two_asset_price(
+            strike=torch.tensor(100.0, dtype=torch.float64, device=cpu), rho=rho, kind=kind,
+            **two))
+    sync(torch, dev)
+    # beside 4 s.e., the float32 run's own rounding against float64 (1e-5 of
+    # the price): a control that nearly IS the payoff leaves an s.e. of
+    # rounding alone
+    z = {k: float(((mc.cpu().double() - ref).abs() / (se.cpu().double() + 1e-5 * ref.abs()
+                                                       / MC_Z)).max())
+         for k, (mc, se, ref) in rows.items()}
+    ok = all(v <= MC_Z for v in z.values())
+    emit(phase="two_asset_mc", dtype="float32", max_z=z, gate=f"{MC_Z} se + 1e-5 |p|",
+         wall_s=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("the spread or rainbow Monte Carlo missed its gate")
+
+
+def phase_lv_european_mc(torch, dev, interp):
+    """A European through ``lv_simulate_fn`` on bench.py's Dupire surface
+    (``heston_mc.price_european_mc``, 2^16 paths x 100 steps, strikes 90,
+    100, 110, T 1, r 0.04, q 0.01): within 4 s.e. + 1% of the local-vol PDE
+    price (``local_vol_pde.solve``, 200 x 100, float64 on the CPU on the
+    same surface)."""
+    from pde_tpu_torch.models import heston_mc, local_vol
+    from pde_tpu_torch.solvers import local_vol_pde
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    k = [90.0, 100.0, 110.0]
+    mc, se = heston_mc.price_european_mc(
+        None, k, 1.0, S0, torch.Generator(device=dev).manual_seed(15), rate=LV_R,
+        dividend=LV_Q, n_steps=100, n_paths=1 << 16, simulate_fn=local_vol.lv_simulate_fn(
+            interp), device=dev)
+    interp64 = local_vol.SurfaceInterpolator(torch.exp(interp.log_k).cpu(), interp.t.cpu(),
+                                             interp.vols.cpu(), device=cpu,
+                                             dtype=torch.float64)
+    pde = torch.tensor([float(local_vol_pde.solve(interp64, S0, K=kk, T=1.0, r=LV_R, q=LV_Q,
+                                                  device=cpu, dtype=torch.float64,
+                                                  **LV_GRID).price) for kk in k],
+                       dtype=torch.float64)
+    mc, se = mc.cpu().double(), se.cpu().double()
+    ok = bool(((mc - pde).abs() <= MC_Z * se + MC_REL * pde).all())
+    emit(phase="lv_european_mc", dtype="float32", price=mc.tolist(), stderr=se.tolist(),
+         local_vol_pde_f64=pde.tolist(), gate=f"{MC_Z} se + {MC_REL}",
+         wall_s=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("the local-vol Monte Carlo missed its gate")
+
+
+MC_DESK_PHASES = (phase_basket_mc, phase_slv_calibration, phase_hw_bermudan_mc,
+                  phase_cva_netting, phase_rough_mc, phase_g2_bermudan, phase_two_asset_mc)
+
+
+def phase_hw_bermudan_pde_ladder(torch, dev):
+    """bench_full.py:461-479's ladder as ONE march of (64, 257) systems on
+    the card, float32: one K5 launch a step (exactly 160, counted by
+    ``path``).  The prices within 1e-7 + 1e-4 |p| of the port's float64
+    march on the CPU, or within twice the CPU's own float32 error; and the
+    ATM price (float64, CPU) inside the MC sandwich (``phase_hw_bermudan_mc``)
+    +- 4 s.e."""
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    card = ladder_prices(torch, dev, torch.float32)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    ref = ladder_prices(torch, cpu, torch.float64)
+    cpu32 = ladder_prices(torch, cpu, torch.float32).double()
+    limit = PANEL_ATOL + PANEL_RTOL * ref.abs()
+    err, cpu_err = (card.cpu().double() - ref).abs(), (cpu32 - ref).abs()
+    if bool((cpu_err <= limit).all()):
+        gate, ok = f"{PANEL_ATOL} + {PANEL_RTOL} |p|", bool((err <= limit).all())
+    else:
+        gate = "2 x cpu f32 error"
+        ok = float(err.max()) <= 2.0 * float(cpu_err.max())
+    par = bermudan_ladder(torch, cpu, torch.float64)[2]
+    atm = float(ladder_prices(torch, cpu, torch.float64, strikes=par))
+    sw = SANDWICH
+    inside = (sw["lower"] - MC_Z * sw["se_lower"] <= atm <= sw["upper"] + MC_Z * sw["se_upper"])
+    ok = ok and inside and bool(torch.isfinite(card).all()) and bool((card >= 0).all())
+    emit(phase="hw_bermudan_pde_ladder", dtype="float32", strikes=BERM_LADDER, n_x=BERM_NX,
+         n_sub=BERM_SUB, gate=gate, max_abs_vs_cpu_f64=float(err.max()),
+         max_over_limit=float((err / limit).max()), cpu_f32_max_abs_vs_cpu_f64=float(
+             cpu_err.max()), atm_pde_f64=atm, mc_sandwich=sw, atm_inside_sandwich=inside,
+         first_call_wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("hw_bermudan_pde_ladder_prices_per_sec missed its gate")
+
+
+def phase_bermudan_rows(torch, dev, reps=20):
+    """The ladder timed outside the counted paths: median of 20 warm
+    calls, bench_full.py's ``hw_bermudan_pde_ladder_prices_per_sec``."""
+    walls = timed_walls(torch, dev, lambda: ladder_prices(torch, dev, torch.float32), reps)[1]
+    per = statistics.median(walls)
+    emit(phase="hw_bermudan_pde_ladder_rows", wall_s_runs=walls, median_call_s=per,
+         hw_bermudan_pde_ladder_prices_per_sec=BERM_LADDER / per)
+
+
 def timed_walls(torch, dev, fn, reps):
     """One warm call, then ``reps`` host-clock walls, each ending in a sync."""
     fn()
@@ -2903,7 +3343,7 @@ def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path, extra=
     and v sweeps, one launch each a step: the kernel line gives the mean of
     one launch) and ``k6_path`` (the PSOR solve's systems, started at V);
     and, on lines of their own, at the shapes of each (kernel, path) of
-    ``extra``."""
+    ``extra``, whose rows are returned under ``"kernel:path"``."""
     from pde_tpu_torch.ops import tridiag
     from pde_tpu_torch.solvers import lcp
 
@@ -2944,6 +3384,7 @@ def phase_path_inputs(torch, dev, k5_inputs, k6_inputs, k5_path, k6_path, extra=
         for r in rows:
             r["bound"] = bound(r["n_bytes"], r["n_flops"])
         emit(phase="kernel_timing", kernel=key, case=path, shapes=rows)
+        out[f"{key}:{path}"] = rows
     return out
 
 
@@ -3024,6 +3465,30 @@ def mc_profile_rows(torch, dev):
     }
 
 
+def mc_desk_profile_rows(torch, dev):
+    """One call of each row of the rest of the Monte Carlo desk, float32 on
+    the card."""
+    from pde_tpu_torch.models import credit, multi_asset, slv
+    from pde_tpu_torch.solvers import bermudan_hw
+
+    book = basket_book(torch, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    hw, sched, par, _ = bermudan_ladder(torch, dev, torch.float32)
+    desk = cva_desk(torch, dev, torch.float32)
+    return {
+        "basket_mc_cv_1048576": lambda: multi_asset.price_basket_mc(
+            gen, book[0], book[1], book[2], 0.9, book[3], book[4], rate=0.03,
+            n_paths=BASKET_N),
+        "slv_calibration_65536x48": lambda: slv.calibrate_leverage(
+            p32, lambda s, t: torch.full_like(s, 0.2), S0, SLV_T, gen, **SLV),
+        "hw_bermudan_pde_ladder_64": lambda: ladder_prices(torch, dev, torch.float32),
+        "hw_bermudan_mc_sandwich": lambda: bermudan_hw.bermudan_swaption_mc(
+            hw, par, sched, gen, **BERM_MC),
+        "cva_netting4": lambda: credit.cva_netting_hw_mc(*desk, gen, n_paths=CVA_N),
+    }
+
+
 def profile_rows(torch, dev, interp, top=4):
     """One warm call of each row under ``torch.profiler``: the call's wall,
     the card's busy time (device time of its kernels), the idle share and
@@ -3092,6 +3557,7 @@ def profile_rows(torch, dev, interp, top=4):
         **fourier_profile_rows(torch, dev),
         **rates_profile_rows(torch, dev),
         **mc_profile_rows(torch, dev),
+        **mc_desk_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -3193,9 +3659,11 @@ def main() -> None:
     path(phase_calibration, torch, dev, torch.float32)
     # the Heston pricing and batched calibration rows launch no kernel, and
     # their launch lines must say so
-    for fn in (phase_heston_extras, phase_calibrate_batch, *FOURIER_PHASES, *RATES_PHASES,
-               *MC_PHASES):
-        counts = path(fn, torch, dev)[0]
+    for fn, *args in ((phase_heston_extras,), (phase_calibrate_batch,),
+                      *((f,) for f in (*FOURIER_PHASES, *RATES_PHASES, *MC_PHASES,
+                                       *MC_DESK_PHASES)),
+                      (phase_lv_european_mc, interp)):
+        counts = path(fn, torch, dev, *args)[0]
         if any(counts.values()):
             raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")
     launches = {"K1": path(phase_book, torch, dev, needs=("K1", "K1-smem"))[0]["K1"],
@@ -3222,18 +3690,31 @@ def main() -> None:
     path(phase_tridiagonal_solve, torch, dev, needs=("K5", "K5-smem"))
     path(phase_projected_sor, torch, dev, needs=("K6", "K6-warp"))
     hjb_launches = run_ou_hjb_paths(torch, dev, path)
+    # the Bermudan ladder: one K5 launch a step on the lane route, exactly
+    counts = path(phase_hw_bermudan_pde_ladder, torch, dev, needs=("K5", "K5-smem"))[0]
+    if counts["K5"] != BERM_STEPS or counts["K5-smem"] != BERM_STEPS:
+        raise AssertionError(f"the Bermudan ladder launched K5 {counts['K5']} times "
+                             f"({counts['K5-smem']} on its route), not {BERM_STEPS}")
     k5_inputs.close()
     k6_inputs.close()
     measured.update(phase_path_inputs(torch, dev, k5_inputs, k6_inputs,
                                       "phase_heston_scan", "phase_bs_solve",
                                       extra=(("K5", "phase_hjb_projection"),
                                              ("K5", "phase_hjb_batch"),
-                                             ("K6", "phase_hjb_psor"))))
+                                             ("K6", "phase_hjb_psor"),
+                                             ("K5", "phase_hw_bermudan_pde_ladder"))))
     phase_hjb_rows(torch, dev)
+    phase_bermudan_rows(torch, dev)
     phase_k1_routes(torch, dev)
     for k, err in bench_err.items():
         measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
 
+    # K5 on the Bermudan ladder: its launches and its times at (64, 257)
+    berm = measured["K5:phase_hw_bermudan_pde_ladder"][0]
+    berm_bound_ms, berm_bound_by = berm["bound"]
+    on_paths = {"K5": {"launches_bermudan": BERM_STEPS, "bermudan": dict(
+        B=berm["B"], n=berm["n"], ms=berm["ms"], plain_ms=berm["plain_ms"],
+        bound_ms=berm_bound_ms, bound_by=berm_bound_by, library_ms=berm["library_ms"])}}
     rows = []
     for k, info in KERNELS.items():
         m = measured[k]
@@ -3241,7 +3722,8 @@ def main() -> None:
         rows.append({**info, "launches": launches[k], "max_abs_err": m["max_abs_err"],
                      "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": m.get("library_ms"),
-                     **({"launches_hjb": hjb_launches[k]} if k in hjb_launches else {})})
+                     **({"launches_hjb": hjb_launches[k]} if k in hjb_launches else {}),
+                     **on_paths.get(k, {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

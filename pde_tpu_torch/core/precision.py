@@ -20,6 +20,8 @@ unless the caller asks for another device: ``device=None`` means
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = [
@@ -33,6 +35,7 @@ __all__ = [
     "to_tensor",
     "where_flag",
     "check_generator",
+    "cholesky_nan",
 ]
 
 
@@ -120,3 +123,14 @@ def check_generator(generator: torch.Generator, device) -> None:
             device.type == "cuda" and _card_index(gdev) != _card_index(device)):
         raise ValueError(f"the generator is on {gdev} but the path runs on {device}; "
                          f"pass a torch.Generator(device={str(device)!r})")
+
+
+def cholesky_nan(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``a`` (batched on leading axes), NaN below
+    the diagonal and 0 above it where ``a`` is not positive definite in its
+    dtype, as ``jnp.linalg.cholesky`` returns it: no error and no host
+    read.  A jitter such as the reference's ``1e-12 I`` vanishes in
+    float32, so a rho = 1 pair there takes this branch."""
+    L, info = torch.linalg.cholesky_ex(a)
+    failed = (info != 0)[..., None, None]
+    return torch.where(failed, torch.full_like(L, math.nan).tril(), L)

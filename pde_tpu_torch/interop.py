@@ -20,6 +20,7 @@ from .models.ou import OUParams
 from .models.rates import CIRParams, DiscountCurve, HullWhiteParams, VasicekParams
 from .models.rough_heston import RoughHestonParams
 from .models.sabr import SABRParams
+from .models.slv import LeverageSurface
 from .models.svcj import SVCJParams
 from .models.term_heston import TermHestonParams
 from .solvers.bs_pde import BSPDEParams
@@ -30,7 +31,8 @@ __all__ = ["tensor", "heston_params", "sabr_params", "ou_params", "quotes", "gro
            "surface_interpolator", "heston_pde_params", "bs_pde_params", "hjb_params",
            "bates_params", "svcj_params", "term_heston_params", "forward_start_params",
            "rough_heston_params", "discount_curve", "vasicek_params", "cir_params",
-           "hull_white_params", "g2_params", "hazard_curve", "swap_trade"]
+           "hull_white_params", "g2_params", "hazard_curve", "swap_trade",
+           "leverage_surface"]
 
 
 def tensor(x, device="cpu", dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -173,6 +175,13 @@ def surface_interpolator(interp, device="cpu",
                               np.array(interp.vols), device=device, dtype=dtype)
     out.log_k = tensor(log_k, device, dtype)
     return out
+
+
+def leverage_surface(lev, device="cpu",
+                     dtype: torch.dtype = torch.float64) -> LeverageSurface:
+    """The JAX package's calibrated ``slv.LeverageSurface`` as the port's,
+    field by field."""
+    return _fields(LeverageSurface, lev, device, dtype)
 
 
 def quotes(strikes, maturities, prices, is_calls, device="cpu",

@@ -1,10 +1,12 @@
 """Pricing models: Black-Scholes closed forms, Heston Carr-Madan pricers and
 the models that plug into their characteristic-function hook (Bates, SVCJ,
 term-structure and forward-start Heston), digitals, variance and VIX
-products, rough Heston, two-asset closed forms, the Heston QE Monte Carlo
-engine (with the Bates and SVCJ jump simulators), Dupire local volatility,
-the SABR smile, the Ornstein-Uhlenbeck process, the short-rate models
-(Vasicek, CIR, Hull-White, G2++) and credit (hazard curves, CDS)."""
+products, rough Heston and its lifted Monte Carlo, multi-asset closed
+forms and Monte Carlo, the Heston QE Monte Carlo engine (with the Bates and
+SVCJ jump simulators), Dupire local volatility and its Monte Carlo,
+stochastic-local volatility, the SABR smile, the Ornstein-Uhlenbeck
+process, the short-rate models (Vasicek, CIR, Hull-White, G2++) and credit
+(hazard curves, CDS, swap and netting-set CVA)."""
 
 from . import (  # noqa: F401
     bates,
@@ -20,7 +22,9 @@ from . import (  # noqa: F401
     ou,
     rates,
     rough_heston,
+    rough_heston_mc,
     sabr,
+    slv,
     svcj,
     term_heston,
     varswap,

@@ -560,7 +560,7 @@ def price_path_payoff_mc(
     simulator; with QMC it must take ``sampler``.
     """
     sim = simulate_fn or simulate_qe
-    device = device_of(spot, maturity, *params, default=device)
+    device = device_of(spot, maturity, *_leaves(params), default=device)
     source = _draws(generator, device)
     if sampler == "sobol":
         if n_paths % n_replicates:
@@ -598,18 +598,25 @@ def price_path_payoff_mc(
     return price, stderr
 
 
+def _leaves(params):
+    """A parameter record's fields, for the device and dtype rules; none
+    for ``params=None`` (a ``simulate_fn`` that carries its own model, as
+    the local-vol simulator does)."""
+    return () if params is None else tuple(params)
+
+
 def _strike_vector(strikes, params, spot, maturity, device):
     """``strikes`` as an at-least-1-d tensor in the simulation's dtype, or
     its own where that is wider (a float64 strike on a float32 path is
     compared in float64, as in the reference)."""
-    dtype = result_dtype(strikes, spot, maturity, params.kappa)
+    dtype = result_dtype(strikes, spot, maturity, *_leaves(params)[:1])
     return torch.atleast_1d(to_tensor(strikes, dtype, device))
 
 
 def _vanilla_mc(params, strikes, maturity, spot, generator, field, is_call, device, **kw):
     """(price, stderr) of vanillas on one MCPaths field, shaped like
     ``strikes`` (the European and Asian pricers)."""
-    device = device_of(spot, maturity, *params, default=device)
+    device = device_of(spot, maturity, *_leaves(params), default=device)
     generator = _draws(generator, device)
     strikes_a = _strike_vector(strikes, params, spot, maturity, device)
     sign = _sign(is_call, strikes_a.shape, strikes_a.dtype, device)
@@ -779,7 +786,7 @@ def price_digital_mc(
     """
     if kind not in ("cash", "asset"):
         raise ValueError(f"kind must be 'cash' or 'asset', got {kind!r}")
-    device = device_of(spot, maturity, *params, default=device)
+    device = device_of(spot, maturity, *_leaves(params), default=device)
     generator = _draws(generator, device)
     strikes_a = _strike_vector(strikes, params, spot, maturity, device)
     sign = _sign(is_call, strikes_a.shape, strikes_a.dtype, device)

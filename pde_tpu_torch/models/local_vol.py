@@ -1,5 +1,6 @@
-"""Dupire local volatility, extracted by automatic differentiation (twin of
-``pde_tpu/models/local_vol.py``, without the Monte Carlo simulator).
+"""Dupire local volatility, extracted by automatic differentiation, and
+Monte Carlo under a local-vol surface (twin of
+``pde_tpu/models/local_vol.py``).
 
 The Dupire (1994) local variance
 
@@ -11,6 +12,11 @@ second derivative), through its complex characteristic function.  The
 pricers are elementwise in (K, T), so one jvp with a ones tangent gives
 every point's own derivative: a whole (maturities x strikes) surface is
 differentiated in one call, with no ``vmap``.
+
+:func:`simulate_local_vol` marches log-Euler paths under a surface and
+returns the Heston engine's :class:`~pde_tpu_torch.models.heston_mc.MCPaths`,
+so every path-payoff estimator there prices under smile-consistent
+dynamics through :func:`lv_simulate_fn`.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ __all__ = [
     "local_vol_from_price_fn",
     "dupire_surface",
     "local_vol_from_implied_fn",
+    "simulate_local_vol",
+    "lv_simulate_fn",
     "SurfaceInterpolator",
 ]
 
@@ -144,6 +152,68 @@ def local_vol_from_implied_fn(iv_fn, strike, maturity, spot, rate=0.0,
     ok = (denom > 1e-6) & (dw_dt > 0.0) & torch.isfinite(var)
     var = torch.clamp(var, floor * floor, cap * cap)
     return torch.where(ok, torch.sqrt(var), torch.full_like(var, float("nan")))
+
+
+def simulate_local_vol(vol_fn, spot, maturity, generator, *, n_steps: int = 64,
+                       n_paths: int = 65536, rate=0.0, dividend=0.0,
+                       antithetic: bool = True, device=None):
+    """Log-Euler Monte Carlo under a local-vol surface: per step
+
+        ln S += (r - q - 0.5 sigma^2(S, t)) dt + sigma(S, t) sqrt(dt) Z
+
+    with ``vol_fn(s, t)`` (a :class:`SurfaceInterpolator` or any closure)
+    evaluated at the left point of each step.  Returns
+    :class:`~pde_tpu_torch.models.heston_mc.MCPaths` (the terminal
+    ``variance`` field is sigma^2 at the terminal spot), so the exotic
+    estimators and the delta-one control variate apply.
+
+    ``generator`` is a ``torch.Generator`` on the path's device or a replay
+    (:mod:`pde_tpu_torch.models.heston_mc`), split into ``n_steps`` step
+    sources with one normal draw each, as the reference splits its key.
+    Runs on the first tensor's device among ``spot`` and ``maturity``,
+    else on ``device``, else on the card.
+    """
+    from .heston_mc import MCPaths, _draws
+
+    dtype = result_dtype(spot, maturity)
+    device = device_of(spot, maturity, default=device)
+    source = _draws(generator, device)
+    if antithetic and n_paths % 2:
+        raise ValueError("antithetic sampling needs an even n_paths")
+    n_draw = n_paths // 2 if antithetic else n_paths
+
+    T = to_tensor(maturity, dtype, device)
+    dt_step = T / n_steps
+    sq_dt = torch.sqrt(dt_step)
+    drift_rq = to_tensor(rate, dtype, device) - to_tensor(dividend, dtype, device)
+    s0 = to_tensor(spot, dtype, device)
+    ln_s = torch.log(s0).expand(n_paths)
+    s_sum = torch.zeros(n_paths, dtype=dtype, device=device)
+    s_max = s_min = s0.expand(n_paths)
+    ts = dt_step * torch.arange(n_steps, dtype=dtype, device=device)  # left points
+    for t, k_t in zip(ts, source.split(n_steps)):
+        z = k_t.normal((n_draw,), dtype, device)
+        z = torch.cat([z, -z]) if antithetic else z
+        sig = vol_fn(torch.exp(ln_s), t)
+        ln_s = ln_s + (drift_rq - 0.5 * sig * sig) * dt_step + sig * sq_dt * z
+        s = torch.exp(ln_s)
+        s_sum = s_sum + s
+        s_max = torch.maximum(s_max, s)
+        s_min = torch.minimum(s_min, s)
+    spot_T = torch.exp(ln_s)
+    sig_T = vol_fn(spot_T, T)
+    return MCPaths(spot_T, sig_T * sig_T, s_sum / n_steps, s_max, s_min)
+
+
+def lv_simulate_fn(vol_fn):
+    """Adapter making :func:`simulate_local_vol` a drop-in ``simulate_fn``
+    for the :mod:`pde_tpu_torch.models.heston_mc` estimators, which pass a
+    parameter record first (ignored here: the surface is the model; the
+    estimators take ``params=None``) and ``device=``."""
+    def fn(params, spot, maturity, generator, **kwargs):
+        del params
+        return simulate_local_vol(vol_fn, spot, maturity, generator, **kwargs)
+    return fn
 
 
 class SurfaceInterpolator:

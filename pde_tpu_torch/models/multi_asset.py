@@ -1,6 +1,5 @@
-"""Multi-asset options: baskets, spreads, exchanges and two-asset rainbows,
-the closed-form and quadrature half (twin of
-``pde_tpu/models/multi_asset.py``).
+"""Multi-asset options: baskets, spreads, exchanges and two-asset rainbows
+(twin of ``pde_tpu/models/multi_asset.py``).
 
 * Closed forms: the geometric basket (exactly lognormal), Margrabe's
   exchange option, Kirk's spread approximation, Stulz's two-asset rainbows.
@@ -9,11 +8,20 @@ the closed-form and quadrature half (twin of
   form); the bivariate normal CDF by Genz's arcsin-integral form on a fixed
   Gauss-Legendre panel.
 
-Every pricer broadcasts over its quote arguments (strike, rho, spots,
-vols, maturity): one call prices a whole book, a quadrature gaining a
-trailing node axis that it sums away.  The Monte Carlo names of the
-reference (``sample_terminal_gbm``, ``price_*_mc``) come with the port's
-Monte Carlo module.
+* Monte Carlo by exact terminal sampling: ``S_T = S_0 exp((r - q -
+  sigma^2/2) T + sqrt(T) sigma L z)`` with ``L`` the correlation's Cholesky
+  factor, one ``(paths, n) @ (n, n)`` product and no time stepping; the
+  geometric basket (exact closed form) and Margrabe's exchange option are
+  the control variates.  As in the reference, the Monte Carlo names work
+  in float32 whatever their inputs' dtype, their products in full float32
+  (TF32 off).  Where the reference takes a PRNG key they take a
+  ``torch.Generator`` on the path's device or a replay
+  (:mod:`pde_tpu_torch.models.heston_mc`); the normals are drawn from it
+  unsplit, as the reference draws them from its key.
+
+Every closed form and quadrature broadcasts over its quote arguments
+(strike, rho, spots, vols, maturity): one call prices a whole book, a
+quadrature gaining a trailing node axis that it sums away.
 """
 
 from __future__ import annotations
@@ -24,8 +32,9 @@ import math
 import numpy as np
 import torch
 
-from ..core.precision import device_of, result_dtype, to_tensor, where_flag
+from ..core.precision import cholesky_nan, device_of, result_dtype, to_tensor, where_flag
 from ..utils.stats import norm_cdf, norm_pdf
+from .heston_mc import _draws, _sign
 
 __all__ = [
     "bivariate_norm_cdf",
@@ -34,6 +43,10 @@ __all__ = [
     "kirk_spread_price",
     "spread_price_quad",
     "rainbow_two_asset_price",
+    "sample_terminal_gbm",
+    "price_basket_mc",
+    "price_spread_mc",
+    "price_rainbow_mc",
     "implied_correlation",
 ]
 
@@ -251,6 +264,215 @@ def rainbow_two_asset_price(
     if kind == "put_on_min":
         return cmin - fwd_min + df * strike
     return cmax - fwd_max + df * strike
+
+
+# ---------------------------------------------------------------------------
+# Monte Carlo (exact terminal sampling: one product, no time stepping)
+
+
+def _exp(x):
+    """exp of a tensor, or of a plain number in float64 (the reference's
+    weakly typed scalars), which rounds to float32 where it meets a path."""
+    return torch.exp(x) if isinstance(x, torch.Tensor) else math.exp(x)
+
+
+def _sqrt(x):
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
+def _chol_corr(corr):
+    """Cholesky factor of a correlation matrix with the reference's 1e-12
+    jitter, so a numerically semidefinite input (a rho = 1 pair) still
+    factorizes in float64.  In float32 the jitter vanishes and such a pair
+    is not positive definite: the factor is then NaN below the diagonal,
+    as ``jnp.linalg.cholesky`` returns it, not an error."""
+    n = corr.shape[-1]
+    eye = torch.eye(n, dtype=corr.dtype, device=corr.device)
+    return cholesky_nan(corr + 1e-12 * eye)
+
+
+def sample_terminal_gbm(
+    generator, spots, vols, corr, maturity, rate=0.0, dividends=0.0,
+    n_paths: int = 131072, antithetic: bool = True, device=None,
+):
+    """Draw S_T for n correlated GBM assets: exact in distribution, no
+    time-stepping bias, float32.
+
+    Returns ``(s_t, z)`` with ``s_t`` of shape (n_paths, n_assets).  The
+    correlation is applied as ``z @ L.T`` in full float32, and the same
+    ``z`` is returned so control-variate payoffs reuse identical draws.
+    With ``antithetic`` the second half of the paths is the negation of
+    the first.  Runs on the first tensor's device among the inputs, else
+    on ``device``, else on the card.
+    """
+    from ..calibrate.lm import _full_fp32_matmul  # calibrate imports the models
+
+    device = device_of(spots, vols, corr, maturity, default=device)
+    source = _draws(generator, device)
+    f32 = torch.float32
+    spots = to_tensor(spots, f32, device)
+    vols = to_tensor(vols, f32, device)
+    dividends = to_tensor(dividends, f32, device).expand(spots.shape)
+    n_assets = spots.shape[0]
+    if antithetic:
+        z0 = source.normal((n_paths // 2, n_assets), f32, device)
+        z = torch.cat([z0, -z0])
+    else:
+        z = source.normal((n_paths, n_assets), f32, device)
+    L = _chol_corr(to_tensor(corr, f32, device))
+    with _full_fp32_matmul():
+        zc = z @ L.T
+    drift = (rate - dividends - 0.5 * vols**2) * maturity
+    s_t = spots[None, :] * torch.exp(drift[None, :] + _sqrt(maturity) * vols[None, :] * zc)
+    return s_t, z
+
+
+def _mc_mean_stderr(x, antithetic):
+    """Mean and standard error; antithetic pairs averaged first so the
+    stderr reflects the actual (paired) sampling distribution."""
+    n = x.shape[0]
+    if antithetic:
+        half = n // 2
+        x = 0.5 * (x[:half] + x[half:])
+        n = half
+    m = torch.mean(x, dim=0)
+    se = torch.std(x, dim=0, correction=1) / math.sqrt(n)
+    return m, se
+
+
+def _squeezed(strikes, price, se):
+    """``(price, se)`` shaped like ``strikes``."""
+    if np.ndim(strikes) == 0:
+        return price[0], se[0]
+    return price, se
+
+
+def price_basket_mc(
+    generator, spots, weights, strikes, maturity, vols, corr,
+    rate=0.0, dividends=0.0, is_call=True,
+    n_paths: int = 131072, antithetic: bool = True,
+    control_variate: bool = True, device=None,
+):
+    """Arithmetic-basket European option by exact terminal sampling.
+
+    With ``control_variate`` two controls on the SAME draws are regressed
+    out per strike (a 2x2 regression, vectorized over the ladder): the
+    geometric basket, moment-matched so its forward equals the arithmetic
+    forward (``(c G - K)^+ = c (G - K/c)^+``, so its exact expectation is
+    :func:`geometric_basket_price` at the scaled strike), and the
+    discounted basket level (exact expectation: the discounted arithmetic
+    forward).  Returns ``(price, stderr)``, float32, shaped like
+    ``strikes``.  The closed forms of the controls run in the inputs'
+    precision (float64 for float64 tensors), as in the reference.
+    """
+    from ..calibrate.lm import _full_fp32_matmul
+
+    device = device_of(spots, weights, strikes, maturity, vols, corr, default=device)
+    generator = _draws(generator, device)
+    f32 = torch.float32
+    strikes_a = torch.atleast_1d(to_tensor(strikes, f32, device))
+    weights = to_tensor(weights, f32, device)
+    sign = _sign(is_call, (), torch.float32, device)
+    s_t, _ = sample_terminal_gbm(generator, spots, vols, corr, maturity, rate, dividends,
+                                 n_paths=n_paths, antithetic=antithetic, device=device)
+    df = _exp(-rate * maturity)
+    with _full_fp32_matmul():
+        basket = s_t @ weights  # (paths,)
+        pay = df * torch.clamp_min(sign * (basket[:, None] - strikes_a[None, :]), 0.0)
+        if control_variate:
+            dt = result_dtype(spots, vols, corr)
+            spots_m, vols_m, corr_m = (to_tensor(a, dt, device) for a in (spots, vols, corr))
+            m, s2 = _log_basket_moments(spots_m, weights, vols_m, corr_m, rate, dividends,
+                                        maturity)
+            divs_b = to_tensor(dividends, dt, device).expand(spots_m.shape)
+            fwd_arith = torch.sum(weights * spots_m * torch.exp((rate - divs_b) * maturity))
+            scale = (fwd_arith / torch.exp(m + 0.5 * s2)).to(f32)
+            geo = scale * torch.exp(torch.log(torch.clamp_min(s_t, 1e-300)) @ weights)
+            cv_pay = df * torch.clamp_min(sign * (geo[:, None] - strikes_a[None, :]), 0.0)
+            cv_exact = scale * geometric_basket_price(
+                spots_m, weights, strikes_a / scale, maturity, vols_m, corr_m, rate,
+                dividends, is_call).to(pay.dtype)
+            lvl = df * basket
+            lvl_exact = df * fwd_arith.to(pay.dtype)
+            c1 = cv_pay - cv_pay.mean(0)  # (paths, K)
+            c2 = (lvl - lvl.mean())[:, None]  # (paths, 1)
+            p0 = pay - pay.mean(0)
+            v11 = torch.clamp_min(torch.mean(c1 * c1, dim=0), 1e-30)
+            v12 = torch.mean(c1 * c2, dim=0)
+            v22 = torch.clamp_min(torch.mean(c2 * c2), 1e-30)
+            b1 = torch.mean(p0 * c1, dim=0)
+            b2 = torch.mean(p0 * c2, dim=0)
+            det = torch.clamp_min(v11 * v22 - v12 * v12, 1e-30)
+            beta1 = (b1 * v22 - b2 * v12) / det
+            beta2 = (v11 * b2 - v12 * b1) / det
+            pay = (pay - beta1[None, :] * (cv_pay - cv_exact[None, :])
+                   - beta2[None, :] * (lvl - lvl_exact)[:, None])
+    return _squeezed(strikes, *_mc_mean_stderr(pay, antithetic))
+
+
+def _pair(spot1, spot2, vol1, vol2, div1, div2, rho, device):
+    """The two assets' spots, vols, dividends and correlation for
+    :func:`sample_terminal_gbm` (float32, as there)."""
+    f32 = torch.float32
+    stack = lambda a, b: torch.stack([to_tensor(a, f32, device),  # noqa: E731
+                                      to_tensor(b, f32, device)])
+    rho = to_tensor(rho, f32, device)
+    one = torch.ones_like(rho)
+    corr = torch.stack([torch.stack([one, rho]), torch.stack([rho, one])])
+    return stack(spot1, spot2), stack(vol1, vol2), stack(div1, div2), corr
+
+
+def price_spread_mc(
+    generator, spot1, spot2, strikes, maturity, vol1, vol2, rho,
+    rate=0.0, div1=0.0, div2=0.0, is_call=True,
+    n_paths: int = 131072, antithetic: bool = True,
+    control_variate: bool = True, device=None,
+):
+    """Spread option E[e^{-rT}(S1 - S2 - K)^+] by exact terminal sampling,
+    with the Margrabe exchange payoff (exact expectation, in the inputs'
+    precision) as control variate.  Returns ``(price, stderr)``, float32,
+    shaped like ``strikes``; cross-checks :func:`spread_price_quad`."""
+    device = device_of(spot1, spot2, strikes, maturity, vol1, vol2, rho, default=device)
+    generator = _draws(generator, device)
+    strikes_a = torch.atleast_1d(to_tensor(strikes, torch.float32, device))
+    sign = _sign(is_call, (), torch.float32, device)
+    spots, vols, divs, corr = _pair(spot1, spot2, vol1, vol2, div1, div2, rho, device)
+    s_t, _ = sample_terminal_gbm(generator, spots, vols, corr, maturity, rate, divs,
+                                 n_paths=n_paths, antithetic=antithetic, device=device)
+    df = _exp(-rate * maturity)
+    spread = s_t[:, 0] - s_t[:, 1]
+    pay = df * torch.clamp_min(sign * (spread[:, None] - strikes_a[None, :]), 0.0)
+    if control_variate:
+        cv_pay = df * torch.clamp_min(spread, 0.0)
+        dt = result_dtype(spot1, spot2, maturity, vol1, vol2, rho)
+        cv_exact = margrabe_price(*(to_tensor(a, dt, device) for a in (
+            spot1, spot2, maturity, vol1, vol2, rho)), rate, div1, div2).to(pay.dtype)
+        cov = torch.mean((pay - pay.mean(0)) * (cv_pay - cv_pay.mean())[:, None], dim=0)
+        var = torch.clamp_min(torch.var(cv_pay, correction=0), 1e-30)
+        beta = cov / var
+        pay = pay - beta[None, :] * (cv_pay - cv_exact)[:, None]
+    return _squeezed(strikes, *_mc_mean_stderr(pay, antithetic))
+
+
+def price_rainbow_mc(
+    generator, spot1, spot2, strikes, maturity, vol1, vol2, rho,
+    rate=0.0, div1=0.0, div2=0.0, kind: str = "call_on_max",
+    n_paths: int = 131072, antithetic: bool = True, device=None,
+):
+    """Two-asset rainbow by exact terminal sampling, the Monte Carlo twin
+    of :func:`rainbow_two_asset_price`.  Returns ``(price, stderr)``,
+    float32, shaped like ``strikes``."""
+    device = device_of(spot1, spot2, strikes, maturity, vol1, vol2, rho, default=device)
+    generator = _draws(generator, device)
+    strikes_a = torch.atleast_1d(to_tensor(strikes, torch.float32, device))
+    spots, vols, divs, corr = _pair(spot1, spot2, vol1, vol2, div1, div2, rho, device)
+    s_t, _ = sample_terminal_gbm(generator, spots, vols, corr, maturity, rate, divs,
+                                 n_paths=n_paths, antithetic=antithetic, device=device)
+    sel = torch.amax(s_t, dim=1) if "max" in kind else torch.amin(s_t, dim=1)
+    sign = 1.0 if kind.startswith("call") else -1.0
+    df = _exp(-rate * maturity)
+    pay = df * torch.clamp_min(sign * (sel[:, None] - strikes_a[None, :]), 0.0)
+    return _squeezed(strikes, *_mc_mean_stderr(pay, antithetic))
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,12 @@ port splits its source as the reference splits its key (``n_steps`` step
 keys, then ``(k_u, k_z)`` per step; ``(k_lms, k_shift)`` for Sobol; one key
 per Sobol replicate; ``(k_diff, k_n, k_j)`` per Bates step; ``(k_diff,
 k_jump)`` then ``(k_n, k_v, k_z)`` per SVCJ step; ``(k_reg, k_outer,
-k_inner)`` for the dual bound), so a simulation run on ``JaxKey(key)``
-sees the draws the reference makes from ``key``.
+k_inner)`` for the dual bound; the unsplit key for the multi-asset terminal
+normals; one key a local-vol step; ``(k_w, k_b)`` a lifted rough step;
+``(k_u, k_z)`` an SLV step; one key an event date, a ``(2, paths)`` normal
+each, and ``(k_next, k_draw)`` chains in the Bermudan continuations; a
+``(3, paths)`` normal a G2++ step), so a simulation run on
+``JaxKey(key)`` sees the draws the reference makes from ``key``.
 """
 
 import jax

@@ -8,8 +8,14 @@ Newton slope is the legs' closed form, the reference's a nested
 both), the swap CVA against the reference compiled at 1e-10 (see
 ``tests/test_torch_rates.py``).  The JAX suite's pins are kept (credit
 triangle, zero value at par, exact repricing, flat spreads give a flat
-hazard, CVA ordering).  The netting-set Monte Carlo waits for the port of
-``solvers/bermudan_hw.py``.
+hazard, CVA ordering).  The netting-set Monte Carlo runs on the
+reference's own draws (``jax_key_draws.JaxKey``: one key a reset date, a
+``(2, paths)`` normal draw each), its CVA, EE and EE standard errors at
+1e-10 relative; on the port's generator (Philox) the reference's pins
+(``tests/test_credit.py:129-175``): one swap reproduces the closed-form
+strip within 5% and each EE its European swaption within 5 s.e.,
+offsetting trades net to exactly zero, and netting a payer with an
+out-of-the-money receiver never raises the CVA.
 """
 
 import jax
@@ -17,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_key_draws import JaxKey
 
 from pde_tpu.models import credit as jc
 from pde_tpu.models import rates as jr
@@ -154,3 +161,59 @@ def test_swap_trade_is_a_plain_record():
     trade = tc.SwapTrade(_t(0.04), _t(-1.0), _t(0.4))
     assert trade._fields == jc.SwapTrade._fields
     assert float(trade.payer_sign) == -1.0
+
+
+@pytest.fixture(scope="module")
+def hw_pair(curves):
+    j = jr.HullWhiteParams(jnp.asarray(0.1), jnp.asarray(0.012), curves[0])
+    return j, interop.hull_white_params(j)
+
+
+NETTING_TRADES = ((1.0, 1.0, 1.0), (0.9, -1.0, 0.4), (1.1, 1.0, 0.7), (1.05, -1.0, 0.3))
+
+
+def test_cva_netting_matches_reference(hw_pair):
+    """bench_full.py:540-564's four trades, smaller: uneven notionals so the
+    float legs do not net to zero."""
+    j, t = hw_pair
+    sched = np.arange(0.5, 2.01, 0.5)
+    k = float(jr.hw_swap_rate(j.curve, 0.5, jnp.asarray(sched[1:])))
+    jt = [jc.SwapTrade(jnp.asarray(k * m), jnp.asarray(s), jnp.asarray(n))
+          for m, s, n in NETTING_TRADES]
+    key = jax.random.PRNGKey(11)
+    want = jc.cva_netting_hw_mc(j, jc.flat_hazard(0.02), jt, jnp.asarray(sched), key,
+                                n_paths=2048)
+    got = tc.cva_netting_hw_mc(t, interop.hazard_curve(jc.flat_hazard(0.02)),
+                               [interop.swap_trade(tr_) for tr_ in jt], _t(sched), JaxKey(key),
+                               n_paths=2048)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-10)
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _trade(k, sign, notional):
+    return tc.SwapTrade(_t(k), _t(sign), _t(notional))
+
+
+def test_cva_netting_pins_on_the_port_s_draws(hw_pair):
+    _, t = hw_pair
+    sched = _t(np.arange(0.5, 3.01, 0.5))
+    K = float(tr.hw_swap_rate(t.curve, 0.5, sched[1:]))
+    hz = tc.flat_hazard(_t(0.02))
+    cf = float(tc.cva_swap_hw(t, hz, K, sched))
+    cva, ee, se = tc.cva_netting_hw_mc(t, hz, [_trade(K, 1.0, 1.0)], sched, _gen(0),
+                                       n_paths=1 << 12)
+    assert abs(float(cva) / cf - 1.0) < 0.05
+    for j in range(len(sched) - 1):
+        sw = float(tr.hw_swaption(t, K, float(sched[j]), sched[j + 1:]))
+        assert abs(float(ee[j]) - sw) < 5 * float(se[j]) + 1e-6
+    cva0, ee0, _ = tc.cva_netting_hw_mc(t, hz, [_trade(K, 1.0, 1.0), _trade(K, -1.0, 1.0)],
+                                        sched, _gen(1), n_paths=1 << 12)
+    assert float(cva0) == 0.0 and float(ee0.abs().max()) == 0.0
+    payer, recv = _trade(K, 1.0, 1.0), _trade(K * 0.8, -1.0, 0.5)
+    cva_p, _, _ = tc.cva_netting_hw_mc(t, hz, [payer], sched, _gen(2), n_paths=1 << 12)
+    cva_n, _, _ = tc.cva_netting_hw_mc(t, hz, [payer, recv], sched, _gen(2), n_paths=1 << 12)
+    assert float(cva_n) <= float(cva_p) + 1e-10

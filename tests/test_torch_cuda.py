@@ -1233,3 +1233,95 @@ def test_lsm_book_on_card():
     g = torch.Generator(device=card).manual_seed(0)
     calls, _ = lsm.price_american_lsm_batch(p32, strikes, True, 1.0, 100.0, g, **kw)
     assert bool((torch.diff(puts) > 0).all()) and bool((torch.diff(calls) < 0).all())
+
+
+def _hw(dtype, device):
+    from pde_tpu_torch.models import rates
+
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    curve = rates.curve_from_zero_rates(t([0.5, 1.0, 2.0, 5.0, 10.0, 30.0]),
+                                        t([0.030, 0.032, 0.035, 0.040, 0.042, 0.043]))
+    return rates.HullWhiteParams(t(0.1), t(0.012), curve)
+
+
+@pytest.mark.cuda
+def test_bermudan_ladder_on_card_is_one_k5_launch_a_step():
+    """bench_full.py:461-479's ladder (64 strikes, n_x 257, n_sub 16,
+    schedule 1.0 to 6.0 by 0.5): in float32 on the card every one of the
+    160 steps is one K5 launch on its lane route, and the prices sit within
+    1e-7 + 1e-4 |p| of the CPU's float64 march, or within twice the CPU's
+    own float32 error; in float64 the card takes the thomas route (no
+    launch) and matches the CPU at 1e-10."""
+    _need_cuda()
+    from pde_tpu_torch.solvers import bermudan_hw
+
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    sched = np.arange(1.0, 6.01, 0.5)
+    ks = np.linspace(0.6, 1.4, 64) * 0.038
+
+    def ladder(dtype, device):
+        return bermudan_hw.bermudan_swaption_pde(
+            _hw(dtype, device), torch.tensor(ks, dtype=dtype, device=device),
+            torch.tensor(sched, dtype=dtype, device=device), n_x=257, n_sub=16)[0]
+
+    k5 = tridiag.thomas_batched
+    before = (k5.launches, k5.launches_smem)
+    card32 = ladder(torch.float32, card)
+    torch.cuda.synchronize()
+    assert (k5.launches - before[0], k5.launches_smem - before[1]) == (160, 160)
+    ref = ladder(torch.float64, cpu)
+    cpu_err = (ladder(torch.float32, cpu).double() - ref).abs()
+    err = (card32.cpu().double() - ref).abs()
+    limit = 1e-7 + 1e-4 * ref.abs()
+    assert bool((err <= limit).all()) or float(err.max()) <= 2.0 * float(cpu_err.max())
+    before = k5.launches
+    card64 = ladder(torch.float64, card)
+    assert k5.launches == before
+    np.testing.assert_allclose(card64.cpu().numpy(), ref.numpy(), rtol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bermudan_hw", "bermudan_g2", "cva_netting"])
+def test_card_curve_with_a_cpu_generator_raises(name):
+    _need_cuda()
+    from pde_tpu_torch.models import credit, g2
+    from pde_tpu_torch.solvers import bermudan_g2, bermudan_hw
+
+    hw = _hw(torch.float32, torch.device("cuda", 0))
+    gen = torch.Generator()
+    calls = {
+        "bermudan_hw": lambda: bermudan_hw.bermudan_swaption_mc(
+            hw, 0.035, [1.0, 1.5, 2.0], gen, n_paths=8, n_outer=2, n_inner=2),
+        "bermudan_g2": lambda: bermudan_g2.bermudan_swaption_g2_mc(
+            g2.G2Params(0.5, 0.05, 0.01, 0.008, -0.6, hw.curve), 0.035, [1.0, 1.5, 2.0], gen,
+            n_paths=8, n_outer=2, n_inner=2),
+        "cva_netting": lambda: credit.cva_netting_hw_mc(
+            hw, credit.flat_hazard(0.02), [credit.SwapTrade(0.035, 1.0, 1.0)], [0.5, 1.0], gen,
+            n_paths=8),
+    }
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        calls[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["basket", "local_vol", "lifted", "slv"])
+def test_new_mc_entry_points_on_plain_numbers_run_on_the_card(name):
+    _need_cuda()
+    from pde_tpu_torch.models import heston, multi_asset, rough_heston, rough_heston_mc, slv
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    hp = heston.HestonParams(2.0, 0.04, 0.3, -0.7, 0.04)
+    calls = {
+        "basket": lambda: multi_asset.price_basket_mc(
+            g, [100.0, 95.0], [0.5, 0.5], [100.0], 1.0, [0.2, 0.3], [[1.0, 0.5], [0.5, 1.0]],
+            n_paths=64)[0],
+        "local_vol": lambda: local_vol.simulate_local_vol(
+            lambda s, t: torch.full_like(s, 0.2), 100.0, 1.0, g, n_steps=4, n_paths=64).spot,
+        "lifted": lambda: rough_heston_mc.simulate_lifted(
+            rough_heston.RoughHestonParams(0.1, 2.0, 0.04, 0.3, -0.7, 0.04), 100.0, 1.0, g,
+            n_steps=4, n_paths=64, n_factors=8).spot,
+        "slv": lambda: slv.calibrate_leverage(hp, lambda s, t: torch.full_like(s, 0.2), 100.0,
+                                              1.0, g, n_steps=4, n_paths=64, n_bins=5)[0].values,
+    }
+    out = calls[name]()
+    assert out.device == torch.device("cuda", 0) and bool(torch.isfinite(out).all())

@@ -20,8 +20,10 @@ from pde_tpu_torch.calibrate.sabr import SABRCalibrator
 from pde_tpu_torch.core import grids, precision, qmc
 from pde_tpu_torch.models import (bates, black_scholes, credit, digital, forward_start, g2,
                                   heston, heston_mc, local_vol, multi_asset, rates,
-                                  rough_heston, sabr, svcj, term_heston, varswap, vix)
-from pde_tpu_torch.solvers import bs_pde, heston_adi, local_vol_pde, lsm, lsm_dual
+                                  rough_heston, rough_heston_mc, sabr, slv, svcj, term_heston,
+                                  varswap, vix)
+from pde_tpu_torch.solvers import (bermudan_g2, bermudan_hw, bs_pde, heston_adi, local_vol_pde,
+                                   lsm, lsm_dual)
 
 
 @pytest.fixture()
@@ -44,6 +46,19 @@ _BOOK = (np.full((2, 4), 100.0), np.full((2, 4), 1.0), np.full((2, 4), 10.0),
 
 def _plain_curve(device):
     return rates.curve_from_zero_rates([1.0, 2.0, 5.0], [0.03, 0.035, 0.04], device=device)
+
+
+def _hw(device):
+    return rates.HullWhiteParams(0.1, 0.012, _plain_curve(device))
+
+
+def _card_or(device):
+    """A generator of the path's device (the card for None)."""
+    return torch.Generator(device=device or "cuda")
+
+
+_LEVERAGE = slv.LeverageSurface(torch.linspace(4.4, 4.8, 3), torch.tensor([0.0, 0.5]),
+                                torch.ones(2, 3))
 
 
 # each takes the device (None: the card) and computes on it
@@ -76,6 +91,18 @@ RATES_ENTRY_POINTS = {
     "HullWhiteCalibrator": lambda d: torch.empty(0, device=HullWhiteCalibrator(
         device=d).device),
     "G2Calibrator": lambda d: torch.empty(0, device=G2Calibrator(device=d).device),
+    "bermudan_hw.bermudan_swaption_pde": lambda d: bermudan_hw.bermudan_swaption_pde(
+        _hw(d), [0.03, 0.04], [1.0, 1.5, 2.0], n_x=9, n_sub=2)[0],
+    "bermudan_hw.bermudan_swaption_mc": lambda d: bermudan_hw.bermudan_swaption_mc(
+        _hw(d), 0.035, [1.0, 1.5, 2.0], _card_or(d), n_paths=8, n_outer=2, n_inner=2)[0],
+    "bermudan_g2.bermudan_swaption_g2_mc": lambda d: bermudan_g2.bermudan_swaption_g2_mc(
+        g2.G2Params(0.5, 0.05, 0.01, 0.008, -0.6, _plain_curve(d)), 0.035, [1.0, 1.5, 2.0],
+        _card_or(d), n_paths=8, n_outer=2, n_inner=2)[0],
+    "credit.cva_netting_hw_mc": lambda d: credit.cva_netting_hw_mc(
+        _hw(d), credit.flat_hazard(0.02, device=d), [credit.SwapTrade(0.035, 1.0, 1.0)],
+        [0.5, 1.0, 1.5], _card_or(d), n_paths=8)[1],
+    # lift_nodes takes ``device=`` as the builders above do
+    "rough_heston_mc.lift_nodes": lambda d: rough_heston_mc.lift_nodes(0.1, 4, device=d)[0],
     "CalibrationOrchestrator": lambda d: torch.empty(0, device=CalibrationOrchestrator(
         device=d).device),
 }
@@ -126,6 +153,37 @@ MC_ENTRY_POINTS = {
                                                             **_MC),
     "svcj.price_european_mc": lambda g, d: svcj.price_european_mc(
         _SVCJ, 100.0, 1.0, 100.0, g, device=d, **_MC),
+    "multi_asset.sample_terminal_gbm": lambda g, d: multi_asset.sample_terminal_gbm(
+        g, [100.0, 95.0], [0.2, 0.3], [[1.0, 0.5], [0.5, 1.0]], 1.0, n_paths=8, device=d)[0],
+    "multi_asset.price_basket_mc": lambda g, d: multi_asset.price_basket_mc(
+        g, [100.0, 95.0], [0.5, 0.5], [100.0], 1.0, [0.2, 0.3], [[1.0, 0.5], [0.5, 1.0]],
+        n_paths=8, device=d),
+    "multi_asset.price_spread_mc": lambda g, d: multi_asset.price_spread_mc(
+        g, 100.0, 96.0, 5.0, 0.9, 0.25, 0.35, 0.5, n_paths=8, device=d),
+    "multi_asset.price_rainbow_mc": lambda g, d: multi_asset.price_rainbow_mc(
+        g, 100.0, 96.0, 100.0, 0.9, 0.25, 0.35, 0.5, n_paths=8, device=d),
+    "local_vol.simulate_local_vol": lambda g, d: local_vol.simulate_local_vol(
+        _flat, 100.0, 1.0, g, device=d, **_MC),
+    "local_vol.lv_simulate_fn": lambda g, d: heston_mc.price_european_mc(
+        None, 100.0, 1.0, 100.0, g, simulate_fn=local_vol.lv_simulate_fn(_flat), device=d,
+        **_MC),
+    "rough_heston_mc.simulate_lifted": lambda g, d: rough_heston_mc.simulate_lifted(
+        _ROUGH, 100.0, 1.0, g, n_factors=4, device=d, **_MC),
+    "rough_heston_mc.simulate_lifted_paths": lambda g, d: rough_heston_mc.simulate_lifted_paths(
+        _ROUGH, 100.0, 1.0, g, n_factors=4, device=d, **_MC),
+    "rough_heston_mc.price_european_rough_mc": lambda g, d: (
+        rough_heston_mc.price_european_rough_mc(_ROUGH, 100.0, 1.0, 100.0, g, n_factors=4,
+                                                device=d, **_MC)),
+    "rough_heston_mc.price_american_rough_lsm": lambda g, d: (
+        rough_heston_mc.price_american_rough_lsm(_ROUGH, 100.0, 1.0, 100.0, g, n_factors=4,
+                                                 device=d, **_MC)),
+    "slv.calibrate_leverage": lambda g, d: slv.calibrate_leverage(
+        _HESTON, _flat, 100.0, 1.0, g, n_bins=3, device=d, **_MC)[0].values,
+    "slv.simulate_slv": lambda g, d: slv.simulate_slv(_HESTON, _LEVERAGE, 100.0, 1.0, g,
+                                                      n_paths=8, device=d),
+    "slv.slv_simulate_fn": lambda g, d: heston_mc.price_european_mc(
+        _HESTON, 100.0, 1.0, 100.0, g, simulate_fn=slv.slv_simulate_fn(_LEVERAGE), device=d,
+        **_MC),
     "qmc.scramble_direction_numbers": lambda g, d: qmc.scramble_direction_numbers(
         qmc.sobol_direction_numbers(4), g, device=d),
     "qmc.sobol_normal": lambda g, d: qmc.sobol_normal(qmc.sobol_direction_numbers(4), 8, g,

@@ -7,7 +7,7 @@ Newton) at 1e-10 against the reference compiled (``jax.jit``; see
 own draws at 1e-12.  The JAX suite's identities are kept (curve
 reproduction, the exact martingale identity, ZCB parity, the one-payment
 swaption as a ZCB put, payer-receiver parity, the Hull-White limit).  The
-Bermudan cases wait for the port of ``solvers/bermudan_g2.py``.
+Bermudan cases are in ``tests/test_torch_bermudan_g2.py``.
 """
 
 import jax
