@@ -151,7 +151,26 @@ checks every result:
     step on its lane route with the bands shared (exactly 160), within
     1e-7 + 1e-4 |p| of float64 on the CPU (or twice the CPU's own float32
     error), the ATM price inside the MC sandwich +- 4 s.e.; timed outside
-    the counted path (``hw_bermudan_pde_ladder_prices_per_sec``).
+    the counted path (``hw_bermudan_pde_ladder_prices_per_sec``);
+14. the jump-diffusion and barrier solvers of bench_full.py (765-782,
+    878-885): the Merton call and Kou American put strips (128 strikes,
+    512 x 128, two fixed-point passes: one K5 launch a pass on the (128,
+    512) strip, exactly 256 each) and the Bates American put
+    (Ikonen-Toivanen, 100 x 50 x 100: two K5 launches a step, exactly
+    200), each within 1e-7 + 1e-4 |p| of float64 on the CPU (or twice the
+    CPU's own float32 error), the Merton strip's float64 march within 3e-3
+    rel + 5e-3 of the series, the Kou American above its European and the
+    intrinsic, the Bates projection within 2e-2 of Ikonen-Toivanen and
+    both above the European; the Heston up-and-out call at 200 x 60 x 200
+    (400 launches) against float64 on the CPU, and the four barrier types
+    in the Black-Scholes limit at 150 x 50 x 150 against Reiner-Rubinstein
+    at 2e-2 (2N launches a knock-out, 4N a knock-in); the three rows timed
+    outside the counted paths;
+15. HJB's native backend: ``solve_all_boundaries(backend="native")`` on
+    bench_full.py's 256x128 Brennan-Schwartz config runs on the C++ host
+    twin, launches no kernel, lands within one cell of the card's march,
+    and its median wall is printed beside the card's
+    ``ou_freeboundary_psor_solve_s``.
 
 Before the paths, each of the six kernel wrappers is called on the card
 with an input that requires grad: each must raise (the kernels have no
@@ -159,7 +178,7 @@ backward) and launch nothing, and run under ``torch.no_grad()``; the
 fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
-Each main path (4-13) runs with every kernel's launch count set to 0 just
+Each main path (4-15) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails
 (the rows of item 4 after the headline must launch none),
 and so do the two Heston and local-vol books and the 108-option surface if
@@ -181,7 +200,8 @@ turns, and each route's options/s is printed.
 Each phase prints one JSON line; then the kernel table (K5's and K6's rows
 with their launches on the HJB paths, ``launches_hjb``; K5's with its
 launches on the Bermudan ladder, ``launches_bermudan``, and its times and
-bound at that shape, ``bermudan``), the card's
+bound at that shape, ``bermudan``; and likewise on the Merton PIDE strip,
+``launches_pide`` and ``pide``), the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  Run from the
 repository root with no arguments:
@@ -193,9 +213,10 @@ one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
 ``solve_fused``, ``bs_pde.solve`` by PSOR, of the K5 and K6 calls, of the
 OU and HJB rows, of the 8192-option grouped pricing, of the 16-surface
 ``calibrate_batch``, of the nine Fourier-priced rows, of the five rates
-and credit rows, of the five Heston Monte Carlo rows and of the five rows
-of the rest of the Monte Carlo desk under ``torch.profiler``: wall, the card's busy time
-and idle share, and the kernels that took most of the device time.  Row
+and credit rows, of the five Heston Monte Carlo rows, of the five rows
+of the rest of the Monte Carlo desk and of the four jump-diffusion and
+barrier rows under ``torch.profiler``: wall, the card's busy time and idle
+share, and the kernels that took most of the device time.  Row
 names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 """
 
@@ -1025,10 +1046,10 @@ def phase_rough_smile(torch, dev, reps=10):
         raise AssertionError("rough_heston_smile64_price_s missed its gate")
 
 
-def phase_rough_calibration(torch, dev, timed_runs=3):
+def phase_rough_calibration(torch, dev, timed_runs=1):
     """bench_full.py:257-281: ``RoughHestonCalibrator(n_steps=96,
     max_iter=40)`` on ``generate_synthetic_surface(n_steps=96)`` (3
-    maturities x 9 strikes), float32: one warm call, then the mean of 3;
+    maturities x 9 strikes), float32: one warm call, then one timed call;
     bench_full.py's own gate rmse < 5e-3."""
     from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
 
@@ -1039,6 +1060,7 @@ def phase_rough_calibration(torch, dev, timed_runs=3):
         data["strikes"], data["maturities"], data["mid_prices"], data["S0"], data["r"],
         data["q"]), timed_runs)
     ok = res.rmse < 5e-3
+    REPEATS_CUT["phase_rough_calibration"] = (statistics.mean(walls), 3 - timed_runs)
     emit(phase="rough_calibration", dtype="float32", n_steps=96, max_iter=40,
          rmse=res.rmse, gate="rmse < 5e-3", n_iter=res.n_iter, converged=res.converged,
          params=list(res.params), true_params=list(data["true_params"]), wall_s_runs=walls,
@@ -1182,29 +1204,35 @@ def swaption_panel(torch, d, dtype, model, n, **kw):
     return lambda: g2.g2_swaption(p, rates.hw_swap_rate(curve, ex, pay), ex, pay, **kw)
 
 
+def card_gate(card, ref, cpu32):
+    """float32 on the card against float64 on the CPU (``ref``), by the gate
+    the CPU's own float32 run (``cpu32``) meets: within PANEL_ATOL +
+    PANEL_RTOL |p| where that run is, else within twice that run's largest
+    error.  Returns the fields to print and whether it held."""
+    ref = ref.double()
+    limit = PANEL_ATOL + PANEL_RTOL * ref.abs()
+    err = (card.detach().cpu().double() - ref).abs()
+    cpu_err = (cpu32.detach().double() - ref).abs()
+    fields = dict(max_abs_vs_cpu_f64=float(err.max()), max_over_limit=float((err / limit).max()),
+                  cpu_f32_max_abs_vs_cpu_f64=float(cpu_err.max()))
+    if bool((cpu_err <= limit).all()):
+        return dict(fields, gate=f"{PANEL_ATOL} + {PANEL_RTOL} |p|"), bool((err <= limit).all())
+    return (dict(fields, gate="2 x cpu f32 error"),
+            float(err.max()) <= 2.0 * float(cpu_err.max()))
+
+
 def panel_phase(torch, dev, row, model, n, reps, **kw):
     """Time the panel on the card (median of ``reps`` warm calls) and hold
-    it against the port's float64 run on the CPU: at 1e-7 + 1e-4 |p|, or at
-    twice the CPU's own float32 error where that error is larger."""
+    it against the port's float64 run on the CPU by :func:`card_gate`."""
     cpu = torch.device("cpu")
     ref = swaption_panel(torch, cpu, torch.float64, model, n, **kw)()
-    cpu32 = swaption_panel(torch, cpu, torch.float32, model, n, **kw)().double()
+    cpu32 = swaption_panel(torch, cpu, torch.float32, model, n, **kw)()
     card, walls = timed_walls(torch, dev, swaption_panel(torch, dev, torch.float32, model, n,
                                                          **kw), reps)
-    limit = PANEL_ATOL + PANEL_RTOL * ref.abs()
-    err = (card.cpu().double() - ref).abs()
-    cpu_err = (cpu32 - ref).abs()
-    if bool((cpu_err <= limit).all()):
-        gate, ok = f"{PANEL_ATOL} + {PANEL_RTOL} |p|", bool((err <= limit).all())
-    else:
-        gate = "2 x cpu f32 error"
-        ok = float(err.max()) <= 2.0 * float(cpu_err.max())
+    fields, ok = card_gate(card, ref, cpu32)
     ok = ok and bool(torch.isfinite(card).all()) and bool((card > 0).all())
     per = statistics.median(walls)
-    emit(phase=row, dtype="float32", n=n, gate=gate, max_abs_vs_cpu_f64=float(err.max()),
-         max_over_limit=float((err / limit).max()),
-         cpu_f32_max_abs_vs_cpu_f64=float(cpu_err.max()), median_call_s=per,
-         **{row: n / per}, ok=ok)
+    emit(phase=row, dtype="float32", n=n, **fields, median_call_s=per, **{row: n / per}, ok=ok)
     if not ok:
         raise AssertionError(f"{row} missed its gate")
 
@@ -1272,9 +1300,9 @@ def g2_swaption_desk(torch, d, dtype, truth=G2, n_gh=64):
     return curve, exps, pts, ks, quotes
 
 
-def phase_g2_swaption_calibration(torch, dev, timed_runs=3):
+def phase_g2_swaption_calibration(torch, dev, timed_runs=1):
     """bench_full.py:507-521: ``G2Calibrator(max_iter=60)`` on the 4-swaption
-    panel, the mean of 3 fits; rmse <= 1e-3 (the five parameters are
+    panel, one timed fit; rmse <= 1e-3 (the five parameters are
     under-identified by 4 quotes, tests/test_g2.py:164-167), after one warm
     fit as every row."""
     from pde_tpu_torch.calibrate.g2 import G2Calibrator
@@ -1283,6 +1311,7 @@ def phase_g2_swaption_calibration(torch, dev, timed_runs=3):
     cal = G2Calibrator(max_iter=60, device=dev, dtype=torch.float32)
     res, walls = timed_walls(torch, dev, lambda: cal.calibrate_swaptions(*desk), timed_runs)
     ok = res.rmse <= 1e-3
+    REPEATS_CUT["phase_g2_swaption_calibration"] = (statistics.mean(walls), 3 - timed_runs)
     emit(phase="g2_swaption_calibration", dtype="float32", n_swaptions=4, max_iter=60,
          rmse=res.rmse, max_rel_error=res.max_rel_error,
          params=[float(v) for v in res.params[:5]], converged=res.converged,
@@ -2035,8 +2064,8 @@ MC_DESK_PHASES = (phase_basket_mc, phase_slv_calibration, phase_hw_bermudan_mc,
 def phase_hw_bermudan_pde_ladder(torch, dev):
     """bench_full.py:461-479's ladder as ONE march of (64, 257) systems on
     the card, float32: one K5 launch a step (exactly 160, counted by
-    ``path``).  The prices within 1e-7 + 1e-4 |p| of the port's float64
-    march on the CPU, or within twice the CPU's own float32 error; and the
+    ``path``).  The prices within :func:`card_gate` of the port's float64
+    march on the CPU; and the
     ATM price (float64, CPU) inside the MC sandwich (``phase_hw_bermudan_mc``)
     +- 4 s.e."""
     cpu = torch.device("cpu")
@@ -2045,23 +2074,14 @@ def phase_hw_bermudan_pde_ladder(torch, dev):
     sync(torch, dev)
     wall = time.perf_counter() - t0
     ref = ladder_prices(torch, cpu, torch.float64)
-    cpu32 = ladder_prices(torch, cpu, torch.float32).double()
-    limit = PANEL_ATOL + PANEL_RTOL * ref.abs()
-    err, cpu_err = (card.cpu().double() - ref).abs(), (cpu32 - ref).abs()
-    if bool((cpu_err <= limit).all()):
-        gate, ok = f"{PANEL_ATOL} + {PANEL_RTOL} |p|", bool((err <= limit).all())
-    else:
-        gate = "2 x cpu f32 error"
-        ok = float(err.max()) <= 2.0 * float(cpu_err.max())
+    fields, ok = card_gate(card, ref, ladder_prices(torch, cpu, torch.float32))
     par = bermudan_ladder(torch, cpu, torch.float64)[2]
     atm = float(ladder_prices(torch, cpu, torch.float64, strikes=par))
     sw = SANDWICH
     inside = (sw["lower"] - MC_Z * sw["se_lower"] <= atm <= sw["upper"] + MC_Z * sw["se_upper"])
     ok = ok and inside and bool(torch.isfinite(card).all()) and bool((card >= 0).all())
     emit(phase="hw_bermudan_pde_ladder", dtype="float32", strikes=BERM_LADDER, n_x=BERM_NX,
-         n_sub=BERM_SUB, gate=gate, max_abs_vs_cpu_f64=float(err.max()),
-         max_over_limit=float((err / limit).max()), cpu_f32_max_abs_vs_cpu_f64=float(
-             cpu_err.max()), atm_pde_f64=atm, mc_sandwich=sw, atm_inside_sandwich=inside,
+         n_sub=BERM_SUB, **fields, atm_pde_f64=atm, mc_sandwich=sw, atm_inside_sandwich=inside,
          first_call_wall_s=wall, ok=ok)
     if not ok:
         raise AssertionError("hw_bermudan_pde_ladder_prices_per_sec missed its gate")
@@ -2074,6 +2094,234 @@ def phase_bermudan_rows(torch, dev, reps=20):
     per = statistics.median(walls)
     emit(phase="hw_bermudan_pde_ladder_rows", wall_s_runs=walls, median_call_s=per,
          hw_bermudan_pde_ladder_prices_per_sec=BERM_LADDER / per)
+
+
+# bench_full.py:765-782: the strike strips; :878-885: the Bates American
+PIDE_N, PIDE_SPACE, PIDE_TIME, PIDE_FP = 128, 512, 128, 2
+PIDE_STEPS = PIDE_TIME * PIDE_FP   # one K5 launch a fixed-point pass
+PIDE_MODEL = dict(sigma=0.2, r=R, q=Q, T=0.5, S0=S0)
+PIDE_MERTON, PIDE_KOU = (0.5, -0.1, 0.15), (1.0, 0.4, 10.0, 5.0)
+SERIES_RTOL, SERIES_ATOL = 3e-3, 5e-3      # tests/test_pide.py:31-38
+BATES_PIDE_STEPS = 2 * 100                 # two K5 launches a step
+LCP_METHODS_ATOL = 2e-2                    # tests/test_bates_pide.py:66-78
+# tests/test_barrier.py:209-212: the full-Heston up-and-out call; 104-121:
+# the four types in the Black-Scholes limit at 150 x 50 x 150
+BARRIER_HESTON = dict(kappa=2.0, theta=0.04, sigma=0.3, rho=-0.7, v0=0.04, r=0.05, q=0.0,
+                      T=1.0, K=100.0, n_spot=200, n_vol=60, n_time=200)
+BARRIER_BS = dict(kappa=5.0, theta=0.0625, sigma=0.01, rho=0.0, v0=0.0625, r=0.05, q=0.02,
+                  T=1.0, K=100.0, n_spot=150, n_vol=50, n_time=150, v_max=0.5)
+BARRIER_RR_TOL = 2e-2
+HJB_CARD = {}   # the card's Brennan-Schwartz boundaries and row, for hjb_native
+# the smoke repeats cut to pay for the PIDE phases: phase -> (per-run wall
+# in this run, runs cut)
+REPEATS_CUT = {}
+
+
+def pide_strip(torch, d, dtype, family, **kw):
+    """One bench strip (128 strikes in [70, 130], 512 x 128, two passes)."""
+    import numpy as np
+
+    from pde_tpu_torch.solvers import pide
+
+    jumps = pide.MertonJumps(*PIDE_MERTON) if family == "merton" else pide.KouJumps(*PIDE_KOU)
+    m = PIDE_MODEL
+    ks = torch.as_tensor(np.linspace(70.0, 130.0, PIDE_N), dtype=dtype, device=d)
+    return pide.solve_pide(jumps, m["sigma"], m["r"], m["q"], m["T"], ks, m["S0"],
+                           n_space=PIDE_SPACE, n_time=PIDE_TIME, fp_iterations=PIDE_FP,
+                           device=d, dtype=dtype, **kw)
+
+
+def phase_pide_merton_strip(torch, dev):
+    """bench_full.py:765-774's Merton call strip on the card, float32: one
+    K5 launch a fixed-point pass (exactly 256), the prices within the card
+    gate of the port's float64 march on the CPU; that march within 3e-3 rel
+    + 5e-3 abs of the Merton series on its strikes in [80, 120]."""
+    import numpy as np
+
+    from pde_tpu_torch.models.bates import merton_reference_price
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    card = pide_strip(torch, dev, torch.float32, "merton").price
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    ref = pide_strip(torch, cpu, torch.float64, "merton").price
+    fields, ok = card_gate(card, ref, pide_strip(torch, cpu, torch.float32, "merton").price)
+    ks = np.linspace(70.0, 130.0, PIDE_N)
+    mid = (ks >= 80.0) & (ks <= 120.0)
+    m = PIDE_MODEL
+    series = merton_reference_price(ks[mid], m["T"], m["S0"], m["r"], m["q"], m["sigma"],
+                                    *PIDE_MERTON)
+    s_err = np.abs(ref.numpy()[mid] - series)
+    s_ok = bool((s_err <= SERIES_ATOL + SERIES_RTOL * np.abs(series)).all())
+    ok = ok and s_ok and bool(torch.isfinite(card).all())
+    emit(phase="pide_merton_strip", dtype="float32", strikes=PIDE_N, n_space=PIDE_SPACE,
+         n_time=PIDE_TIME, fp_iterations=PIDE_FP, **fields, series_max_abs_f64=float(
+             s_err.max()), series_gate=f"{SERIES_RTOL} rel + {SERIES_ATOL}", series_ok=s_ok,
+         first_call_wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("pide_merton_strip128_options_per_sec missed its gate")
+
+
+def phase_pide_kou_american_strip(torch, dev):
+    """bench_full.py:776-782's Kou American put strip on the card, float32:
+    256 K5 launches; :func:`card_gate` against float64 on the CPU; there the
+    American at least max(European, intrinsic) - 1e-5."""
+    import numpy as np
+
+    cpu = torch.device("cpu")
+    kw = dict(is_call=False, american=True)
+    t0 = time.perf_counter()
+    card = pide_strip(torch, dev, torch.float32, "kou", **kw).price
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    ref = pide_strip(torch, cpu, torch.float64, "kou", **kw).price
+    fields, ok = card_gate(card, ref, pide_strip(torch, cpu, torch.float32, "kou", **kw).price)
+    euro = pide_strip(torch, cpu, torch.float64, "kou", is_call=False).price
+    intrinsic = torch.clamp_min(torch.as_tensor(np.linspace(70.0, 130.0, PIDE_N)) - S0, 0.0)
+    below = float((torch.maximum(euro, intrinsic) - ref).max())
+    ok = ok and below <= 1e-5 and bool(torch.isfinite(card).all())
+    emit(phase="pide_kou_american_strip", dtype="float32", strikes=PIDE_N, **fields,
+         f64_most_below_max_european_intrinsic=below, first_call_wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("pide_kou_american_strip128_options_per_sec missed its gate")
+
+
+def bates_pide_params(**over):
+    from pde_tpu_torch.solvers import bates_pide, pide
+
+    base = dict(q=Q, is_call=False, american=True, american_method="it_lcp",
+                jumps=pide.MertonJumps(*PIDE_MERTON), n_time=BATES_PIDE_STEPS // 2)
+    base.update(over)
+    return bates_pide.BatesPIDEParams(**base)
+
+
+def phase_bates_pide_american(torch, dev):
+    """bench_full.py:878-885's Bates American put (Ikonen-Toivanen, 100 x
+    50 x 100) on the card, float32: two K5 launches a step (exactly 200);
+    `card_gate` against float64 on the CPU; there projection within 2e-2
+    of Ikonen-Toivanen and both at least the European."""
+    from pde_tpu_torch.solvers import bates_pide
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    p = bates_pide_params()
+    t0 = time.perf_counter()
+    card = bates_pide.solve_bates_pide(p, S0, device=dev, dtype=torch.float32).price
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    ref = bates_pide.solve_bates_pide(p, S0, device=cpu, dtype=f64).price
+    fields, ok = card_gate(card[None], ref[None], bates_pide.solve_bates_pide(
+        p, S0, device=cpu, dtype=torch.float32).price[None])
+    proj = float(bates_pide.solve_bates_pide(p._replace(american_method="projection"), S0,
+                                             device=cpu, dtype=f64).price)
+    euro = float(bates_pide.solve_bates_pide(p._replace(american=False), S0, device=cpu,
+                                             dtype=f64).price)
+    ok = (ok and abs(proj - float(ref)) < LCP_METHODS_ATOL and min(proj, float(ref)) >= euro
+          and bool(torch.isfinite(card)))
+    emit(phase="bates_pide_american", dtype="float32", grid=[p.n_spot, p.n_vol, p.n_time],
+         **fields,
+         price=float(card), it_lcp_f64=float(ref), projection_f64=proj, european_f64=euro,
+         first_call_wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("bates_pide_american_solve_s missed its gate")
+
+
+def phase_barrier_pde(torch, dev):
+    """The full-Heston up-and-out call at 200 x 60 x 200 on the card,
+    float32 (two K5 launches a step, 400), against float64 on the CPU; then
+    the four barrier types in the Black-Scholes limit at 150 x 50 x 150
+    against Reiner-Rubinstein at 2e-2, each knock-out at 2N launches and
+    each knock-in at 4N (its vanilla march too)."""
+    from pde_tpu_torch.models import black_scholes
+    from pde_tpu_torch.solvers import barrier_pde, heston_adi
+
+    from pde_tpu_torch.ops import tridiag
+
+    cpu, k5 = torch.device("cpu"), tridiag.thomas_batched
+    p = heston_adi.HestonPDEParams(**BARRIER_HESTON)
+    t0 = time.perf_counter()
+    card = barrier_pde.solve_barrier(p, S0, 120.0, "up-and-out", device=dev,
+                                     dtype=torch.float32).price
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    ref = barrier_pde.solve_barrier(p, S0, 120.0, "up-and-out", device=cpu,
+                                    dtype=torch.float64).price
+    fields, ok = card_gate(card[None], ref[None], barrier_pde.solve_barrier(
+        p, S0, 120.0, "up-and-out", device=cpu, dtype=torch.float32).price[None])
+    pb = heston_adi.HestonPDEParams(**BARRIER_BS)
+    types = {}
+    for bt in ("up-and-out", "down-and-out", "up-and-in", "down-and-in"):
+        bar = 125.0 if bt.startswith("up") else 85.0
+        before = k5.launches
+        price = float(barrier_pde.solve_barrier(pb, S0, bar, bt, device=dev,
+                                                dtype=torch.float32).price)
+        n = k5.launches - before
+        ana = float(black_scholes.barrier_price(torch.tensor(S0, dtype=torch.float64), 100.0,
+                                                bar, 0.05, 0.02, 1.0, 0.25, bt, True))
+        want = (4 if bt.endswith("in") else 2) * BARRIER_BS["n_time"]
+        # pytest.approx(ana, rel=2e-2, abs=2e-2), as the reference's test
+        good = abs(price - ana) <= max(BARRIER_RR_TOL * abs(ana), BARRIER_RR_TOL) and n == want
+        types[bt] = dict(price=price, reiner_rubinstein=ana, k5_launches=n, ok=good)
+        ok = ok and good
+    ok = ok and bool(torch.isfinite(card))
+    emit(phase="barrier_pde", dtype="float32",
+         grid=[p.n_spot, p.n_vol, p.n_time], price=float(card),
+         cpu_f64=float(ref), **fields, bs_limit=types, first_call_wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("the barrier PDE missed its gate")
+
+
+PIDE_ROW_REPS = {"pide_merton_strip128": 20, "pide_kou_american_strip128": 20,
+                 "bates_pide_american": 10, "barrier_up_and_out_200x60x200": 5}
+
+
+def phase_pide_rows(torch, dev):
+    """The PIDE rows timed outside the counted paths, each
+    :func:`pide_profile_rows` call for its ``PIDE_ROW_REPS`` warm runs: the
+    medians of 20 strip calls (``pide_merton_strip128_options_per_sec``,
+    ``pide_kou_american_strip128_options_per_sec``), of 10 Bates American
+    solves (``bates_pide_american_solve_s``) and of 5 full-Heston
+    up-and-out calls at 200 x 60 x 200 (no bench row).  Returns the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    walls = {k: timed_walls(torch, dev, fn, PIDE_ROW_REPS[k])[1]
+             for k, fn in pide_profile_rows(torch, dev).items()}
+    med = {k: statistics.median(w) for k, w in walls.items()}
+    emit(phase="pide_rows", wall_s_runs=walls, median_call_s=med,
+         pide_merton_strip128_options_per_sec=PIDE_N / med["pide_merton_strip128"],
+         pide_kou_american_strip128_options_per_sec=PIDE_N / med["pide_kou_american_strip128"],
+         bates_pide_american_solve_s=med["bates_pide_american"],
+         barrier_up_and_out_200x60x200_solve_s=med["barrier_up_and_out_200x60x200"],
+         seconds=time.perf_counter() - t0)
+    return time.perf_counter() - t0
+
+
+def phase_hjb_native(torch, dev, reps=20):
+    """``solve_all_boundaries(backend="native")`` on bench_full.py's
+    256 x 128 Brennan-Schwartz config: the C++ host twin, no kernel; its
+    boundaries within one cell of the card's march (``phase_hjb_brennan``)
+    and its median wall beside the card's ``ou_freeboundary_psor_solve_s``
+    (``phase_hjb_rows``)."""
+    from pde_tpu_torch.solvers import hjb
+
+    p = hjb.HJBParams(**HJB_BENCH, method="brennan_schwartz", backend="native")
+    b, walls = timed_walls(torch, dev, lambda: hjb.solve_all_boundaries(p), reps)
+    diff = max(abs(x - y) for x, y in zip(b, HJB_CARD["brennan_schwartz"]))
+    ok = bool(b.entry_long < b.exit_long and diff <= hjb_dx(p) + 1e-6)
+    med = statistics.median(walls)
+    emit(phase="hjb_native", grid=[p.n_space, p.n_time], boundaries=b._asdict(),
+         max_abs_diff_vs_card=diff, dx=hjb_dx(p), wall_s_runs=walls,
+         native_ou_freeboundary_psor_solve_s=med,
+         card_ou_freeboundary_psor_solve_s=HJB_CARD["ou_freeboundary_psor_solve_s"],
+         card_over_native=HJB_CARD["ou_freeboundary_psor_solve_s"] / med, ok=ok)
+    if not ok:
+        raise AssertionError("the native HJB route missed its gate")
+
+
+PIDE_PATHS = ((phase_pide_merton_strip, PIDE_STEPS), (phase_pide_kou_american_strip, PIDE_STEPS),
+              (phase_bates_pide_american, BATES_PIDE_STEPS),
+              (phase_barrier_pde, 2 * BARRIER_HESTON["n_time"]
+               + 12 * BARRIER_BS["n_time"]))
 
 
 def timed_walls(torch, dev, fn, reps):
@@ -2186,8 +2434,9 @@ def phase_bs_book(torch, dev, grid=BS_GRID, B=BS_B, reps=10):
         raise AssertionError("the Black-Scholes American book failed its checks")
 
 
-def phase_sabr(torch, dev, reps=20):
-    """bench.py's SABR smile fit, then one regular 5-maturity surface."""
+def phase_sabr(torch, dev, reps=5):
+    """bench.py's SABR smile fit (the mean of 5 warm fits), then one regular
+    5-maturity surface."""
     import numpy as np
 
     from pde_tpu_torch.calibrate.sabr import SABRCalibrator
@@ -2209,6 +2458,7 @@ def phase_sabr(torch, dev, reps=20):
     for _ in range(reps):
         p, rmse = cal.calibrate_single_maturity(K, vols, F1, 1.0)
     per = (time.perf_counter() - t0) / reps
+    REPEATS_CUT["phase_sabr"] = (per, 20 - reps)
     miss = max(abs(getattr(p, k) - SABR_TRUTH[k]) for k in ("alpha", "rho", "nu"))
     ok = rmse < 1e-4 and miss < 1e-2
     emit(phase="sabr_smile", fit_s=per, rmse=rmse, params=[p.alpha, p.rho, p.nu],
@@ -3119,6 +3369,7 @@ def phase_hjb_brennan(torch, dev):
     ps = hjb.solve_all_boundaries(p._replace(method="psor"), device=dev)
     diff = max(abs(x - y) for x, y in zip(b, ps))
     ok = bool(b.entry_long < b.exit_long and diff <= hjb_dx(p) + 1e-6)
+    HJB_CARD["brennan_schwartz"] = b
     emit(phase="hjb_brennan_schwartz", grid=[p.n_space, p.n_time], boundaries=b._asdict(),
          psor_boundaries=ps._asdict(), max_abs_diff_vs_psor=diff, dx=hjb_dx(p),
          wall_s=wall, ok=ok)
@@ -3190,6 +3441,7 @@ def phase_hjb_rows(torch, dev, reps=3):
     }
     walls = {name: timed_walls(torch, dev, fn, reps)[1] for name, fn in calls.items()}
     med = {name: statistics.median(w) for name, w in walls.items()}
+    HJB_CARD["ou_freeboundary_psor_solve_s"] = med["brennan_schwartz_256x128"]
     emit(phase="hjb_rows", wall_s=med, wall_s_runs=walls,
          ou_freeboundary_psor_solve_s=med["brennan_schwartz_256x128"],
          ou_freeboundary_batch64_books_per_sec=HJB_B / med["batch64_brennan_schwartz"],
@@ -3489,6 +3741,23 @@ def mc_desk_profile_rows(torch, dev):
     }
 
 
+def pide_profile_rows(torch, dev):
+    """One call of each jump-diffusion and barrier row, float32 on the card."""
+    from pde_tpu_torch.solvers import barrier_pde, bates_pide, heston_adi
+
+    f32 = torch.float32
+    p, pb = bates_pide_params(), heston_adi.HestonPDEParams(**BARRIER_HESTON)
+    return {
+        "pide_merton_strip128": lambda: pide_strip(torch, dev, f32, "merton").price,
+        "pide_kou_american_strip128": lambda: pide_strip(torch, dev, f32, "kou",
+                                                         is_call=False, american=True).price,
+        "bates_pide_american": lambda: bates_pide.solve_bates_pide(p, S0, device=dev,
+                                                                   dtype=f32).price,
+        "barrier_up_and_out_200x60x200": lambda: barrier_pde.solve_barrier(
+            pb, S0, 120.0, "up-and-out", device=dev, dtype=f32).price,
+    }
+
+
 def profile_rows(torch, dev, interp, top=4):
     """One warm call of each row under ``torch.profiler``: the call's wall,
     the card's busy time (device time of its kernels), the idle share and
@@ -3558,6 +3827,7 @@ def profile_rows(torch, dev, interp, top=4):
         **rates_profile_rows(torch, dev),
         **mc_profile_rows(torch, dev),
         **mc_desk_profile_rows(torch, dev),
+        **pide_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -3642,6 +3912,8 @@ def main() -> None:
     k5_inputs = LaunchInputs(tridiag, "_launch_thomas")
     k6_inputs = LaunchInputs(lcp, "_launch_psor")
 
+    path_seconds = {}
+
     def path(fn, *args, needs=()):
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
@@ -3649,7 +3921,8 @@ def main() -> None:
         t0 = time.perf_counter()
         out = fn(*args)
         counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-        emit(phase="launches", path=fn.__name__, seconds=time.perf_counter() - t0,
+        path_seconds[fn.__name__] = time.perf_counter() - t0
+        emit(phase="launches", path=fn.__name__, seconds=path_seconds[fn.__name__],
              counts={k: n for k, n in counts.items() if n})
         missing = [k for k in needs if counts[k] == 0]
         if missing:
@@ -3695,6 +3968,13 @@ def main() -> None:
     if counts["K5"] != BERM_STEPS or counts["K5-smem"] != BERM_STEPS:
         raise AssertionError(f"the Bermudan ladder launched K5 {counts['K5']} times "
                              f"({counts['K5-smem']} on its route), not {BERM_STEPS}")
+    # the jump-diffusion and barrier solvers: every implicit sweep one K5
+    # launch on the lane route, exactly
+    for fn, steps in PIDE_PATHS:
+        counts = path(fn, torch, dev, needs=("K5", "K5-smem"))[0]
+        if counts["K5"] != steps or counts["K5-smem"] != steps:
+            raise AssertionError(f"{fn.__name__} launched K5 {counts['K5']} times "
+                                 f"({counts['K5-smem']} on its route), not {steps}")
     k5_inputs.close()
     k6_inputs.close()
     measured.update(phase_path_inputs(torch, dev, k5_inputs, k6_inputs,
@@ -3702,9 +3982,21 @@ def main() -> None:
                                       extra=(("K5", "phase_hjb_projection"),
                                              ("K5", "phase_hjb_batch"),
                                              ("K6", "phase_hjb_psor"),
-                                             ("K5", "phase_hw_bermudan_pde_ladder"))))
+                                             ("K5", "phase_hw_bermudan_pde_ladder"),
+                                             ("K5", "phase_pide_merton_strip"))))
     phase_hjb_rows(torch, dev)
+    # the native HJB route runs on the host: it launches nothing
+    counts = path(phase_hjb_native, torch, dev)[0]
+    if any(counts.values()):
+        raise AssertionError(f"phase_hjb_native launched a kernel: {counts}")
     phase_bermudan_rows(torch, dev)
+    # what the PIDE phases cost against the repeats cut to pay for them
+    new_s = {fn.__name__: path_seconds[fn.__name__] for fn, _ in PIDE_PATHS}
+    new_s.update(phase_hjb_native=path_seconds["phase_hjb_native"],
+                 phase_pide_rows=phase_pide_rows(torch, dev))
+    saved = {k: wall * runs for k, (wall, runs) in REPEATS_CUT.items()}
+    emit(phase="smoke_budget", new_phases_s=new_s, new_total_s=sum(new_s.values()),
+         repeats_cut_s=saved, saved_total_s=sum(saved.values()))
     phase_k1_routes(torch, dev)
     for k, err in bench_err.items():
         measured[k]["max_abs_err"] = max(measured[k]["max_abs_err"], err)
@@ -3712,9 +4004,15 @@ def main() -> None:
     # K5 on the Bermudan ladder: its launches and its times at (64, 257)
     berm = measured["K5:phase_hw_bermudan_pde_ladder"][0]
     berm_bound_ms, berm_bound_by = berm["bound"]
+    # and on the Merton PIDE strip: its launches and its times at (128, 512)
+    strip = measured["K5:phase_pide_merton_strip"][0]
+    strip_bound_ms, strip_bound_by = strip["bound"]
     on_paths = {"K5": {"launches_bermudan": BERM_STEPS, "bermudan": dict(
         B=berm["B"], n=berm["n"], ms=berm["ms"], plain_ms=berm["plain_ms"],
-        bound_ms=berm_bound_ms, bound_by=berm_bound_by, library_ms=berm["library_ms"])}}
+        bound_ms=berm_bound_ms, bound_by=berm_bound_by, library_ms=berm["library_ms"]),
+        "launches_pide": PIDE_STEPS, "pide": dict(
+        B=strip["B"], n=strip["n"], ms=strip["ms"], plain_ms=strip["plain_ms"],
+        bound_ms=strip_bound_ms, bound_by=strip_bound_by, library_ms=strip["library_ms"])}}
     rows = []
     for k, info in KERNELS.items():
         m = measured[k]

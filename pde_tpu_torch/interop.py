@@ -23,16 +23,18 @@ from .models.sabr import SABRParams
 from .models.slv import LeverageSurface
 from .models.svcj import SVCJParams
 from .models.term_heston import TermHestonParams
+from .solvers.bates_pide import BatesPIDEParams
 from .solvers.bs_pde import BSPDEParams
 from .solvers.heston_adi import HestonPDEParams
 from .solvers.hjb import HJBParams, StoppingProblem
+from .solvers.pide import KouJumps, MertonJumps
 
 __all__ = ["tensor", "heston_params", "sabr_params", "ou_params", "quotes", "grouping",
            "surface_interpolator", "heston_pde_params", "bs_pde_params", "hjb_params",
            "bates_params", "svcj_params", "term_heston_params", "forward_start_params",
            "rough_heston_params", "discount_curve", "vasicek_params", "cir_params",
            "hull_white_params", "g2_params", "hazard_curve", "swap_trade",
-           "leverage_surface"]
+           "leverage_surface", "merton_jumps", "kou_jumps", "bates_pide_params"]
 
 
 def tensor(x, device="cpu", dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -153,6 +155,26 @@ def heston_pde_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> He
 def bs_pde_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> BSPDEParams:
     """The JAX package's ``bs_pde.BSPDEParams`` as the port's."""
     return _pde_params(BSPDEParams, p, ("sigma", "r", "q", "T", "K"), device, dtype)
+
+
+def merton_jumps(j, device="cpu", dtype: torch.dtype = torch.float64) -> MertonJumps:
+    """The JAX package's ``pide.MertonJumps`` as the port's."""
+    return _fields(MertonJumps, j, device, dtype)
+
+
+def kou_jumps(j, device="cpu", dtype: torch.dtype = torch.float64) -> KouJumps:
+    """The JAX package's ``pide.KouJumps`` as the port's."""
+    return _fields(KouJumps, j, device, dtype)
+
+
+def bates_pide_params(p, device="cpu", dtype: torch.dtype = torch.float64) -> BatesPIDEParams:
+    """The JAX package's ``bates_pide.BatesPIDEParams`` as the port's: the
+    jump leg as the port's record of the same family (its class name)."""
+    jumps = (merton_jumps if type(p.jumps).__name__ == "MertonJumps" else kou_jumps)(
+        p.jumps, device, dtype)
+    return _pde_params(BatesPIDEParams, p._replace(jumps=jumps),
+                       ("kappa", "theta", "sigma", "rho", "v0", "r", "q", "T", "K"),
+                       device, dtype)
 
 
 def hjb_params(p) -> HJBParams:

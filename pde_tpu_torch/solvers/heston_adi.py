@@ -161,6 +161,36 @@ def _apply_a0(V, v_grid, dx, dv, rho, sigma):
     return torch.nn.functional.pad(out, (1, 1, 1, 1))
 
 
+def _sweep_solvers(i1, i2, *route):
+    """The implicit sweeps of grids V (..., nS, nv), as (solve_s, solve_v):
+    S systems one a variance level with the bands ``i1`` (..., nv, nS*), v
+    systems one an S row with the bands ``i2`` (..., nv*), shared by the
+    rows.  On float32 tensors on the card outside autograd (asked of the
+    bands and of ``route``, the other tensors the right-hand sides hang on)
+    each sweep is one K5 launch over the flattened systems, the v bands
+    expanded over the rows (at batch stride 0 for one option); elsewhere the
+    factored Thomas solve, factored once (the operators are
+    time-independent)."""
+    nv, nS = i1[1].shape[-2:]
+    if kernel_route(*route, *i1, *i2):
+        s_bands = [b.reshape(-1, b.shape[-1]) for b in i1]
+        v_bands = [b[..., None, :].expand(*b.shape[:-1], nS, b.shape[-1]).reshape(-1, b.shape[-1])
+                   for b in i2]
+
+        def solve_s(rhs):
+            rhs_t = rhs.transpose(-1, -2)
+            y = tridiagonal_solve(*s_bands, rhs_t.reshape(-1, nS), use_kernel=True)
+            return y.reshape(rhs_t.shape).transpose(-1, -2)
+
+        def solve_v(rhs):
+            return tridiagonal_solve(*v_bands, rhs.reshape(-1, nv), use_kernel=True).reshape(rhs.shape)
+
+        return solve_s, solve_v
+    f1, f2 = thomas_factor(*i1), thomas_factor(*(b[..., None, :] for b in i2))
+    return (lambda rhs: thomas_solve_factored(f1, rhs.transpose(-1, -2)).transpose(-1, -2),
+            lambda rhs: thomas_solve_factored(f2, rhs))
+
+
 def _readout(V, s_grid, v_grid, dv, S0, v0, T, LV, split_davg):
     """Price and grid Greeks per option from V (B, nS, nv) on spot grids
     (B, nS) and the shared v grid; ``LV`` = (A0 + A1 + A2) V gives theta.
@@ -231,30 +261,8 @@ def _solve_core(
     i1 = (-th * dt1 * a1_lower, 1.0 - th * dt1 * a1_diag, -th * dt1 * a1_upper)
     i2 = (-th * dt2 * a2_lower, 1.0 - th * dt2 * a2_diag, -th * dt2 * a2_upper)
 
-    # each sweep: one K5 launch over the flattened systems on the card, else
-    # the factored Thomas solve (factored once: the operators are
-    # time-independent)
-    on_kernel = kernel_route(payoff_1d, *i1, *i2, dt)
-    if on_kernel:
-        s_bands = [b.reshape(B * nv, -1) for b in i1]
-        v_bands = [b[:, None, :].expand(B, nS, b.shape[-1]).reshape(B * nS, -1)
-                   for b in i2]
-    else:
-        i1_factors = thomas_factor(*i1)
-        i2_factors = thomas_factor(*(b[:, None, :] for b in i2))
-
-    def solve_s(rhs):  # systems along S, one per (option, v level)
-        rhs_t = rhs.transpose(1, 2)
-        if on_kernel:
-            y = tridiagonal_solve(*s_bands, rhs_t.reshape(B * nv, nS)).reshape(B, nv, nS)
-        else:
-            y = thomas_solve_factored(i1_factors, rhs_t)
-        return y.transpose(1, 2)
-
-    def solve_v(rhs):  # systems along v, one per (option, S row)
-        if on_kernel:
-            return tridiagonal_solve(*v_bands, rhs.reshape(B * nS, nv)).reshape(B, nS, nv)
-        return thomas_solve_factored(i2_factors, rhs)
+    # rho reaches the right-hand sides through A0 only
+    solve_s, solve_v = _sweep_solvers(i1, i2, payoff_1d, rho)
 
     dx1, rho1, sigma1 = box(dx), box(rho), box(sigma)
     A0 = lambda V: _apply_a0(V, v_grid, dx1, dv, rho1, sigma1)     # noqa: E731

@@ -26,9 +26,13 @@ march together.  Three obstacle methods:
 
 Boundary detection (where V crosses the payoff) runs on the host on the
 final value function.  Entry points run on ``device`` (default: the CUDA
-card): ``backend="auto"`` and ``"device"`` both march there, and
-``"native"`` (the reference's C++ host twin) raises
-``NotImplementedError``.
+card): ``backend="auto"`` and ``"device"`` both march there.
+``"native"`` sends the projection and Brennan-Schwartz marches of
+:func:`solve` and :func:`solve_all_boundaries` to the C++ host twin
+(:mod:`pde_tpu_torch.native`, float64 on the CPU), and raises when that
+library cannot be built; PSOR and ``reference_compat`` march on the device,
+as in the reference.  The reference's ``auto`` picks the host twin where
+it is built; here ``auto`` stays on the device.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..core import grids
 from ..core.precision import resolve_device, result_dtype, to_tensor
 from ..ops.tridiag import kernel_route, tridiagonal_solve
@@ -92,8 +97,8 @@ class HJBParams(NamedTuple):
     # by the golden parity tests (tests/golden/reference_pde_values.json).
     reference_compat: bool = False
     # "auto" and "device" march on the device the entry point is given (the
-    # CUDA card by default); "native", the reference's C++ host twin of
-    # src/cpp/pde_solvers.cpp, is not ported and raises
+    # CUDA card by default); "native" runs single-config projection and
+    # Brennan-Schwartz marches on the C++ host twin (src/cpp/pde_solvers.cpp)
     backend: str = "auto"
 
 
@@ -284,20 +289,40 @@ def _host_grid_and_payoffs(params: HJBParams, problems) -> tuple:
 
 
 def _setup(params: HJBParams, device, dtype):
-    """The checks of :func:`solve`, then the march's device and dtype."""
+    """The checks of :func:`solve`, then the march's device and dtype, or
+    None for the C++ host twin: ``backend="native"`` takes the projection
+    and Brennan-Schwartz marches there (asking for another device than the
+    CPU or another dtype than float64 raises); PSOR and the reference's own
+    band march on the device, as in the reference."""
     if params.mu <= 0 or params.sigma <= 0:
         raise ValueError("mu and sigma must be positive")
     if params.r < 0 or params.T <= 0:
         raise ValueError("r must be >= 0 and T > 0")
     if params.n_space < 10:
         raise ValueError("n_space must be >= 10")
-    if params.backend == "native":
-        raise NotImplementedError(
-            "backend='native' (the reference's C++ host twin, src/cpp/pde_solvers.cpp) "
-            "is not ported (ROADMAP A.2); 'auto' and 'device' march on the device")
+    if (params.backend == "native" and not params.reference_compat
+            and params.method in ("projection", "brennan_schwartz")):
+        if ((device is not None and torch.device(device).type != "cpu")
+                or dtype not in (None, torch.float64)):
+            raise ValueError(
+                f"backend='native' marches {params.method} on the host in float64; "
+                f"got device={device!r}, dtype={dtype!r} (use backend='device' for those)")
+        return None
     floats = (params.theta, params.mu, params.sigma, params.r, params.T,
               params.x_min, params.x_max)
     return resolve_device(device), dtype or result_dtype(*floats)
+
+
+def _native_march(params: HJBParams, g_np, problems):
+    """The marches of ``problems`` (exercise values ``g_np``, (P, n)) on the
+    host twin: Brennan-Schwartz in one call (a thread a march when P > 1),
+    projection a call a problem."""
+    args = tuple(float(a) for a in (params.theta, params.mu, params.sigma, params.r,
+                                    params.T, params.x_min, params.x_max))
+    if params.method == "brennan_schwartz":
+        rev = [_BS_REVERSE[pr] for pr in problems]
+        return native.hjb_march_bs_multi(*args, g_np, rev, n_time=params.n_time)
+    return np.stack([native.hjb_march(*args, g, n_time=params.n_time) for g in g_np])
 
 
 def _run(params: HJBParams, g_np, device, dtype, bs_reverse):
@@ -313,10 +338,14 @@ def _run(params: HJBParams, g_np, device, dtype, bs_reverse):
 def solve(params: HJBParams, device=None, dtype=None) -> HJBResult:
     """Solve one stopping problem on ``device`` (default: the CUDA card) in
     ``dtype`` (default: the dtype of the tensors among the parameters, else
-    torch's default float); boundaries extracted on the host."""
-    device, dtype = _setup(params, device, dtype)
+    torch's default float), or with ``backend="native"`` on the host twin
+    in float64; boundaries extracted on the host."""
+    where = _setup(params, device, dtype)
     x_np, g_np = _host_grid_and_payoffs(params, [params.problem])
-    V_np = _run(params, g_np[0], device, dtype, _BS_REVERSE[params.problem])
+    if where is None:
+        V_np = _native_march(params, g_np, [params.problem])[0]
+    else:
+        V_np = _run(params, g_np[0], *where, _BS_REVERSE[params.problem])
     lo, hi = _find_boundaries(V_np, x_np, g_np[0].astype(V_np.dtype))
     return HJBResult(V_np, x_np, lo, hi, None)
 
@@ -324,16 +353,18 @@ def solve(params: HJBParams, device=None, dtype=None) -> HJBResult:
 def solve_all_boundaries(params: HJBParams, device=None,
                          dtype=None) -> OptimalTradingBoundaries:
     """All four stopping problems in ONE batched march (hjb_solver.hpp:199-234),
-    on ``device`` and in ``dtype`` as :func:`solve`.
+    on ``device`` and in ``dtype`` or on the host twin as :func:`solve`.
 
     The reference runs four sequential solves; here the four exercise vectors
     stack on a batch axis and share one operator.  Fallback defaults and the
     2-sigma stop-loss heuristics match the reference exactly.
     """
-    device, dtype = _setup(params, device, dtype)
+    where = _setup(params, device, dtype)
     x_np, g_np_all = _host_grid_and_payoffs(params, list(StoppingProblem))
-    V_np = _run(params, g_np_all, device, dtype,
-                [_BS_REVERSE[pr] for pr in StoppingProblem])
+    if where is None:
+        V_np = _native_march(params, g_np_all, list(StoppingProblem))
+    else:
+        V_np = _run(params, g_np_all, *where, [_BS_REVERSE[pr] for pr in StoppingProblem])
     return _assemble_boundaries(params, x_np, V_np, g_np_all.astype(V_np.dtype))
 
 

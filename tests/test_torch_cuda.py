@@ -1325,3 +1325,72 @@ def test_new_mc_entry_points_on_plain_numbers_run_on_the_card(name):
     }
     out = calls[name]()
     assert out.device == torch.device("cuda", 0) and bool(torch.isfinite(out).all())
+
+
+def _card_gate(card32, cpu32, cpu64):
+    """float32 on the card within 1e-7 + 1e-4 |p| of float64 on the CPU,
+    or within twice the CPU's own float32 error where that is larger."""
+    ref = cpu64.double()
+    err, cpu_err = (card32.cpu().double() - ref).abs(), (cpu32.double() - ref).abs()
+    limit = 1e-7 + 1e-4 * ref.abs()
+    assert bool((err <= limit).all()) or float(err.max()) <= 2.0 * float(cpu_err.max())
+
+
+def _pide_cases():
+    from pde_tpu_torch.solvers import barrier_pde, bates_pide, pide
+
+    hp = heston_adi.HestonPDEParams(q=0.02, n_spot=40, n_vol=20, n_time=20)
+    strikes = np.linspace(80.0, 120.0, 9)
+    return {
+        # name: (call on (device, dtype), K5 launches on the card in float32)
+        "pide_merton": (lambda d, f: pide.solve_pide(
+            pide.MertonJumps(0.5, -0.1, 0.15), 0.2, 0.05, 0.02, 0.5, strikes, 100.0,
+            n_space=128, n_time=16, device=d, dtype=f).price, 16 * 2),
+        "pide_kou_american": (lambda d, f: pide.solve_pide(
+            pide.KouJumps(1.0, 0.4, 10.0, 5.0), 0.2, 0.05, 0.02, 0.5, strikes, 100.0,
+            is_call=False, american=True, n_space=128, n_time=16, fp_iterations=3,
+            device=d, dtype=f).price, 16 * 3),
+        "bates_pide_it_lcp": (lambda d, f: bates_pide.solve_bates_pide(
+            bates_pide.BatesPIDEParams(q=0.02, is_call=False, american=True,
+                                       american_method="it_lcp", n_spot=40, n_vol=20,
+                                       n_time=20), 100.0, device=d, dtype=f).price[None], 40),
+        "barrier_up_and_out": (lambda d, f: barrier_pde.solve_barrier(
+            hp, 100.0, 120.0, "up-and-out", device=d, dtype=f).price[None], 40),
+        "barrier_down_and_in": (lambda d, f: barrier_pde.solve_barrier(
+            hp, 100.0, 85.0, "down-and-in", device=d, dtype=f).price[None], 80),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pide_merton", "pide_kou_american", "bates_pide_it_lcp",
+                                  "barrier_up_and_out", "barrier_down_and_in"])
+def test_jump_and_barrier_solvers_on_card_match_cpu(name):
+    """The PIDE, Bates and barrier marches with every sweep on K5's lane
+    route (card, float32; exact launch counts) against float64 on the CPU;
+    in float64 the card takes the factored twin and launches nothing."""
+    _need_cuda()
+    call, launches = _pide_cases()[name]
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    k5 = tridiag.thomas_batched
+    before = (k5.launches, k5.launches_smem)
+    card32 = call(card, torch.float32)
+    torch.cuda.synchronize()
+    assert (k5.launches - before[0], k5.launches_smem - before[1]) == (launches, launches)
+    ref = call(cpu, torch.float64)
+    _card_gate(card32, call(cpu, torch.float32), ref)
+    before = k5.launches
+    card64 = call(card, torch.float64)
+    assert k5.launches == before
+    np.testing.assert_allclose(card64.cpu().numpy(), ref.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_hjb_native_backend_launches_nothing():
+    _need_cuda()
+    p = hjb.HJBParams(n_space=64, n_time=32, method="brennan_schwartz", backend="native")
+    before = (tridiag.thomas_batched.launches, lcp.projected_sor_batched.launches)
+    host = hjb.solve_all_boundaries(p)
+    assert (tridiag.thomas_batched.launches, lcp.projected_sor_batched.launches) == before
+    card = hjb.solve_all_boundaries(p._replace(backend="device"), device="cuda",
+                                    dtype=torch.float64)
+    np.testing.assert_allclose(host, card, rtol=1e-10, atol=1e-12)

@@ -22,8 +22,8 @@ from pde_tpu_torch.models import (bates, black_scholes, credit, digital, forward
                                   heston, heston_mc, local_vol, multi_asset, rates,
                                   rough_heston, rough_heston_mc, sabr, slv, svcj, term_heston,
                                   varswap, vix)
-from pde_tpu_torch.solvers import (bermudan_g2, bermudan_hw, bs_pde, heston_adi, local_vol_pde,
-                                   lsm, lsm_dual)
+from pde_tpu_torch.solvers import (barrier_pde, bates_pide, bermudan_g2, bermudan_hw, bs_pde,
+                                   heston_adi, local_vol_pde, lsm, lsm_dual, pide)
 
 
 @pytest.fixture()
@@ -105,6 +105,18 @@ RATES_ENTRY_POINTS = {
     "rough_heston_mc.lift_nodes": lambda d: rough_heston_mc.lift_nodes(0.1, 4, device=d)[0],
     "CalibrationOrchestrator": lambda d: torch.empty(0, device=CalibrationOrchestrator(
         device=d).device),
+}
+
+
+# the jump-diffusion and barrier PDE solvers: each takes the device
+PIDE_ENTRY_POINTS = {
+    "pide.solve_pide": lambda d: pide.solve_pide(
+        pide.MertonJumps(0.5, -0.1, 0.15), 0.2, 0.05, 0.02, 0.5, [90.0, 110.0], 100.0,
+        n_space=16, n_time=10, device=d).price,
+    "bates_pide.solve_bates_pide": lambda d: bates_pide.solve_bates_pide(
+        bates_pide.BatesPIDEParams(n_spot=16, n_vol=8, n_time=10), 100.0, device=d).price,
+    "barrier_pde.solve_barrier": lambda d: barrier_pde.solve_barrier(
+        _HP, 100.0, 120.0, "up-and-in", device=d).price,
 }
 
 
@@ -283,6 +295,7 @@ ENTRY_POINTS = {
     # the rates and credit desk: curves and models built from plain numbers
     # take the card, and every pricer follows its curve
     **{name: (lambda fn=fn: fn(None)) for name, fn in RATES_ENTRY_POINTS.items()},
+    **{name: (lambda fn=fn: fn(None)) for name, fn in PIDE_ENTRY_POINTS.items()},
     "rates.bachelier_price": lambda: rates.bachelier_price(0.03, 0.03, 0.0075, 1.0),
     # the Monte Carlo engine: plain numbers take the card
     **{name: (lambda fn=fn: fn(torch.Generator(), None)) for name, fn in MC_ENTRY_POINTS.items()},
@@ -338,6 +351,13 @@ def test_fourier_models_follow_their_inputs(no_card):
 def test_rates_entry_points_run_on_the_cpu_when_asked(no_card, name):
     """The same calls with ``device="cpu"`` compute there."""
     out = RATES_ENTRY_POINTS[name]("cpu")
+    assert out.device.type == "cpu"
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("name", sorted(PIDE_ENTRY_POINTS))
+def test_pide_entry_points_run_on_the_cpu_when_asked(no_card, name):
+    out = PIDE_ENTRY_POINTS[name]("cpu")
     assert out.device.type == "cpu"
     assert bool(torch.isfinite(out).all())
 

@@ -14,7 +14,12 @@ the CPU).  Gates, each with its reason:
   onto the kernel's CPU twin in float32, against the plain Thomas march in
   float32: 2e-6 relative + 1e-6 absolute;
 - float32 PSOR on a stiff wide grid: no farther from float64 than the
-  reference's own float32 march on the same payoffs.
+  reference's own float32 march on the same payoffs;
+- ``backend="native"``: the C++ host twin's marches (``src/cpp``, built by
+  the port's own loader, never the reference's) against the reference's
+  float64 march and the port's at 1e-10 relative, 1e-12 absolute; the
+  threaded Brennan-Schwartz call bit for bit the single marches; the
+  routed boundaries equal the device route's; a missing compiler raises.
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py.
 """
 
@@ -28,7 +33,8 @@ import pytest
 import torch
 
 from pde_tpu.solvers import hjb as jhjb
-from pde_tpu_torch import interop
+from pde_tpu_torch import interop, native
+from pde_tpu_torch.native import loader as native_loader
 from pde_tpu_torch.ops import tridiag
 from pde_tpu_torch.solvers import hjb as thjb
 
@@ -217,15 +223,125 @@ def test_find_boundaries_zero_is_dtype_aware():
 
 def test_backends():
     """``auto`` marches on the device it is given, as ``device`` does;
-    ``native`` (the reference's C++ host twin) is not ported and raises."""
+    ``native`` runs the projection and Brennan-Schwartz marches on the C++
+    host twin (float64) with the same boundaries, and sends PSOR and the
+    reference's own band to the device."""
     p = thjb.HJBParams(n_space=24, n_time=6)
     auto = thjb.solve_all_boundaries(p, **CPU64)
     assert auto == thjb.solve_all_boundaries(p._replace(backend="device"), **CPU64)
-    for call in (thjb.solve, thjb.solve_all_boundaries):
-        with pytest.raises(NotImplementedError, match="native"):
-            call(p._replace(backend="native"), **CPU64)
+    for method in ("projection", "brennan_schwartz"):
+        q = p._replace(method=method)
+        host = thjb.solve_all_boundaries(q._replace(backend="native"))
+        np.testing.assert_allclose(host, thjb.solve_all_boundaries(q, **CPU64), **GATE)
+        one = thjb.solve(q._replace(backend="native", problem=thjb.StoppingProblem.EXIT_LONG))
+        assert one.value_function.dtype == np.float64
+        assert thjb.solve_all_boundaries(q._replace(backend="native"), **CPU64) == host
+        for where in (dict(device="cuda"), dict(dtype=torch.float32)):
+            with pytest.raises(ValueError, match="host in float64"):
+                thjb.solve_all_boundaries(q._replace(backend="native"), **where)
+    for q in (p._replace(method="psor"), p._replace(reference_compat=True)):
+        assert (thjb.solve_all_boundaries(q._replace(backend="native"), **CPU64)
+                == thjb.solve_all_boundaries(q, **CPU64))
     with pytest.raises(ValueError):
         thjb.solve(p._replace(mu=0.0), **CPU64)
+
+
+NATIVE = dict(theta=0.0, mu=5.0, sigma=0.1, r=0.05, c_entry=0.002, c_exit=0.002, T=1.0,
+              n_space=64, n_time=32)
+NATIVE_GATE = dict(rtol=1e-10, atol=1e-12)
+
+
+def _native_args(p):
+    return (p.theta, p.mu, p.sigma, p.r, p.T, p.x_min, p.x_max)
+
+
+@pytest.mark.parametrize("method", ["projection", "brennan_schwartz"])
+def test_native_marches_match_reference(method):
+    """The host twin's marches against the reference's device march
+    (``solve(backend="device")`` and ``_march``, x64) and the port's own
+    float64 march, every stopping problem."""
+    for pr in jhjb.StoppingProblem:
+        p = jhjb.HJBParams(method=method, problem=pr, backend="device", **NATIVE)
+        want = jhjb.solve(p)
+        g = np.asarray(jhjb._host_grid_and_payoffs(p, [pr])[1][0])
+        rev = jhjb._BS_REVERSE[pr]
+        if method == "projection":
+            got = native.hjb_march(*_native_args(p), g, n_time=p.n_time)
+        else:
+            got = native.hjb_march_bs(*_native_args(p), g, rev, n_time=p.n_time)
+        np.testing.assert_allclose(got, want.value_function, **NATIVE_GATE)
+        ref_march = np.asarray(jhjb._march(g, *_native_args(p), p.n_space, p.n_time,
+                                           method=method, bs_reverse=np.asarray(rev))[1])
+        np.testing.assert_allclose(got, ref_march, **NATIVE_GATE)
+        port = thjb._march(torch.as_tensor(g), *_native_args(p), p.n_space, p.n_time,
+                           method=method, bs_reverse=rev)[1]
+        np.testing.assert_allclose(got, port.numpy(), **NATIVE_GATE)
+
+
+def test_native_multi_is_the_single_marches():
+    p = jhjb.HJBParams(method="brennan_schwartz", **NATIVE)
+    g = np.asarray(jhjb._host_grid_and_payoffs(p, list(jhjb.StoppingProblem))[1])
+    rev = [jhjb._BS_REVERSE[pr] for pr in jhjb.StoppingProblem]
+    multi = native.hjb_march_bs_multi(*_native_args(p), g, rev, n_time=p.n_time)
+    single = np.stack([native.hjb_march_bs(*_native_args(p), gi, ri, n_time=p.n_time)
+                       for gi, ri in zip(g, rev)])
+    np.testing.assert_array_equal(multi, single)
+
+
+@pytest.mark.parametrize("method", ["projection", "brennan_schwartz"])
+def test_native_backend_boundaries_are_the_device_routes(method):
+    p = jhjb.HJBParams(method=method, backend="device", **NATIVE)
+    tp = interop.hjb_params(p)
+    host = thjb.solve_all_boundaries(tp._replace(backend="native"))
+    np.testing.assert_allclose(host, thjb.solve_all_boundaries(tp, **CPU64), **NATIVE_GATE)
+    np.testing.assert_allclose(host, jhjb.solve_all_boundaries(p), **NATIVE_GATE)
+    for pr in thjb.StoppingProblem:
+        one = thjb.solve(tp._replace(backend="native", problem=pr))
+        dev = thjb.solve(tp._replace(problem=pr), **CPU64)
+        np.testing.assert_allclose(one.value_function, dev.value_function, **NATIVE_GATE)
+        for a, b in ((one.lower_boundary, dev.lower_boundary),
+                     (one.upper_boundary, dev.upper_boundary)):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_allclose(a, b, **NATIVE_GATE)
+
+
+def test_native_backend_needs_no_card(no_card):
+    res = thjb.solve(thjb.HJBParams(n_space=24, n_time=6, backend="native"))
+    assert np.isfinite(res.value_function).all()
+
+
+@pytest.fixture()
+def fresh_native(monkeypatch, tmp_path):
+    """An empty build directory and no library loaded, restored after."""
+    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path)
+    native_loader.load.cache_clear()
+    yield
+    native_loader.load.cache_clear()
+
+
+def test_native_without_a_compiler_raises(fresh_native, monkeypatch):
+    monkeypatch.setattr(native_loader.shutil, "which", lambda name: None)
+    p = thjb.HJBParams(n_space=24, n_time=6, backend="native")
+    for call in (thjb.solve, thjb.solve_all_boundaries):
+        with pytest.raises(native.NativeUnavailable, match="g\\+\\+ not found"):
+            call(p)
+
+
+def test_native_build_writes_through_a_temporary_file(fresh_native, tmp_path):
+    path = native_loader.build()
+    assert path.parent == tmp_path and path.name.startswith("libpde_host-")
+    assert [f.name for f in tmp_path.iterdir()] == [path.name]
+    assert native_loader.build() == path   # built once, then found
+
+
+def test_native_library_is_keyed_on_the_host_cpu(fresh_native, monkeypatch):
+    """A tree copied to another CPU builds its own library: the name hashes
+    what -march=native resolves to, beside the sources and flags."""
+    here = native_loader.library_path()
+    assert native_loader.library_path() == here
+    monkeypatch.setattr(native_loader, "_target", lambda gxx: b"another cpu")
+    assert native_loader.library_path() != here
 
 
 def test_interop_hjb_params():
