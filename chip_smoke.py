@@ -170,7 +170,24 @@ checks every result:
     bench_full.py's 256x128 Brennan-Schwartz config runs on the C++ host
     twin, launches no kernel, lands within one cell of the card's march,
     and its median wall is printed beside the card's
-    ``ou_freeboundary_psor_solve_s``.
+    ``ou_freeboundary_psor_solve_s``;
+16. the signal, sizing, VaR and serving layer (no kernel): bench_full.py's
+    ``calibration_to_sizing_pipeline_s`` (945-979: the 108-quote fit, the
+    vol-arbitrage signals and the vol-managed size, one warm run then the
+    mean of 3; the fit at bench.py's gate, the card's float32 model IVs on
+    the fitted parameters by the card gate against float64 on the CPU, the
+    size equal to the sizer's numpy arithmetic), the pricing service
+    (1074-1136: 20,000 requests from 32 clients through
+    ``MicroBatchingServer``, buckets 8-2048, 2 ms wait, float32; every price
+    by the card gate against the float64 pricer on the CPU, no error, every
+    request answered, batches of more than one;
+    ``pricing_service_requests_per_sec``, ``pricing_service_p99_latency_ms``,
+    ``pricing_direct_batch_p99_latency_ms``; a 64-request Greeks batch in
+    float64 within 1e-10 of the CPU's), and the risk rows: GARCH(1,1)'s
+    likelihood and gradient (1e-10) and fit (1e-6) on 252 returns, EWMA
+    over a (512, 252) universe (1e-12), Monte-Carlo VaR (10,000 x 8) on
+    one replay of CPU normals (1e-10), each timed, float64 on the card
+    against the CPU.
 
 Before the paths, each of the six kernel wrappers is called on the card
 with an input that requires grad: each must raise (the kernels have no
@@ -178,9 +195,10 @@ backward) and launch nothing, and run under ``torch.no_grad()``; the
 fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
-Each main path (4-15) runs with every kernel's launch count set to 0 just
+Each main path (4-16) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails
-(the rows of item 4 after the headline must launch none),
+(the rows of item 4 after the headline and those of item 16 must launch
+none),
 and so do the two Heston and local-vol books and the 108-option surface if
 K1's or K3's redesigned route (``launches_smem``) never launched, the
 Black-Scholes book if K4's warp route (``launches_warp``) did not,
@@ -214,8 +232,9 @@ one warm call of each book row, of the SABR fit, of ``heston_adi.solve``,
 OU and HJB rows, of the 8192-option grouped pricing, of the 16-surface
 ``calibrate_batch``, of the nine Fourier-priced rows, of the five rates
 and credit rows, of the five Heston Monte Carlo rows, of the five rows
-of the rest of the Monte Carlo desk and of the four jump-diffusion and
-barrier rows under ``torch.profiler``: wall, the card's busy time and idle
+of the rest of the Monte Carlo desk, of the four jump-diffusion and
+barrier rows, of the calibration-to-sizing pipeline and of one run of the
+pricing service under ``torch.profiler``: wall, the card's busy time and idle
 share, and the kernels that took most of the device time.  Row
 names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 """
@@ -2324,6 +2343,303 @@ PIDE_PATHS = ((phase_pide_merton_strip, PIDE_STEPS), (phase_pide_kou_american_st
                + 12 * BARRIER_BS["n_time"]))
 
 
+# bench_full.py:945-979: calibration -> vol-arb signal -> vol-managed size on
+# the 108-quote surface; :1074-1136: the micro-batching pricing service
+# (20,000 requests from 32 closed-loop clients, buckets 8-2048, 2 ms wait,
+# float32), its direct-batch baseline (200 calls) and a 64-request Greeks
+# batch in float64; the risk rows (no bench row): GARCH(1,1) on 252 returns
+# of a seeded GARCH series, EWMA over a (512, 252) universe, Monte-Carlo
+# VaR with 10,000 scenarios over 8 assets
+PIPELINE_RETURNS = dict(seed=7, loc=0.0005, scale=0.012, n=252)
+SERVE_N, SERVE_CLIENTS, SERVE_WAIT_MS = 20_000, 32, 2.0
+SERVE_BUCKETS, SERVE_DIRECT_REPS, GREEKS_N = (8, 32, 128, 512, 2048), 200, 64
+GARCH_N, EWMA_ASSETS, VAR_ASSETS, VAR_SIMS = 252, 512, 8, 10_000
+# float64 on the card against float64 on the CPU: the likelihood, its
+# gradient, the Greeks and the VaR figures round in another order (1e-10,
+# relative to the largest figure where a row has several); L-BFGS-B
+# turns gradients that agree to ~1e-15 into fits within 1e-6 where the
+# maximum is identified (tests/test_torch_position_sizer.py)
+F64_TOL, GARCH_VOL_REL, EWMA_REL = 1e-10, 1e-6, 1e-12
+
+
+def sizing_pipeline(torch, dev):
+    """bench_full.py's ``pipeline()`` on the 108-quote surface, float32:
+    fit, signals (market IVs from ``black_scholes.implied_vol``), size on
+    252 seeded daily returns.  Returns (pipeline, chain, returns)."""
+    import numpy as np
+
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator
+    from pde_tpu_torch.models import black_scholes as bs
+    from pde_tpu_torch.risk.position_sizer import VolatilityScaledPositionSizer
+    from pde_tpu_torch.signals.vol_arbitrage import VolSurfaceArbitrageSignal
+
+    f32 = torch.float32
+    data = HestonCalibrator.generate_synthetic_data(
+        S0=S0, r=R, q=Q, **TRUE, strikes=np.linspace(85.0, 115.0, 12),
+        maturities=np.linspace(0.25, 1.5, 9), device=dev, dtype=f32)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f32, device=dev)  # noqa: E731
+    market_iv = bs.implied_vol(t(data["mid_price"]), S0, t(data["strike"]), R, Q,
+                               t(data["maturity"])).cpu().numpy()
+    chain = {"strike": np.asarray(data["strike"]), "T": np.asarray(data["maturity"]),
+             "implied_vol": market_iv}
+    p = PIPELINE_RETURNS
+    rets = np.random.default_rng(p["seed"]).normal(p["loc"], p["scale"], p["n"])
+    cal = HestonCalibrator(seed=42, device=dev, dtype=f32, **BUDGET)
+    gen = VolSurfaceArbitrageSignal(use_sabr=False, device=dev, dtype=f32)
+    sizer = VolatilityScaledPositionSizer()
+
+    def pipeline():
+        res = cal.calibrate(data, S0=S0, r=R, q=Q)
+        sigs = gen.generate_signals(chain, S0, R, Q, heston_result=res)
+        return res, sigs, sizer.compute_position_size(rets, 1_000_000.0)
+
+    return pipeline, chain, rets
+
+
+def phase_sizing_pipeline(torch, dev, timed_runs=3):
+    """``calibration_to_sizing_pipeline_s``: one warm run, then the mean of
+    ``timed_runs``; the fit at bench.py's gate, the card's model IVs on the
+    fitted parameters by :func:`card_gate` against the port's float64 run
+    on the CPU, the size equal to the sizer's numpy arithmetic."""
+    import numpy as np
+
+    from pde_tpu_torch.signals.vol_arbitrage import VolSurfaceArbitrageSignal
+
+    pipeline, chain, rets = sizing_pipeline(torch, dev)
+    pipeline()  # warm-up
+    walls = []
+    for _ in range(timed_runs):
+        t0 = time.perf_counter()
+        res, sigs, sized = pipeline()
+        walls.append(time.perf_counter() - t0)
+    n = len(chain["strike"])
+    rel_rmse = float(np.sqrt(2.0 * res.convergence["local_cost"] / n))
+    fit_ok = abs(res.params.v0 - TRUE["v0"]) < 0.02 and rel_rmse < 0.05   # bench.py:274
+    cpu = torch.device("cpu")
+    args = (chain["strike"], chain["T"], np.ones(n, bool), S0, R, Q, res, None)
+    # the card's float32 IVs, the CPU's float64 and float32 ones
+    ivs = [VolSurfaceArbitrageSignal(use_sabr=False, device=d, dtype=dt)._model_iv_vector(*args)
+           for d, dt in ((dev, torch.float32), (cpu, torch.float64), (cpu, torch.float32))]
+    fields, iv_ok = card_gate(*(torch.as_tensor(v) for v in ivs))
+    sigs_cpu = VolSurfaceArbitrageSignal(use_sabr=False, device=cpu, dtype=torch.float64
+                                         ).generate_signals(chain, S0, R, Q, heston_result=res)
+    vol = float(np.clip(np.std(rets[-21:], ddof=1) * np.sqrt(252), 0.01, 1.0))
+    size = min(1_000_000.0 * float(np.clip(0.15**2 / vol**2, 0.2, 2.0)), 1_000_000.0 * 0.25)
+    size_ok = sized.position_size == size and size > 0
+    per = statistics.mean(walls)
+    ok = bool(fit_ok and iv_ok and size_ok and np.all(np.isfinite(ivs[0])))
+    emit(phase="calibration_to_sizing_pipeline", n_quotes=n, rel_rmse=rel_rmse,
+         params=[float(v) for v in res.params], model_iv_gate=fields, n_signals_card=len(sigs),
+         n_signals_cpu_f64=len(sigs_cpu), position_size=sized.position_size,
+         position_size_numpy=size, wall_s_runs=walls, calibration_to_sizing_pipeline_s=per,
+         baseline_s=5.0, ok=ok)
+    if not ok:
+        raise AssertionError("the calibration-to-sizing pipeline missed its gate")
+
+
+def serving_requests():
+    """bench_full.py's requests: 81 strikes x 19 maturities cycled, calls
+    and puts alternating, one Heston vector."""
+    from pde_tpu_torch.serving import PricingRequest
+
+    return [PricingRequest(strike=80.0 + (i % 81) * 0.5, maturity=0.1 + (i % 19) * 0.1,
+                           spot=S0, params=tuple(TRUE.values()), rate=R, dividend=Q,
+                           is_call=bool(i % 2)) for i in range(SERVE_N)]
+
+
+def serving_run(pricer, reqs):
+    """bench_full.py's closed-loop clients through a started server: (wall
+    seconds, latencies in s, prices, the server's stats)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pde_tpu_torch.serving import MicroBatchingServer
+
+    n = len(reqs)
+    lat, prices = np.empty(n), np.empty(n)
+    with MicroBatchingServer(pricer, max_wait_ms=SERVE_WAIT_MS) as srv:
+        srv.pricer.warmup(greeks=False)
+
+        def client(span):
+            for i in range(*span):
+                t0 = time.perf_counter()
+                prices[i] = srv.price(reqs[i], timeout=120.0).price
+                lat[i] = time.perf_counter() - t0
+
+        chunk = n // SERVE_CLIENTS
+        spans = [(c * chunk, (c + 1) * chunk if c < SERVE_CLIENTS - 1 else n)
+                 for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            list(pool.map(client, spans))
+        wall = time.perf_counter() - t0
+    return wall, lat, prices, srv.stats
+
+
+def direct_prices(torch, d, dtype, reqs):
+    """``heston.price_carr_madan_gl`` over the requests' own parameters in
+    one call, as (n, 1) parameter columns: the server's reference."""
+    import numpy as np
+
+    from pde_tpu_torch.models import heston
+
+    cols = torch.as_tensor(np.array([(*r.params, r.strike, r.maturity, r.spot, r.rate,
+                                      r.dividend, r.is_call) for r in reqs]),
+                           dtype=dtype, device=d)
+    p = heston.HestonParams(*(cols[:, i:i + 1] for i in range(5)))
+    return heston.price_carr_madan_gl(p, *cols[:, 5:10].unbind(1), cols[:, 10])
+
+
+def phase_pricing_service(torch, dev):
+    """``pricing_service_requests_per_sec``, ``pricing_service_p99_latency_ms``
+    and ``pricing_direct_batch_p99_latency_ms``: every price within
+    :func:`card_gate` of the float64 pricer on the CPU, no error, every
+    request answered, batches of more than one; then a 64-request Greeks
+    batch in float64 on the card within 1e-10 of the CPU's."""
+    import dataclasses
+
+    import numpy as np
+
+    from pde_tpu_torch.serving import BatchPricer
+
+    cpu = torch.device("cpu")
+    reqs = serving_requests()
+    pricer = BatchPricer(buckets=SERVE_BUCKETS, device=dev, dtype=torch.float32)
+    wall, lat, prices, stats = serving_run(pricer, reqs)
+    fields, ok = card_gate(torch.as_tensor(prices), direct_prices(torch, cpu, torch.float64, reqs),
+                           direct_prices(torch, cpu, torch.float32, reqs))
+    ok = ok and stats.errors == 0 and stats.requests == SERVE_N and stats.mean_batch > 1
+    bucket = int(np.ceil(stats.mean_batch))
+    direct = reqs[:bucket]
+    pricer.price(direct)
+    lat_d = []
+    for _ in range(SERVE_DIRECT_REPS):
+        t0 = time.perf_counter()
+        pricer.price(direct)
+        lat_d.append(time.perf_counter() - t0)
+    greeks = [dataclasses.replace(r, spot=S0 + (i % 7) - 3.0, want_greeks=True)
+              for i, r in enumerate(reqs[:GREEKS_N])]
+    out = {d: np.array([[g.price, g.delta, g.vega] for g in BatchPricer(
+        buckets=(GREEKS_N,), device=d, dtype=torch.float64).price(greeks)]) for d in (dev, cpu)}
+    greeks_err = float(np.abs(out[dev] - out[cpu]).max())
+    ok = bool(ok and greeks_err <= F64_TOL and np.isfinite(out[dev]).all())
+    emit(phase="pricing_service", n_requests=SERVE_N, clients=SERVE_CLIENTS,
+         buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS, dtype="float32", **fields,
+         stats=stats.to_dict(), mean_batch=stats.mean_batch, wall_s=wall,
+         pricing_service_requests_per_sec=SERVE_N / wall,
+         pricing_service_p99_latency_ms=float(np.percentile(lat * 1e3, 99)),
+         pricing_service_p50_latency_ms=float(np.percentile(lat * 1e3, 50)),
+         direct_batch=bucket,
+         pricing_direct_batch_p99_latency_ms=float(np.percentile(np.asarray(lat_d) * 1e3, 99)),
+         pricing_direct_batch_p50_latency_ms=float(np.percentile(np.asarray(lat_d) * 1e3, 50)),
+         greeks_batch=GREEKS_N, greeks_f64_max_abs_vs_cpu=greeks_err, ok=ok)
+    if not ok:
+        raise AssertionError("the pricing service missed its gate")
+
+
+def garch_returns(n, seed):
+    """A GARCH(1,1) daily return series (omega 2e-6, alpha 0.08, beta 0.9)
+    from seeded normals (numpy)."""
+    import numpy as np
+
+    omega, a, b = 2e-6, 0.08, 0.9
+    z = np.random.default_rng(seed).standard_normal(n)
+    var, out = omega / (1.0 - a - b), np.empty(n)
+    for t in range(n):
+        out[t] = np.sqrt(var) * z[t]
+        var = omega + a * out[t] ** 2 + b * var
+    return out
+
+
+def phase_risk(torch, dev, reps=20):
+    """The risk layer on the card in float64 against the CPU: GARCH's
+    likelihood and gradient at the fit's start (1e-10) and the fitted vol
+    (1e-6 relative); EWMA ``estimate_batch`` over a (512, 252) universe
+    (1e-12 relative); Monte-Carlo VaR, 10,000 scenarios over 8 assets, on
+    one replay of CPU normals (1e-10), then on the card's own generator;
+    each timed (medians of ``reps`` warm calls, the fits of 5)."""
+    import numpy as np
+
+    from pde_tpu_torch.risk import position_sizer, var_calculator
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    rets = garch_returns(GARCH_N, 1)
+    x0 = np.array([np.log(0.1 * float(np.var(rets * 100))), 0.0, 2.0])
+    ll = {d: position_sizer._garch_value_and_grad(torch.as_tensor(x0, device=d),
+                                                  torch.as_tensor(rets * 100.0, device=d))
+          for d in (dev, cpu)}
+    # relative to the largest entry: the value and each gradient's vector
+    ll_err = max(float((c.cpu() - h).abs().max() / h.abs().max().clamp_min(1.0))
+                 for c, h in zip(ll[dev], ll[cpu]))
+    x0_dev, r_dev = torch.as_tensor(x0, device=dev), torch.as_tensor(rets * 100.0, device=dev)
+    ll_ms = statistics.median(timed_walls(torch, dev, lambda: position_sizer._garch_value_and_grad(
+        x0_dev, r_dev), reps)[1]) * 1e3
+    est = {d: position_sizer.VolatilityEstimator("garch", device=d) for d in (dev, cpu)}
+    vol_cpu = est[cpu].estimate(rets)
+    vol, fit_walls = timed_walls(torch, dev, lambda: est[dev].estimate(rets), 5)
+    vol_rel = abs(vol - vol_cpu) / vol_cpu
+
+    universe = np.random.default_rng(2).normal(0.0005, 0.012, (EWMA_ASSETS, GARCH_N))
+    ewma = {d: position_sizer.VolatilityEstimator("ewma", device=d) for d in (dev, cpu)}
+    ewma_card, ewma_walls = timed_walls(torch, dev, lambda: ewma[dev].estimate_batch(universe),
+                                        reps)
+    ewma_ref = ewma[cpu].estimate_batch(universe)
+    ewma_rel = float(np.max(np.abs(ewma_card - ewma_ref) / ewma_ref))
+
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(VAR_ASSETS, VAR_ASSETS))
+    cov = a @ a.T * 2e-5 + np.eye(VAR_ASSETS) * 5e-5
+    hist = rng.multivariate_normal(np.full(VAR_ASSETS, 2e-4), cov, 1000)
+    ids = [f"A{i}" for i in range(VAR_ASSETS)]
+    book = {k: v for k, v in zip(ids, rng.uniform(-2e5, 8e5, VAR_ASSETS))}
+    z = torch.randn((VAR_SIMS, VAR_ASSETS), generator=torch.Generator().manual_seed(11),
+                    dtype=f64)
+    own = var_calculator._mc_normals
+    var_calculator._mc_normals = lambda seed, shape, dtype, device: z.to(device, dtype)
+    try:
+        replay = {d: var_calculator.VaRCalculator("monte_carlo", n_simulations=VAR_SIMS,
+                                                  device=d).calculate(book, hist, ids)
+                  for d in (dev, cpu)}
+    finally:
+        var_calculator._mc_normals = own
+    # VaR, CVaR and the components, relative to the largest of them
+    got, want = (np.array([v.var_95, v.var_99, v.cvar_95, v.cvar_99, *v.component_var.values()])
+                 for v in (replay[dev], replay[cpu]))
+    var_err = float(np.abs(got - want).max() / np.abs(want).max())
+    mc = var_calculator.VaRCalculator("monte_carlo", n_simulations=VAR_SIMS, device=dev)
+    mc_res, mc_walls = timed_walls(torch, dev, lambda: mc.calculate(book, hist, ids), reps)
+    hc = var_calculator.VaRCalculator("historical", device=dev)
+    hc_res, hc_walls = timed_walls(torch, dev, lambda: hc.calculate(book, hist, ids), reps)
+    hist_cpu = var_calculator.VaRCalculator("historical", device=cpu).calculate(book, hist, ids)
+    hist_err = abs(hc_res.var_95 - hist_cpu.var_95) / hist_cpu.var_95
+    ok = bool(ll_err <= F64_TOL and vol_rel <= GARCH_VOL_REL and ewma_rel <= EWMA_REL
+              and var_err <= F64_TOL and hist_err <= F64_TOL and mc_res.var_95 > 0)
+    emit(phase="risk", garch_n=GARCH_N, garch_ll_grad_max_abs_vs_cpu=ll_err,
+         garch_value_and_grad_ms=ll_ms, garch_vol=vol, garch_vol_rel_vs_cpu=vol_rel,
+         garch_fit_s=statistics.median(fit_walls), ewma_batch=[EWMA_ASSETS, GARCH_N],
+         ewma_max_rel_vs_cpu=ewma_rel, ewma_batch_ms=statistics.median(ewma_walls) * 1e3,
+         var_assets=VAR_ASSETS, var_sims=VAR_SIMS, var_replay_max_rel_vs_cpu=var_err,
+         var_mc_var_95=mc_res.var_95, var_mc_ms=statistics.median(mc_walls) * 1e3,
+         var_historical_rel_vs_cpu=hist_err, var_historical_ms=statistics.median(hc_walls) * 1e3,
+         ok=ok)
+    if not ok:
+        raise AssertionError("the risk layer missed its gate")
+
+
+SIGNAL_PHASES = (phase_sizing_pipeline, phase_pricing_service, phase_risk)
+
+
+def signal_profile_rows(torch, dev):
+    """The pipeline and the pricing service, float32 on the card."""
+    from pde_tpu_torch.serving import BatchPricer
+
+    pipeline = sizing_pipeline(torch, dev)[0]
+    pricer = BatchPricer(buckets=SERVE_BUCKETS, device=dev, dtype=torch.float32)
+    reqs = serving_requests()
+    return {"calibration_to_sizing_pipeline": pipeline,
+            "pricing_service": lambda: serving_run(pricer, reqs)}
+
+
 def timed_walls(torch, dev, fn, reps):
     """One warm call, then ``reps`` host-clock walls, each ending in a sync."""
     fn()
@@ -3828,6 +4144,7 @@ def profile_rows(torch, dev, interp, top=4):
         **mc_profile_rows(torch, dev),
         **mc_desk_profile_rows(torch, dev),
         **pide_profile_rows(torch, dev),
+        **signal_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -3857,7 +4174,7 @@ def main() -> None:
     emit(phase="device", kind=kind, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     sources = dict.fromkeys([k["source"].rsplit("/", 1)[1] for k in KERNELS.values()]
                             + list(build.VARIANTS))
     built = build.load_libraries(*sources)
@@ -3990,6 +4307,14 @@ def main() -> None:
     if any(counts.values()):
         raise AssertionError(f"phase_hjb_native launched a kernel: {counts}")
     phase_bermudan_rows(torch, dev)
+    # the signal, sizing, VaR and serving layer launches no kernel
+    for fn in SIGNAL_PHASES:
+        counts = path(fn, torch, dev)[0]
+        if any(counts.values()):
+            raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")
+    emit(phase="signal_serving_seconds",
+         seconds={fn.__name__: path_seconds[fn.__name__] for fn in SIGNAL_PHASES},
+         total_s=sum(path_seconds[fn.__name__] for fn in SIGNAL_PHASES))
     # what the PIDE phases cost against the repeats cut to pay for them
     new_s = {fn.__name__: path_seconds[fn.__name__] for fn, _ in PIDE_PATHS}
     new_s.update(phase_hjb_native=path_seconds["phase_hjb_native"],
@@ -4022,6 +4347,7 @@ def main() -> None:
                      "bound_by": bound_by, "library_ms": m.get("library_ms"),
                      **({"launches_hjb": hjb_launches[k]} if k in hjb_launches else {}),
                      **on_paths.get(k, {})})
+    emit(phase="smoke_seconds", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -33,6 +34,7 @@ __all__ = [
     "resolve_device",
     "device_of",
     "to_tensor",
+    "host_tensor",
     "where_flag",
     "check_generator",
     "cholesky_nan",
@@ -100,6 +102,14 @@ def to_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     """``x`` (number, sequence, ndarray or tensor) as a tensor of ``dtype``
     on ``device``; a tensor already there is returned as it is."""
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def host_tensor(x, device, dtype=None) -> torch.Tensor:
+    """A host array ``x`` as a tensor on ``resolve_device(device)`` in one
+    copy; ``dtype=None`` keeps the array's own floating precision (at least
+    the default float, as :func:`result_dtype` reads inputs)."""
+    t = torch.as_tensor(np.asarray(x))
+    return t.to(device=resolve_device(device), dtype=dtype or result_dtype(t))
 
 
 def where_flag(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1394,3 +1394,74 @@ def test_hjb_native_backend_launches_nothing():
     card = hjb.solve_all_boundaries(p._replace(backend="device"), device="cuda",
                                     dtype=torch.float64)
     np.testing.assert_allclose(host, card, rtol=1e-10, atol=1e-12)
+
+
+def _pricing_requests(n, seed):
+    """Seeded requests, each under its own Heston vector, Greeks on all."""
+    from pde_tpu_torch.serving import PricingRequest
+
+    rng = np.random.default_rng(seed)
+    return [PricingRequest(
+        strike=float(rng.uniform(70.0, 130.0)), maturity=float(rng.uniform(0.05, 2.0)),
+        spot=100.0, params=(float(rng.uniform(1.0, 3.0)), float(rng.uniform(0.02, 0.08)),
+                            float(rng.uniform(0.2, 0.6)), float(rng.uniform(-0.8, -0.2)),
+                            float(rng.uniform(0.02, 0.08))),
+        rate=0.05, dividend=0.02, is_call=bool(i % 2), want_greeks=True) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_batch_pricer_on_card_matches_cpu_float64():
+    """The card's float32 batch within 1e-5 + 1e-4 |p| of float64 on the
+    CPU; its float64 prices and reverse-mode Greeks within 1e-10."""
+    from pde_tpu_torch.serving import BatchPricer
+
+    _need_cuda()
+    reqs = _pricing_requests(100, seed=5)
+    cpu = BatchPricer(buckets=(128,), device="cpu", dtype=torch.float64).price(reqs)
+    card32 = BatchPricer(buckets=(128,), device="cuda", dtype=torch.float32).price(reqs)
+    card64 = BatchPricer(buckets=(128,), device="cuda", dtype=torch.float64).price(reqs)
+    ref = np.array([[r.price, r.delta, r.vega] for r in cpu])
+    np.testing.assert_allclose([r.price for r in card32], ref[:, 0], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose([[r.price, r.delta, r.vega] for r in card64], ref,
+                               rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_pricing_server_round_trip_on_card():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pde_tpu_torch.serving import BatchPricer, MicroBatchingServer
+
+    _need_cuda()
+    pricer = BatchPricer(buckets=(8, 32, 128), device="cuda", dtype=torch.float64)
+    reqs = _pricing_requests(256, seed=6)
+    want = pricer.price(reqs[:128]) + pricer.price(reqs[128:])
+    with MicroBatchingServer(pricer, max_wait_ms=2.0) as srv:
+        with ThreadPoolExecutor(16) as pool:
+            got = list(pool.map(lambda r: srv.price(r, timeout=60.0), reqs))
+    assert srv.stats.errors == 0 and srv.stats.requests == 256 and srv.stats.mean_batch > 1
+    np.testing.assert_allclose([[r.price, r.delta, r.vega] for r in got],
+                               [[r.price, r.delta, r.vega] for r in want], rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_garch_and_var_on_card_match_cpu():
+    """GARCH's likelihood and gradient, and the Monte-Carlo VaR on one set
+    of CPU normals, float64 on the card against the CPU at 1e-10."""
+    from pde_tpu_torch.risk import position_sizer, var_calculator
+
+    _need_cuda()
+    rng = np.random.default_rng(9)
+    r = torch.as_tensor(rng.normal(0.0, 1.2, 252), dtype=torch.float64)
+    x = torch.tensor([np.log(0.1 * float(r.var(correction=0))), 0.0, 2.0], dtype=torch.float64)
+    cpu = position_sizer._garch_value_and_grad(x, r)
+    card = position_sizer._garch_value_and_grad(x.cuda(), r.cuda())
+    for c, g in zip(cpu, card):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-10, atol=1e-10)
+    a = rng.normal(size=(8, 8))
+    cov = torch.as_tensor(a @ a.T * 1e-4 + np.eye(8) * 1e-8)
+    mean = torch.as_tensor(rng.normal(0.0, 1e-3, 8))
+    z = torch.randn((4096, 8), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    np.testing.assert_allclose(
+        var_calculator._mc_scenarios(mean.cuda(), cov.cuda(), z.cuda()).cpu().numpy(),
+        var_calculator._mc_scenarios(mean, cov, z).numpy(), rtol=1e-10, atol=1e-14)

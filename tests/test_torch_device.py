@@ -22,6 +22,10 @@ from pde_tpu_torch.models import (bates, black_scholes, credit, digital, forward
                                   heston, heston_mc, local_vol, multi_asset, rates,
                                   rough_heston, rough_heston_mc, sabr, slv, svcj, term_heston,
                                   varswap, vix)
+from pde_tpu_torch.risk.position_sizer import VolatilityEstimator
+from pde_tpu_torch.risk.var_calculator import VaRCalculator
+from pde_tpu_torch.serving import BatchPricer, PricingRequest
+from pde_tpu_torch.signals.vol_arbitrage import VolSurfaceArbitrageSignal
 from pde_tpu_torch.solvers import (barrier_pde, bates_pide, bermudan_g2, bermudan_hw, bs_pde,
                                    heston_adi, local_vol_pde, lsm, lsm_dual, pide)
 
@@ -203,7 +207,34 @@ MC_ENTRY_POINTS = {
 }
 
 
+_RETURNS = np.random.default_rng(0).normal(0.0, 0.01, (3, 40))
+_CHAIN = {"strike": [95.0, 105.0], "T": [0.2, 0.2], "implied_vol": [0.15, 0.25]}
+
+# the signal, sizing, VaR and serving layer: each jnp path of the reference
+# computes on the card (a GARCH fit's device error is not one of the
+# numerics its EWMA fallback takes)
+SIGNAL_RISK_ENTRY_POINTS = {
+    "VolatilityEstimator.estimate(ewma)": lambda: VolatilityEstimator("ewma").estimate(
+        _RETURNS[0]),
+    "VolatilityEstimator.estimate(garch)": lambda: VolatilityEstimator("garch").estimate(
+        _RETURNS[0]),
+    "VolatilityEstimator.estimate_batch": lambda: VolatilityEstimator("hybrid").estimate_batch(
+        _RETURNS),
+    "VaRCalculator(historical)": lambda: VaRCalculator().calculate(
+        {"A": 1e6, "B": 5e5}, _RETURNS[:2].T),
+    "VaRCalculator(monte_carlo)": lambda: VaRCalculator("monte_carlo").calculate(
+        {"A": 1e6, "B": 5e5}, _RETURNS[:2].T),
+    "VolSurfaceArbitrageSignal.generate_signals": lambda: (
+        VolSurfaceArbitrageSignal().generate_signals(
+            _CHAIN, 100.0, 0.05, 0.02, heston_result=type("R", (), dict(
+                params=_HESTON, rmse=0.01))())),
+    "BatchPricer.price": lambda: BatchPricer(buckets=(8,)).price(
+        [PricingRequest(100.0, 1.0, 100.0, (2.0, 0.04, 0.3, -0.7, 0.04))]),
+}
+
+
 ENTRY_POINTS = {
+    **SIGNAL_RISK_ENTRY_POINTS,
     "HestonCalibrator": lambda: HestonCalibrator(),
     "generate_synthetic_data": lambda: HestonCalibrator.generate_synthetic_data(
         n_strikes=3, n_maturities=2),
