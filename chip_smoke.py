@@ -241,6 +241,7 @@ names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -2640,6 +2641,362 @@ def signal_profile_rows(torch, dev):
             "pricing_service": lambda: serving_run(pricer, reqs)}
 
 
+# The backtests, validation statistics, linear algebra and options data, in
+# float64 on the card against the same calls on the CPU (no kernel): the
+# full strategy grid (48 points) over the reference's sector universe, 13
+# groups of 114 symbols (pde_tpu/backtest/sectors.py:51-75), ten years of
+# daily bars each; the rolling re-optimization and the MA walk-forward
+# (252 / 63) on one such series; 10,000 shuffled and block-bootstrapped
+# (20-bar blocks) paths of 2,520 returns, a 10,000-resample bootstrap, a
+# 100,000 x 63-day Student-t(4) stress; a 12-expiry x 81-strike call and
+# put chain (2 weeks to 2.5 years) on a Heston surface with an SVI fit per
+# expiry; an EWMA
+# covariance of 100 assets and 500 x 500 positive-definite repairs and
+# solves.
+BT_GROUPS = (18, 14, 10, 9, 7, 8, 9, 6, 6, 6, 7, 5, 9)
+BT_BARS, BT_OPT, BT_TRADE = 2520, 252, 63
+BT_SIMS, BT_BLOCK, BT_BOOT = 10_000, 20, 10_000
+BT_STRESS = dict(daily_vol=0.012, n_days=63, n_paths=100_000, t_dof=4.0)
+CHAIN_DAYS = (14, 30, 60, 91, 122, 182, 273, 365, 456, 547, 730, 913)
+CHAIN_STRIKES, CHAIN_WIDTH = 81, 2.5         # strikes to +-2.5 sd of a 20% vol
+EWMA_SHAPE, PD_N = (2520, 100), 500
+# the card against the CPU on the same float64 inputs: reductions, LAPACK
+# and cuSOLVER round in another order (the positions and prefix scans are
+# the same bits on both); implied vols to the Newton's own 1e-8; SVI's LM
+# to 1e-6 (tests/test_torch_options_data.py), its fit within 1e-4 in total
+# variance
+BT_REL, OOS_ABS, IV_ABS, SVI_ABS, SVI_RMSE = 1e-10, 1e-12, 1e-8, 1e-6, 1e-4
+
+
+def bt_series(n_series, seed):
+    """Seeded daily log prices: AR(1)s (phi 0.9-0.995, vol 1-2.5%) around
+    slow random walks, as (n_series, BT_BARS) prices (numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    phi = rng.uniform(0.9, 0.995, (n_series, 1))
+    eps = rng.normal(0.0, 1.0, (n_series, BT_BARS)) * rng.uniform(0.01, 0.025, (n_series, 1))
+    x = np.zeros((n_series, BT_BARS))
+    for t in range(1, BT_BARS):
+        x[:, t] = phi[:, 0] * x[:, t - 1] + eps[:, t]
+    walk = np.cumsum(rng.normal(0.0002, 0.006, (n_series, BT_BARS)), axis=1)
+    return 100.0 * np.exp(x + walk)
+
+
+def bt_universe():
+    """{group: {symbol: prices}} of the reference's sector sizes."""
+    prices = iter(bt_series(sum(BT_GROUPS), 17))
+    return {f"sector{g}": {f"S{g}_{i}": next(prices) for i in range(size)}
+            for g, size in enumerate(BT_GROUPS)}
+
+
+def rel_err(got, want):
+    """Largest |got - want| over max(1, |want|)."""
+    import numpy as np
+
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    return float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want)), initial=0.0))
+
+
+def fit_err(got, want):
+    """(the same choice, the largest relative error of the figures) of two
+    FitnessResults."""
+    figs = ("fitness", "sharpe", "total_return", "max_drawdown")
+    return (got.strategy, got.params) == (want.strategy, want.params), rel_err(
+        [getattr(got, k) for k in figs], [getattr(want, k) for k in figs])
+
+
+def idle_share(torch, dev, fn):
+    """One warm call under torch.profiler: (wall s, busy s, idle share)."""
+    wall, dev_us = profiled(torch, dev, fn)
+    busy = sum(dev_us.values()) * 1e-6
+    return wall, busy, 1.0 - busy / wall
+
+
+def phase_strategy_optimizer(torch, dev, timed_runs=3):
+    """``StrategyOptimizer().run_optimization`` over the universe, all five
+    families' grids: the same family and parameters in every group and
+    family as on the CPU, the figures within BT_REL; one warm call, then
+    the median of ``timed_runs``, and one profiled call's idle share."""
+    from pde_tpu_torch.backtest.optimizer import STRATEGY_FAMILIES, StrategyOptimizer
+
+    groups = bt_universe()
+    card = StrategyOptimizer(device=dev)
+    res, walls = timed_walls(torch, dev, lambda: card.run_optimization(groups), timed_runs)
+    ref = StrategyOptimizer(device=torch.device("cpu")).run_optimization(groups)
+    checks = [fit_err(res[g][s], ref[g][s]) for g in ref for s in ref[g]]
+    same, err = all(c[0] for c in checks), max(c[1] for c in checks)
+    best = {g: max(cells.values(), key=lambda f: f.fitness).strategy for g, cells in res.items()}
+    wall, busy, idle = idle_share(torch, dev, lambda: card.run_optimization(groups))
+    ok = bool(same and err <= BT_REL)
+    emit(phase="strategy_optimizer", groups=len(BT_GROUPS), symbols=sum(BT_GROUPS),
+         bars=BT_BARS, grid_points=sum(len(list(itertools.product(*f["grid"].values())))
+                                       for f in STRATEGY_FAMILIES.values()),
+         same_choices_as_cpu=same, max_rel_vs_cpu=err, best_family=best, wall_s_runs=walls,
+         strategy_optimizer_s=statistics.median(walls), profiled_wall_s=wall,
+         device_busy_s=busy, idle_share=idle, ok=ok)
+    if not ok:
+        raise AssertionError("the strategy optimizer missed its gate")
+
+
+def phase_rolling_walk_forward(torch, dev, timed_runs=3):
+    """``RollingOptimizationBacktester`` (every family) and the MA-crossover
+    ``WalkForwardAnalysis``, 252 / 63, on one 2,520-bar series: the same
+    choice in each of the 36 periods as on the CPU, the out-of-sample
+    returns within OOS_ABS, the aggregates within BT_REL."""
+    import numpy as np
+
+    from pde_tpu_torch.backtest.analysis import WalkForwardAnalysis
+    from pde_tpu_torch.backtest.optimizer import (STRATEGY_FAMILIES,
+                                                  RollingOptimizationBacktester,
+                                                  StrategyOptimizer)
+
+    prices = bt_series(1, 23)[0]
+    periods = (BT_BARS - BT_OPT - BT_TRADE) // BT_TRADE + 1   # 36
+    ma = STRATEGY_FAMILIES["ma_crossover"]
+    runs = {
+        "rolling": {d: RollingOptimizationBacktester(StrategyOptimizer(device=d), BT_OPT,
+                                                     BT_TRADE).run
+                    for d in (dev, torch.device("cpu"))},
+        "walk_forward": {d: WalkForwardAnalysis(ma["fn"], ma["grid"], BT_OPT, BT_TRADE,
+                                                device=d).run
+                         for d in (dev, torch.device("cpu"))},
+    }
+    out, ok = {}, True
+    for name, run in runs.items():
+        res, walls = timed_walls(torch, dev, lambda: run[dev](prices), timed_runs)
+        ref = run[torch.device("cpu")](prices)
+        if name == "rolling":
+            picks = [(p.chosen_strategy, p.chosen_params) for p in res.periods]
+            want = [(p.chosen_strategy, p.chosen_params) for p in ref.periods]
+            agg, agg_ref = res.aggregate_metrics, ref.aggregate_metrics
+        else:
+            picks = [w.best_params for w in res.windows]
+            want = [w.best_params for w in ref.windows]
+            agg = dict(res.oos_metrics, avg_is_sharpe=res.avg_is_sharpe,
+                       avg_oos_sharpe=res.avg_oos_sharpe)
+            agg_ref = dict(ref.oos_metrics, avg_is_sharpe=ref.avg_is_sharpe,
+                           avg_oos_sharpe=ref.avg_oos_sharpe)
+        oos = float(np.max(np.abs(res.oos_returns - ref.oos_returns)))
+        agg_err = rel_err([agg[k] for k in agg_ref], list(agg_ref.values()))
+        good = (len(picks) == periods and picks == want
+                and res.oos_returns.shape == ref.oos_returns.shape
+                and oos <= OOS_ABS and agg_err <= BT_REL)
+        ok = ok and good
+        out[name] = dict(periods=len(picks), same_choices_as_cpu=picks == want,
+                         oos_max_abs_vs_cpu=oos, aggregates_max_rel_vs_cpu=agg_err,
+                         wall_s=statistics.median(walls), ok=good)
+    emit(phase="rolling_walk_forward", bars=BT_BARS, windows=[BT_OPT, BT_TRADE], **out,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("the rolling optimization or the walk-forward missed its gate")
+
+
+def bt_returns():
+    """2,520 daily strategy returns: a 0.04% drift under Student-t(5) noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    return 0.0004 + 0.01 * rng.standard_t(5, BT_BARS) / np.sqrt(5.0 / 3.0)
+
+
+def path_drawdowns(equity):
+    """Each equity path's max drawdown (numpy)."""
+    import numpy as np
+
+    return np.max(1.0 - equity / np.maximum.accumulate(equity, axis=1), axis=1)
+
+
+def phase_backtest_monte_carlo(torch, dev, timed_runs=3):
+    """``MonteCarloSimulator`` (shuffle, block), ``BootstrapAnalysis`` and
+    ``run_monte_carlo_stress`` on one replay of a CPU generator's draws:
+    every figure on the card within BT_REL of the CPU's.  Then each timed
+    on the card's own generator (one warm call, the median of
+    ``timed_runs``); the simulator's mean max drawdown on its own draws
+    within 4 standard errors of the replay's."""
+    import numpy as np
+
+    from pde_tpu_torch.backtest.analysis import MonteCarloSimulator
+    from pde_tpu_torch.validation.statistical_tests import BootstrapAnalysis
+    from pde_tpu_torch.validation.stress_testing import StressTestEngine
+
+    cpu = torch.device("cpu")
+    rets = bt_returns()
+    out, ok = {}, True
+    for seed, method in enumerate(("shuffle", "block")):
+        sim = {d: MonteCarloSimulator(BT_SIMS, method, BT_BLOCK, seed=seed, device=d)
+               for d in (dev, cpu)}
+        rep = cpu_replay(torch, 40 + seed)
+        ref, got = (sim[d].run(rets, keep_paths=True, generator=rep) for d in (cpu, dev))
+        figs = ("final_equity_percentiles", "max_drawdown_percentiles", "sharpe_percentiles")
+        err = max(rel_err(list(getattr(got, k).values()), list(getattr(ref, k).values()))
+                  for k in figs)
+        err = max(err, rel_err([got.final_equity_mean, got.final_equity_std, got.prob_loss],
+                               [ref.final_equity_mean, ref.final_equity_std, ref.prob_loss]),
+                  rel_err(got.equity_paths, ref.equity_paths))
+        _, walls = timed_walls(torch, dev, lambda: sim[dev].run(rets), timed_runs)
+        own = path_drawdowns(sim[dev].run(rets, keep_paths=True).equity_paths)
+        replay = path_drawdowns(ref.equity_paths)
+        se = math.sqrt(own.var() / own.size + replay.var() / replay.size)
+        good = bool(err <= BT_REL and abs(own.mean() - replay.mean()) <= 4.0 * se)
+        ok = ok and good
+        out[method] = dict(replay_max_rel_vs_cpu=err, mean_max_dd_own=float(own.mean()),
+                           mean_max_dd_replay=float(replay.mean()), se=se,
+                           wall_ms=statistics.median(walls) * 1e3, ok=good)
+
+    boot = {d: BootstrapAnalysis(BT_BOOT, device=d) for d in (dev, cpu)}
+    rep = cpu_replay(torch, 50)
+    cis = {d: [boot[d].sharpe_confidence_interval(rets, generator=rep),
+               boot[d].max_drawdown_confidence_interval(rets, generator=rep)]
+           for d in (cpu, dev)}
+    err = rel_err(cis[dev], cis[cpu])
+    _, walls = timed_walls(torch, dev, lambda: (boot[dev].sharpe_confidence_interval(rets),
+                                                boot[dev].max_drawdown_confidence_interval(rets)),
+                           timed_runs)
+    ok = ok and err <= BT_REL
+    out["bootstrap"] = dict(n=BT_BOOT, sharpe_ci=cis[dev][0], max_dd_ci=cis[dev][1],
+                            replay_max_rel_vs_cpu=err, wall_ms=statistics.median(walls) * 1e3)
+
+    eng = {d: StressTestEngine(device=d) for d in (dev, cpu)}
+    rep = cpu_replay(torch, 60)
+    st = {d: eng[d].run_monte_carlo_stress(**BT_STRESS, generator=rep) for d in (cpu, dev)}
+    err = rel_err([st[dev][k] for k in st[cpu]], list(st[cpu].values()))
+    own, walls = timed_walls(torch, dev, lambda: eng[dev].run_monte_carlo_stress(**BT_STRESS),
+                             timed_runs)
+    ok = ok and err <= BT_REL
+    out["stress"] = dict(**BT_STRESS, replay=st[dev], replay_max_rel_vs_cpu=err, own=own,
+                         wall_ms=statistics.median(walls) * 1e3)
+    emit(phase="backtest_monte_carlo", sims=BT_SIMS, returns=BT_BARS, block_size=BT_BLOCK, **out,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("the Monte-Carlo backtest statistics missed their gate")
+
+
+def options_chain(torch):
+    """CHAIN_DAYS x CHAIN_STRIKES calls and puts with mids from the converged
+    Heston pricer (TRUE, S0, R, Q; float64 on the CPU) and 0.1% spreads;
+    each expiry's strikes span +-CHAIN_WIDTH standard deviations of a 20%
+    vol about the forward, rounded to cents, as listed chains widen with
+    maturity."""
+    from datetime import date, timedelta
+
+    import numpy as np
+
+    from pde_tpu_torch.data.options import OptionQuote
+    from pde_tpu_torch.models import heston
+
+    as_of = date(2026, 1, 5)
+    cpu = torch.device("cpu")
+    p = heston.HestonParams(*(torch.tensor(v, dtype=torch.float64) for v in TRUE.values()))
+    quotes = []
+    for days in CHAIN_DAYS:
+        exp = as_of + timedelta(days=days)
+        T = days / 365.0
+        strikes = np.round(S0 * math.exp((R - Q) * T) * np.exp(
+            CHAIN_WIDTH * 0.2 * math.sqrt(T) * np.linspace(-1.0, 1.0, CHAIN_STRIKES)), 2)
+        for is_call in (True, False):
+            mids = heston.price_accurate(p, torch.as_tensor(strikes, device=cpu), days / 365.0,
+                                         S0, R, Q, is_call).numpy()
+            quotes += [OptionQuote(strike=float(k), expiration=exp,
+                                   option_type="call" if is_call else "put",
+                                   bid=float(m) * 0.999, ask=float(m) * 1.001, volume=100)
+                       for k, m in zip(strikes, mids)]
+    return quotes, as_of
+
+
+def phase_options_surface(torch, dev, timed_runs=1):
+    """``OptionsChainProcessor.build_surface`` on the chain, then
+    ``fit_svi_smile`` on each expiry: IVs within IV_ABS of the CPU's, SVI
+    parameters within SVI_ABS, each fit within SVI_RMSE in total variance;
+    one warm run, then the median of ``timed_runs`` (one: the twelve LM
+    fits take ~9 s a run, all host dispatch)."""
+    import numpy as np
+
+    from pde_tpu_torch.data.options import OptionsChainProcessor
+
+    quotes, as_of = options_chain(torch)
+    expiries = sorted({q.expiration for q in quotes})
+
+    def run(d):
+        proc = OptionsChainProcessor(R, Q, device=d)
+        surface = proc.build_surface(quotes, S0, as_of=as_of)
+        return surface, [proc.fit_svi_smile(surface, e) for e in expiries]
+
+    (surface, fits), walls = timed_walls(torch, dev, lambda: run(dev), timed_runs)
+    ref_surface, ref_fits = run(torch.device("cpu"))
+    same = [(p.strike, p.expiration, p.option_type) for p in surface.points] == [
+        (p.strike, p.expiration, p.option_type) for p in ref_surface.points]
+    iv_err = float(np.max(np.abs(np.array([p.implied_vol for p in surface.points])
+                                 - np.array([p.implied_vol for p in ref_surface.points]))))
+    names = ("a", "b", "rho", "m", "sigma")
+    svi_err = max(abs(f.params[k] - g.params[k]) for f, g in zip(fits, ref_fits) for k in names)
+    rmse = []
+    for e, f in zip(expiries, fits):
+        pts = [p for p in surface.points if p.expiration == e]
+        T = surface._expiry_times[e]
+        k = np.log(np.array([p.strike for p in pts]) / (S0 * math.exp((R - Q) * T)))
+        w = np.array([p.implied_vol**2 * T for p in pts])
+        a, b, rho, m, sig = (f.params[n] for n in names)
+        fitted = a + b * (rho * (k - m) + np.sqrt((k - m) ** 2 + sig**2))
+        rmse.append(float(np.sqrt(np.mean((fitted - w) ** 2))))
+    ok = bool(same and iv_err <= IV_ABS and svi_err <= SVI_ABS and max(rmse) < SVI_RMSE)
+    emit(phase="options_surface", quotes=len(quotes), points=len(surface.points),
+         expiries=len(expiries), same_points_as_cpu=same, iv_max_abs_vs_cpu=iv_err,
+         svi_max_abs_vs_cpu=svi_err, svi_total_variance_rmse=rmse,
+         wall_s=statistics.median(walls), ok=ok)
+    if not ok:
+        raise AssertionError("the options surface missed its gate")
+
+
+def phase_linalg(torch, dev, reps=20):
+    """``ewma_covariance`` over (2,520, 100) returns, ``make_positive_definite``
+    of a 500 x 500 indefinite matrix and ``solve_positive_definite`` of its
+    repair (four right-hand sides), each within BT_REL of the CPU (relative
+    to the largest entry); medians of ``reps`` warm calls."""
+    import numpy as np
+
+    from pde_tpu_torch.utils import linalg
+
+    rng = np.random.default_rng(41)
+    returns = rng.normal(0.0, 0.01, EWMA_SHAPE) @ (np.eye(EWMA_SHAPE[1]) + 0.05 * rng.normal(
+        size=(EWMA_SHAPE[1], EWMA_SHAPE[1])))
+    a = rng.normal(size=(PD_N, PD_N))
+    a = a @ a.T / PD_N - 0.5 * np.eye(PD_N)   # symmetric, some eigenvalues below 0
+    b = rng.normal(size=(PD_N, 4))
+    spd = linalg.make_positive_definite(a, 1e-2, device="cpu").numpy()   # condition ~350
+    calls = {
+        "ewma_covariance": lambda d: linalg.ewma_covariance(returns, device=d),
+        "make_positive_definite": lambda d: linalg.make_positive_definite(a, 1e-2, device=d),
+        "solve_positive_definite": lambda d: linalg.solve_positive_definite(spd, b, device=d),
+    }
+    out, ok = {}, True
+    for name, call in calls.items():
+        got, walls = timed_walls(torch, dev, lambda: call(dev), reps)
+        want = call(torch.device("cpu")).numpy()
+        err = float(np.abs(got.cpu().numpy() - want).max() / np.abs(want).max())
+        ok = ok and err <= BT_REL and bool(np.isfinite(want).all())
+        out[name] = dict(max_rel_vs_cpu=err, ms=statistics.median(walls) * 1e3)
+    emit(phase="linalg", ewma=list(EWMA_SHAPE), pd_n=PD_N, **out, ok=bool(ok))
+    if not ok:
+        raise AssertionError("the linear algebra missed its gate")
+
+
+BACKTEST_PHASES = (phase_strategy_optimizer, phase_rolling_walk_forward,
+                   phase_backtest_monte_carlo, phase_options_surface, phase_linalg)
+
+
+def backtest_profile_rows(torch, dev):
+    """The universe's optimization and the shuffled Monte Carlo, on the card."""
+    from pde_tpu_torch.backtest.analysis import MonteCarloSimulator
+    from pde_tpu_torch.backtest.optimizer import StrategyOptimizer
+
+    groups, rets = bt_universe(), bt_returns()
+    opt = StrategyOptimizer(device=dev)
+    sim = MonteCarloSimulator(BT_SIMS, "shuffle", device=dev)
+    return {"strategy_optimizer": lambda: opt.run_optimization(groups),
+            "backtest_monte_carlo": lambda: sim.run(rets)}
+
+
 def timed_walls(torch, dev, fn, reps):
     """One warm call, then ``reps`` host-clock walls, each ending in a sync."""
     fn()
@@ -4145,6 +4502,7 @@ def profile_rows(torch, dev, interp, top=4):
         **mc_desk_profile_rows(torch, dev),
         **pide_profile_rows(torch, dev),
         **signal_profile_rows(torch, dev),
+        **backtest_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -4315,6 +4673,15 @@ def main() -> None:
     emit(phase="signal_serving_seconds",
          seconds={fn.__name__: path_seconds[fn.__name__] for fn in SIGNAL_PHASES},
          total_s=sum(path_seconds[fn.__name__] for fn in SIGNAL_PHASES))
+    # the backtests, validation statistics, linear algebra and options data
+    # launch no kernel
+    for fn in BACKTEST_PHASES:
+        counts = path(fn, torch, dev)[0]
+        if any(counts.values()):
+            raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")
+    emit(phase="backtest_validation_seconds",
+         seconds={fn.__name__: path_seconds[fn.__name__] for fn in BACKTEST_PHASES},
+         total_s=sum(path_seconds[fn.__name__] for fn in BACKTEST_PHASES))
     # what the PIDE phases cost against the repeats cut to pay for them
     new_s = {fn.__name__: path_seconds[fn.__name__] for fn, _ in PIDE_PATHS}
     new_s.update(phase_hjb_native=path_seconds["phase_hjb_native"],

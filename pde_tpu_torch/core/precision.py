@@ -38,6 +38,8 @@ __all__ = [
     "where_flag",
     "check_generator",
     "cholesky_nan",
+    "blocked_cumsum",
+    "blocked_cumprod",
 ]
 
 
@@ -144,3 +146,47 @@ def cholesky_nan(a: torch.Tensor) -> torch.Tensor:
     L, info = torch.linalg.cholesky_ex(a)
     failed = (info != 0)[..., None, None]
     return torch.where(failed, torch.full_like(L, math.nan).tril(), L)
+
+
+# XLA's CPU backend rewrites a cumulative sum or product into blocks of 16:
+# sequential within a block, the blocks' running totals scanned the same
+# way, recursively.  ``jnp.cumsum``/``jnp.cumprod`` round in that order.
+_SCAN_BLOCK = 16
+
+
+def _sequential(x: torch.Tensor, op) -> torch.Tensor:
+    """Prefix ``op`` over the last axis, left to right, one column at a time."""
+    if x.shape[-1] == 0:
+        return x
+    cols = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        cols.append(op(cols[-1], x[..., j]))
+    return torch.stack(cols, -1)
+
+
+def _blocked_scan(x: torch.Tensor, op, identity: float) -> torch.Tensor:
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _sequential(x, op)
+    m = -(-n // _SCAN_BLOCK)
+    lead = x.shape[:-1]
+    rows = torch.nn.functional.pad(x, (0, m * _SCAN_BLOCK - n), value=identity)
+    rows = _sequential(rows.reshape(*lead, m, _SCAN_BLOCK), op)
+    totals = _blocked_scan(rows[..., -1], op, identity)
+    before = torch.nn.functional.pad(totals[..., :-1], (1, 0), value=identity)
+    return op(rows, before[..., None]).reshape(*lead, m * _SCAN_BLOCK)[..., :n]
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sums over the last axis, rounded as the reference's compiled
+    ``jnp.cumsum`` rounds them on the CPU (blocks of 16, sequential within
+    a block, the block totals scanned likewise).  Elementwise adds only, so
+    the card and the CPU give the same bits, in ceil(log16 n) levels of at
+    most 16 launches each."""
+    return _blocked_scan(x, torch.add, 0.0)
+
+
+def blocked_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """Prefix products over the last axis in :func:`blocked_cumsum`'s order
+    (``jnp.cumprod``'s on the CPU)."""
+    return _blocked_scan(x, torch.mul, 1.0)

@@ -113,6 +113,28 @@ class _GeneratorDraws:
     def gamma(self, alpha: torch.Tensor):
         return torch._standard_gamma(alpha, generator=self.generator)
 
+    # ``count`` asks for ``count`` draws, one from each of ``split(count)``
+    # (a key's source ``vmap``s them): for a stream, one batched draw
+
+    def randint(self, low: int, high: int, shape, device, count=None):
+        shape = tuple(shape) if count is None else (count, *shape)
+        return torch.randint(low, high, shape, generator=self.generator, device=device)
+
+    def permutation(self, n: int, device, count=None):
+        """A uniform permutation of range(n) (``count`` of them as rows),
+        as the order that sorts uniform float64 draws."""
+        shape = (n,) if count is None else (count, n)
+        u = torch.rand(shape, generator=self.generator, dtype=torch.float64, device=device)
+        return torch.argsort(u, dim=-1)
+
+    def student_t(self, df: float, shape, dtype, device):
+        """Student-t with ``df`` degrees of freedom: z / sqrt(chi2 / df), the
+        chi-square as 2 Gamma(df / 2)."""
+        z = torch.randn(shape, generator=self.generator, dtype=dtype, device=device)
+        half = torch.full(shape, 0.5 * df, dtype=dtype, device=device)
+        g = torch._standard_gamma(half, generator=self.generator)
+        return z / torch.sqrt(2.0 * g / df)
+
 
 class _Replay:
     """A draw source that makes each draw once, from ``source``, and hands
@@ -157,6 +179,20 @@ class _Replay:
     def gamma(self, alpha):
         return self._once("gamma", alpha.shape, lambda: self._source.gamma(alpha)).to(
             dtype=alpha.dtype, device=alpha.device)
+
+    def randint(self, low, high, shape, device, count=None):
+        full = tuple(shape) if count is None else (count, *shape)
+        return self._once(f"randint[{low}, {high})", full, lambda: self._source.randint(
+            low, high, shape, device, count)).to(device)
+
+    def permutation(self, n, device, count=None):
+        full = (n,) if count is None else (count, n)
+        return self._once("permutation", full, lambda: self._source.permutation(
+            n, device, count)).to(device)
+
+    def student_t(self, df, shape, dtype, device):
+        return self._once(f"student_t({df})", shape, lambda: self._source.student_t(
+            df, shape, dtype, device)).to(dtype=dtype, device=device)
 
 
 def _draws(generator, device):

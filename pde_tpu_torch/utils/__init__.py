@@ -1,3 +1,3 @@
-"""Utilities: statistical primitives."""
+"""Utilities: statistical primitives and matrix helpers."""
 
-from . import stats  # noqa: F401
+from . import linalg, stats  # noqa: F401

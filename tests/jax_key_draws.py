@@ -13,7 +13,9 @@ normals; one key a local-vol step; ``(k_w, k_b)`` a lifted rough step;
 ``(k_u, k_z)`` an SLV step; one key an event date, a ``(2, paths)`` normal
 each, and ``(k_next, k_draw)`` chains in the Bermudan continuations; a
 ``(3, paths)`` normal a G2++ step), so a simulation run on
-``JaxKey(key)`` sees the draws the reference makes from ``key``.
+``JaxKey(key)`` sees the draws the reference makes from ``key``.  A
+``count`` (``randint``, ``permutation``) answers the reference's ``vmap``
+over ``jax.random.split(key, count)``: one draw from each split key, as rows.
 """
 
 import jax
@@ -53,3 +55,19 @@ class JaxKey:
         a = jnp.asarray(alpha.detach().cpu().numpy())
         return _torch(jax.random.gamma(self.key, a, dtype=_JAX_DTYPES[alpha.dtype]),
                       alpha.dtype, alpha.device)
+
+    def _each(self, count, draw):
+        if count is None:
+            return draw(self.key)
+        return jax.vmap(draw)(jax.random.split(self.key, count))
+
+    def randint(self, low, high, shape, device, count=None):
+        x = self._each(count, lambda k: jax.random.randint(k, tuple(shape), low, high))
+        return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+
+    def permutation(self, n, device, count=None):
+        x = self._each(count, lambda k: jax.random.permutation(k, n))
+        return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+
+    def student_t(self, df, shape, dtype, device):
+        return _torch(jax.random.t(self.key, df, tuple(shape), _JAX_DTYPES[dtype]), dtype, device)

@@ -1465,3 +1465,66 @@ def test_garch_and_var_on_card_match_cpu():
     np.testing.assert_allclose(
         var_calculator._mc_scenarios(mean.cuda(), cov.cuda(), z.cuda()).cpu().numpy(),
         var_calculator._mc_scenarios(mean, cov, z).numpy(), rtol=1e-10, atol=1e-14)
+
+
+def _mean_reverting(n, seed):
+    """Seeded log prices: an AR(1) around a slow random walk (numpy)."""
+    rng = np.random.default_rng(seed)
+    eps, x = rng.normal(0.0, 0.02, n), np.zeros(n)
+    for t in range(1, n):
+        x[t] = 0.97 * x[t - 1] + eps[t]
+    return 100.0 * np.exp(x + np.cumsum(rng.normal(0.0, 0.005, n)))
+
+
+@pytest.mark.cuda
+def test_strategy_optimizer_on_card_matches_cpu():
+    """Every family's grid over two groups (two series lengths), float64 on
+    the card against the CPU: the same choices, the figures at 1e-10."""
+    from pde_tpu_torch.backtest import optimizer
+
+    _need_cuda()
+    groups = {"a": {"x": _mean_reverting(600, 1), "y": _mean_reverting(600, 2)},
+              "b": {"z": _mean_reverting(500, 3)}}
+    card = optimizer.StrategyOptimizer(device="cuda").run_optimization(groups)
+    cpu = optimizer.StrategyOptimizer(device="cpu").run_optimization(groups)
+    for g in cpu:
+        for name, want in cpu[g].items():
+            got = card[g][name]
+            assert got.params == want.params, (g, name)
+            for k in ("fitness", "sharpe", "total_return", "max_drawdown"):
+                assert abs(getattr(got, k) - getattr(want, k)) <= 1e-10 * max(
+                    1.0, abs(getattr(want, k))), (g, name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["shuffle", "block", "parametric"])
+def test_monte_carlo_replay_on_card_matches_cpu(method):
+    """One replay of a CPU generator's draws: the card's resampled paths
+    and percentiles within 1e-10 of the CPU's."""
+    from pde_tpu_torch.backtest import analysis
+    from pde_tpu_torch.models import heston_mc
+
+    _need_cuda()
+    rets = np.random.default_rng(4).normal(0.0004, 0.01, 1000)
+    rep = heston_mc._Replay(heston_mc._GeneratorDraws(torch.Generator().manual_seed(3)))
+    sim = {d: analysis.MonteCarloSimulator(500, method, device=d) for d in ("cpu", "cuda")}
+    cpu = sim["cpu"].run(rets, keep_paths=True, generator=rep)
+    card = sim["cuda"].run(rets, keep_paths=True, generator=rep)
+    np.testing.assert_allclose(card.equity_paths, cpu.equity_paths, rtol=1e-10, atol=0)
+    for k in ("final_equity_percentiles", "max_drawdown_percentiles", "sharpe_percentiles"):
+        for q, v in getattr(cpu, k).items():
+            assert abs(getattr(card, k)[q] - v) <= 1e-10 * max(1.0, abs(v)), (k, q)
+
+
+@pytest.mark.cuda
+def test_svi_fit_on_card_matches_cpu():
+    from pde_tpu_torch.data import options
+
+    _need_cuda()
+    k = np.linspace(-0.4, 0.4, 41)
+    w = 0.02 + 0.15 * (-0.4 * k + np.sqrt(k**2 + 0.04))
+    w = w + np.random.default_rng(0).normal(0.0, 1e-4, k.size)
+    cpu = options.SVIParameterization(device="cpu").fit(k, w, 0.5)
+    card = options.SVIParameterization(device="cuda").fit(k, w, 0.5)
+    for name, v in cpu.items():
+        assert abs(card[name] - v) <= 1e-6, name

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from pde_tpu_torch.backtest import analysis, data_handler, optimizer
 from pde_tpu_torch.calibrate.bates import BatesCalibrator
 from pde_tpu_torch.calibrate.g2 import G2Calibrator
 from pde_tpu_torch.calibrate.heston import HestonCalibrator, parameter_sensitivities
@@ -18,6 +19,7 @@ from pde_tpu_torch.calibrate.rates import HullWhiteCalibrator
 from pde_tpu_torch.calibrate.rough import RoughHestonCalibrator
 from pde_tpu_torch.calibrate.sabr import SABRCalibrator
 from pde_tpu_torch.core import grids, precision, qmc
+from pde_tpu_torch.data import options
 from pde_tpu_torch.models import (bates, black_scholes, credit, digital, forward_start, g2,
                                   heston, heston_mc, local_vol, multi_asset, rates,
                                   rough_heston, rough_heston_mc, sabr, slv, svcj, term_heston,
@@ -28,6 +30,8 @@ from pde_tpu_torch.serving import BatchPricer, PricingRequest
 from pde_tpu_torch.signals.vol_arbitrage import VolSurfaceArbitrageSignal
 from pde_tpu_torch.solvers import (barrier_pde, bates_pide, bermudan_g2, bermudan_hw, bs_pde,
                                    heston_adi, local_vol_pde, lsm, lsm_dual, pide)
+from pde_tpu_torch.utils import linalg
+from pde_tpu_torch.validation import statistical_tests, stress_testing
 
 
 @pytest.fixture()
@@ -233,8 +237,39 @@ SIGNAL_RISK_ENTRY_POINTS = {
 }
 
 
+_PRICES = 100.0 * np.exp(np.cumsum(np.random.default_rng(1).normal(0.0, 0.01, 80)))
+_MA = {"ma_crossover": {"fn": optimizer.STRATEGY_FAMILIES["ma_crossover"]["fn"],
+                        "grid": {"short": [5], "long": [20]}}}
+
+# the backtest, validation, linear algebra and options-data layer: each
+# takes the device (None: the card) and computes on it
+BACKTEST_ENTRY_POINTS = {
+    "StrategyOptimizer.optimize_series": lambda d: optimizer.StrategyOptimizer(
+        _MA, device=d).optimize_series(_PRICES)["ma_crossover"].fitness,
+    "RollingOptimizationBacktester.run": lambda d: optimizer.RollingOptimizationBacktester(
+        optimizer.StrategyOptimizer(_MA, device=d), 40, 20).run(_PRICES).oos_returns,
+    "WalkForwardAnalysis.run": lambda d: analysis.WalkForwardAnalysis(
+        optimizer.STRATEGY_FAMILIES["ma_crossover"]["fn"], {"short": [5], "long": [20]}, 40, 20,
+        device=d).run(_PRICES).oos_returns,
+    "MonteCarloSimulator.run": lambda d: analysis.MonteCarloSimulator(
+        10, device=d).run(_RETURNS[0]).final_equity_mean,
+    "BootstrapAnalysis": lambda d: statistical_tests.BootstrapAnalysis(
+        10, device=d).sharpe_confidence_interval(_RETURNS[0]),
+    "run_monte_carlo_stress": lambda d: stress_testing.StressTestEngine(
+        device=d).run_monte_carlo_stress(0.01, 5, 10)["expected_max_drawdown"],
+    "SyntheticDataHandler": lambda d: data_handler.SyntheticDataHandler(
+        ["A"], 10, device=d).prices["A"],
+    "calculate_chain": lambda d: options.ImpliedVolatilityCalculator(device=d).calculate_chain(
+        [10.45], 100.0, [100.0], [1.0], [True]),
+    "SVIParameterization.fit": lambda d: options.SVIParameterization(device=d).fit(
+        np.linspace(-0.2, 0.2, 7), 0.02 + 0.1 * np.linspace(-0.2, 0.2, 7) ** 2, 0.5)["a"],
+    "ewma_covariance": lambda d: linalg.ewma_covariance(_RETURNS.T, device=d),
+}
+
+
 ENTRY_POINTS = {
     **SIGNAL_RISK_ENTRY_POINTS,
+    **{name: (lambda fn=fn: fn(None)) for name, fn in BACKTEST_ENTRY_POINTS.items()},
     "HestonCalibrator": lambda: HestonCalibrator(),
     "generate_synthetic_data": lambda: HestonCalibrator.generate_synthetic_data(
         n_strikes=3, n_maturities=2),
@@ -407,3 +442,9 @@ def test_mc_entry_points_run_on_the_cpu_when_asked(no_card, name):
     first = out if isinstance(out, torch.Tensor) else (
         next(iter(out.values())) if isinstance(out, dict) else out[0])
     assert first.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", sorted(BACKTEST_ENTRY_POINTS))
+def test_backtest_entry_points_run_on_the_cpu_when_asked(no_card, name):
+    out = BACKTEST_ENTRY_POINTS[name]("cpu")
+    assert np.all(np.isfinite(np.asarray(out, dtype=float)))
