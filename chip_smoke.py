@@ -187,7 +187,23 @@ checks every result:
     likelihood and gradient (1e-10) and fit (1e-6) on 252 returns, EWMA
     over a (512, 252) universe (1e-12), Monte-Carlo VaR (10,000 x 8) on
     one replay of CPU normals (1e-10), each timed, float64 on the card
-    against the CPU.
+    against the CPU; then the backtests, validation statistics, linear
+    algebra and options data (no kernel), float64 on the card against the
+    CPU;
+17. the command line, ``pde_tpu_torch.cli.main`` in this process at the
+    CLI's own defaults: ``price --method cf|pde|digital|greeks`` (``pde``
+    also ``--put --american``), ``varswap``, ``vix --strikes``, ``rates
+    --bermudan --cap-vols``, ``credit``, ``pide`` (Merton; Kou ``--put
+    --american``) and ``fwdstart``, each float32 on the card with every
+    printed number held by the card gate against its float64 run on the
+    CPU (the CPU's float32 run setting the gate); ``calibrate`` at
+    bench.py's gate, ``fwdstart --mc-check`` within 4 s.e., ``scan`` and
+    ``sector-portfolio`` (float64) and ``backtest`` equal to the CPU's
+    output, ``status`` with every component initialised, ``portfolio`` and
+    ``demo`` (rmse < 0.05); only ``price --method pde``, ``pide`` and
+    ``rates --bermudan`` launch K5 (the Merton strip exactly as often as
+    item 14's), and each subcommand's wall on a second call is printed
+    (``cli_seconds``).
 
 Before the paths, each of the six kernel wrappers is called on the card
 with an input that requires grad: each must raise (the kernels have no
@@ -195,7 +211,7 @@ backward) and launch nothing, and run under ``torch.no_grad()``; the
 fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
-Each main path (4-16) runs with every kernel's launch count set to 0 just
+Each main path (4-17) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails
 (the rows of item 4 after the headline and those of item 16 must launch
 none),
@@ -233,8 +249,10 @@ OU and HJB rows, of the 8192-option grouped pricing, of the 16-surface
 ``calibrate_batch``, of the nine Fourier-priced rows, of the five rates
 and credit rows, of the five Heston Monte Carlo rows, of the five rows
 of the rest of the Monte Carlo desk, of the four jump-diffusion and
-barrier rows, of the calibration-to-sizing pipeline and of one run of the
-pricing service under ``torch.profiler``: wall, the card's busy time and idle
+barrier rows, of the calibration-to-sizing pipeline, of one run of the
+pricing service, of the universe's strategy optimization and the shuffled
+Monte Carlo, and of the command line's ``demo`` and ``price --method pde``
+under ``torch.profiler``: wall, the card's busy time and idle
 share, and the kernels that took most of the device time.  Row
 names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 """
@@ -245,6 +263,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2997,6 +3016,226 @@ def backtest_profile_rows(torch, dev):
             "backtest_monte_carlo": lambda: sim.run(rets)}
 
 
+# The command line (``pde_tpu_torch.cli``): each subcommand through
+# ``cli.main`` in this process, at the CLI's own defaults, its standard
+# output captured and parsed.  The numeric subcommands run on the card in
+# float32 and on the CPU in float64 and float32, and every printed number
+# is held by the card gate, one gate for each field of the output (over a
+# list's items): a badly conditioned field, such as ``rates``' float32
+# Hull-White refit of the cap-vol strip, then widens its own gate only.  The
+# calibration, Monte Carlo and strategy subcommands and the trading system
+# run on the card against their own gates (scan and sector-portfolio in
+# float64, equal to the CPU's output).  Only ``price --method pde``,
+# ``pide`` and ``rates --bermudan`` launch a kernel (K5); the Merton
+# ``pide`` strip at 512 x 128 exactly as often as
+# ``phase_pide_merton_strip``.  The Greeks the PDE and PIDE read off their
+# grids (``delta``, ``gamma``: central differences of float32 values, whose
+# rounding a second difference divides by ds^2 ~ 1) are held within the
+# grid Greeks' own accuracy, 3e-4 of float64 (tests/test_pide.py:141-142),
+# and not by the card gate.  ``price --method greeks`` runs on one strike,
+# as tests/test_system.py does: each strike is one autograd march.
+K5_NEEDS = ("K5", "K5-smem")
+GRID_GREEKS, GRID_GREEKS_ATOL = ("delta", "gamma"), 3e-4
+CLI_NUMERIC = (
+    ("price_cf", ("price", "--method", "cf"), ()),
+    ("price_pde", ("price", "--method", "pde"), K5_NEEDS),
+    ("price_pde_american_put", ("price", "--method", "pde", "--put", "--american"), K5_NEEDS),
+    ("price_digital", ("price", "--method", "digital"), ()),
+    ("price_greeks", ("price", "--method", "greeks", "--strikes", "100"), ()),
+    ("varswap", ("varswap",), ()),
+    ("vix", ("vix", "--strikes", "18", "22", "26"), ()),
+    ("rates", ("rates", "--bermudan", "--cap-vols", "0.25", "0.23", "0.22", "0.21"), K5_NEEDS),
+    ("credit", ("credit",), ()),
+    ("pide_merton", ("pide",), K5_NEEDS),
+    ("pide_kou_american_put", ("pide", "--jumps", "kou", "--put", "--american"), K5_NEEDS),
+    ("fwdstart", ("fwdstart",), ()),
+)
+# every subcommand the smoke runs on the card: its argv and torch's default
+# dtype there
+CLI_RUNS = {
+    **{name: (argv, "float32") for name, argv, _ in CLI_NUMERIC},
+    "calibrate": (("calibrate",), "float32"),
+    "fwdstart_mc": (("fwdstart", "--mc-check"), "float32"),
+    "scan": (("scan",), "float64"),
+    "sector_portfolio": (("sector-portfolio",), "float64"),
+    "backtest": (("backtest", "--json"), "float32"),
+    "status": (("status",), "float32"),
+    "portfolio": (("portfolio",), "float32"),
+    "demo": (("demo",), "float32"),
+}
+
+
+def run_cli(torch, dev, argv, dtype):
+    """``pde_tpu_torch.cli.main(argv)`` on ``dev`` under torch's default
+    dtype ``dtype``: (exit code, standard output, wall seconds)."""
+    import contextlib
+    import io
+
+    from pde_tpu_torch import cli
+
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--device", str(dev), *argv])
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.set_default_dtype(old)
+    return rc, buf.getvalue(), wall
+
+
+def run_named(torch, dev, name, dtype=None):
+    """``CLI_RUNS[name]`` on ``dev``, in its own dtype unless ``dtype``."""
+    argv, dt = CLI_RUNS[name]
+    return run_cli(torch, dev, argv, dtype or getattr(torch, dt))
+
+
+def cli_json(torch, dev, name, dtype=None):
+    rc, out, wall = run_named(torch, dev, name, dtype)
+    if rc != 0:
+        raise AssertionError(f"cli {name} exited {rc} on {dev}")
+    return json.loads(out), wall
+
+
+def json_leaves(out, path=""):
+    """Every leaf of a parsed JSON output as (path, value), in order."""
+    if isinstance(out, dict):
+        return [leaf for k, v in out.items() for leaf in json_leaves(v, f"{path}.{k}")]
+    if isinstance(out, list):
+        return [leaf for i, v in enumerate(out) for leaf in json_leaves(v, f"{path}[{i}]")]
+    return [(path, out)]
+
+
+def leaf_field(path):
+    """The field a leaf is, over a list's items: ``.curve[3].df`` ->
+    ``.curve[].df``."""
+    return re.sub(r"\[\d+\]", "[]", path)
+
+
+def cli_phase(name, needs):
+    """A numeric subcommand's phase: the card's float32 output held by the
+    card gate against the CPU's float64 run, one gate for each field of
+    the output, the CPU's float32 run setting each (a grid march's
+    ``GRID_GREEKS`` within ``GRID_GREEKS_ATOL``); text and flags equal to
+    the CPU's float64 run's."""
+    def phase(torch, dev):
+        cpu = torch.device("cpu")
+        card, wall = cli_json(torch, dev, name)
+        ref, cpu32 = (cli_json(torch, cpu, name, dt)[0] for dt in (torch.float64, torch.float32))
+        leaves = [json_leaves(x) for x in (card, ref, cpu32)]
+        if not [p for p, _ in leaves[0]] == [p for p, _ in leaves[1]] == [p for p, _ in leaves[2]]:
+            raise AssertionError(f"cli {name}: the outputs differ in shape")
+        number = [isinstance(v, (int, float)) and not isinstance(v, bool) for _, v in leaves[1]]
+        greek = [bool(needs) and p.rsplit(".", 1)[-1].split("[")[0] in GRID_GREEKS
+                 for p, _ in leaves[1]]
+        gated = [i for i, (n, g) in enumerate(zip(number, greek)) if n and not g]
+        gates, ok = {}, True
+        for field in dict.fromkeys(leaf_field(leaves[1][i][0]) for i in gated):
+            idx = [i for i in gated if leaf_field(leaves[1][i][0]) == field]
+            vec = [torch.tensor([float(leaf[i][1]) for i in idx], dtype=torch.float64)
+                   for leaf in leaves]
+            fields, held = card_gate(*vec)
+            held = held and bool(torch.isfinite(vec[0]).all())
+            gates[field] = dict(numbers=len(idx), **fields, ok=held)
+            ok = ok and held
+        greek_err = max([abs(v - w) for (_, v), (_, w), g in zip(leaves[0], leaves[1], greek)
+                         if g], default=0.0)
+        other = [(p, v, w) for (p, v), (_, w), n in zip(leaves[0], leaves[1], number)
+                 if not n and v != w]
+        ok = ok and greek_err <= GRID_GREEKS_ATOL and not other
+        emit(phase=f"cli_{name}", argv=list(CLI_RUNS[name][0]), dtype="float32",
+             numbers=len(gated), gates=gates, grid_greeks=sum(greek),
+             grid_greeks_max_abs_vs_cpu_f64=greek_err, differing_text=other,
+             first_call_s=wall, ok=ok)
+        if not ok:
+            raise AssertionError(f"cli {name} missed its gate")
+    phase.__name__ = f"phase_cli_{name}"
+    return phase
+
+
+def phase_cli_calibrate(torch, dev):
+    """``calibrate`` at its defaults (11 x 3 quotes, DE 100/15), float32 on
+    the card, at bench.py:274's gate."""
+    import numpy as np
+
+    out, wall = cli_json(torch, dev, "calibrate")
+    n = out["fit_quality"]["n_options"]
+    rel_rmse = float(np.sqrt(2.0 * out["convergence"]["local_cost"] / n))
+    ok = out["success"] and abs(out["params"]["v0"] - TRUE["v0"]) < 0.02 and rel_rmse < 0.05
+    emit(phase="cli_calibrate", params=out["params"], n_options=n, rel_rmse=rel_rmse,
+         first_call_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("cli calibrate missed bench.py's gate")
+
+
+def phase_cli_fwdstart_mc(torch, dev):
+    """``fwdstart --mc-check`` (65,536 QE paths x 64 steps a strike, a
+    generator seeded 0 on the card), float32: each MC price within 4 of its
+    own s.e. of the analytic price."""
+    out, wall = cli_json(torch, dev, "fwdstart_mc")
+    rows = out["forward_starts"]
+    z = [abs(r["mc_price"] - r["price"]) / r["mc_stderr"] for r in rows]
+    ok = all(zi <= 4.0 for zi in z)
+    emit(phase="cli_fwdstart_mc", rows=rows, z=z, first_call_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("cli fwdstart --mc-check missed its 4 s.e. gate")
+
+
+def phase_cli_equal_cpu(torch, dev):
+    """``scan`` and ``sector-portfolio`` at their defaults in float64 on the
+    card, ``backtest`` in float32: each output equal to the CPU's."""
+    cpu = torch.device("cpu")
+    walls, ok = {}, True
+    for name in ("scan", "sector_portfolio", "backtest"):
+        rc, card, walls[name] = run_named(torch, dev, name)
+        rc_cpu, ref, _ = run_named(torch, cpu, name)
+        ok = ok and rc == rc_cpu == 0 and card == ref
+    emit(phase="cli_equal_cpu", first_call_s=walls, ok=ok)
+    if not ok:
+        raise AssertionError("cli scan, sector-portfolio or backtest differs from the CPU")
+
+
+def phase_cli_system(torch, dev):
+    """``status`` (every component initialised on the card), ``portfolio``
+    and ``demo`` (exit 0, the Heston fit's rmse under 0.05), float32."""
+    status, w_status = cli_json(torch, dev, "status")
+    rc, _, w_port = run_named(torch, dev, "portfolio")
+    rc_demo, demo, w_demo = run_named(torch, dev, "demo")
+    rmse = float(re.search(r"rmse=([0-9.]+)", demo).group(1))
+    ok = (status["initialized"] and bool(status["components"])
+          and all(status["components"].values()) and rc == 0 and rc_demo == 0 and rmse < 0.05)
+    emit(phase="cli_system", components=status["components"], demo_rmse=rmse,
+         first_call_s=dict(status=w_status, portfolio=w_port, demo=w_demo), ok=ok)
+    if not ok:
+        raise AssertionError("cli status, portfolio or demo failed on the card")
+
+
+CLI_PATHS = (*((cli_phase(name, needs), needs) for name, _, needs in CLI_NUMERIC),
+             (phase_cli_calibrate, ()), (phase_cli_fwdstart_mc, ()),
+             (phase_cli_equal_cpu, ()), (phase_cli_system, ()))
+
+
+def phase_cli_seconds(torch, dev):
+    """Each subcommand's wall on the card, second call (the first ran in
+    its phase), and the total."""
+    seconds = {}
+    for name in CLI_RUNS:
+        rc, _, seconds[name] = run_named(torch, dev, name)
+        if rc != 0:
+            raise AssertionError(f"cli {name} exited {rc} on its second call")
+    emit(phase="cli_seconds", seconds=seconds, total_s=sum(seconds.values()))
+
+
+def cli_profile_rows(torch, dev):
+    """``demo`` and ``price --method pde`` through the command line, float32
+    on the card."""
+    return {"cli_demo": lambda: run_named(torch, dev, "demo"),
+            "cli_price_pde": lambda: run_named(torch, dev, "price_pde")}
+
+
 def timed_walls(torch, dev, fn, reps):
     """One warm call, then ``reps`` host-clock walls, each ending in a sync."""
     fn()
@@ -4503,6 +4742,7 @@ def profile_rows(torch, dev, interp, top=4):
         **pide_profile_rows(torch, dev),
         **signal_profile_rows(torch, dev),
         **backtest_profile_rows(torch, dev),
+        **cli_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -4682,6 +4922,18 @@ def main() -> None:
     emit(phase="backtest_validation_seconds",
          seconds={fn.__name__: path_seconds[fn.__name__] for fn in BACKTEST_PHASES},
          total_s=sum(path_seconds[fn.__name__] for fn in BACKTEST_PHASES))
+    # the command line: only the PDE, PIDE and Bermudan subcommands launch a
+    # kernel (K5, on its lane route); the Merton strip exactly as often as
+    # phase_pide_merton_strip
+    for fn, needs in CLI_PATHS:
+        counts = path(fn, torch, dev, needs=needs)[0]
+        if not needs and any(counts.values()):
+            raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")
+        if needs and counts["K5"] != counts["K5-smem"]:
+            raise AssertionError(f"{fn.__name__} launched K5 off its lane route: {counts}")
+        if fn.__name__ == "phase_cli_pide_merton" and counts["K5"] != PIDE_STEPS:
+            raise AssertionError(f"cli pide launched K5 {counts['K5']} times, not {PIDE_STEPS}")
+    phase_cli_seconds(torch, dev)
     # what the PIDE phases cost against the repeats cut to pay for them
     new_s = {fn.__name__: path_seconds[fn.__name__] for fn, _ in PIDE_PATHS}
     new_s.update(phase_hjb_native=path_seconds["phase_hjb_native"],

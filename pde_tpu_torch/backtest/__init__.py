@@ -1,8 +1,9 @@
-"""Backtesting: the vectorized backtester, its strategy optimizers and the
-walk-forward and Monte-Carlo analysis (the reference's event-driven engine,
-portfolio, execution and sector modules are pure Python and are left out
-of the port)."""
+"""Backtesting: the event-driven engine, the vectorized backtester, its
+strategy optimizers, sectors, and the walk-forward and Monte-Carlo
+analysis."""
 
-from . import (analysis, data_handler, events, metrics, multi_strategy,  # noqa: F401
-               optimizer, strategy, vectorized)
+from . import (analysis, data_handler, engine, events, execution, metrics,  # noqa: F401
+               multi_strategy, optimizer, portfolio, sectors, strategy, vectorized)
 from .data_handler import ArrayDataHandler, SyntheticDataHandler  # noqa: F401
+from .engine import BacktestEngine, BacktestResults  # noqa: F401
+from .portfolio import Portfolio  # noqa: F401

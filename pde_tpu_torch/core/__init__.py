@@ -1,3 +1,3 @@
-"""Core numerics: precision policy, functional grids and Sobol' QMC."""
+"""Core: precision policy, functional grids, Sobol' QMC and configuration."""
 
-from . import grids, precision, qmc  # noqa: F401
+from . import config, grids, precision, qmc  # noqa: F401

@@ -1,6 +1,6 @@
-"""Data: the options analytics (the reference's providers, validation,
-streaming, ingestion, reference data, recovery, monitoring and API modules
-are pure Python and are left out of the port)."""
+"""Data: options analytics, providers, streaming and reference data (the
+reference's validation, ingestion, recovery, monitoring and API modules
+come with ROADMAP A.6f or are left out of the port)."""
 
-from . import options  # noqa: F401
+from . import options, providers, reference, streaming  # noqa: F401
 from .options import OptionsChainProcessor, SVIParameterization, VolatilitySurface  # noqa: F401

@@ -413,16 +413,20 @@ def create_pricing_api(server: Optional[MicroBatchingServer] = None):
 
 
 def run_server(host: str = "0.0.0.0", port: int = 8081,
-               max_wait_ms: Optional[float] = None) -> None:
-    """Serve the micro-batching pricer on the card.  Every bucket is priced
-    once before the socket opens, so the first caller pays no setup."""
+               max_wait_ms: Optional[float] = None, device=None,
+               dtype: Optional[torch.dtype] = None) -> None:
+    """Serve the micro-batching pricer on ``device`` (default: the CUDA
+    card) in ``dtype`` (default: torch's default float).  Every bucket is
+    priced once before the socket opens, so the first caller pays no
+    setup."""
     import os
 
     from aiohttp import web
 
     wait = (float(os.environ.get("PDE_PRICING_MAX_WAIT_MS", 2.0))
             if max_wait_ms is None else max_wait_ms)
-    srv = MicroBatchingServer(max_wait_ms=wait).start(warmup=True)
+    srv = MicroBatchingServer(BatchPricer(device=device, dtype=dtype),
+                              max_wait_ms=wait).start(warmup=True)
     try:
         web.run_app(create_pricing_api(srv), host=host, port=port)
     finally:

@@ -1,0 +1,139 @@
+"""The port's copies of ``pde_tpu``'s host-side modules stay copies.
+
+The port may not import ``pde_tpu`` (its ``__init__`` imports JAX), so it
+carries its own copies of the pure-Python modules its paths need.  Each
+copy's syntax tree must equal its reference file's once three things are
+set aside: docstrings, import statements, and the package's own name in
+string constants (``"pde_tpu_torch"`` reads as ``"pde_tpu"``: the logger
+names, the database client's application name).  Every other difference
+is listed below, function by function, with its reason.  The test reads
+the two source files only; it imports neither.
+"""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEVICE = "takes the device and dtype its numerics run on"
+
+# path -> {function or class member that differs: why}
+COPIES = {
+    "backtest/events.py": {},
+    "backtest/metrics.py": {},
+    "backtest/strategy.py": {},
+    "backtest/execution.py": {},
+    "backtest/portfolio.py": {},
+    "backtest/engine.py": {},
+    "backtest/sectors.py": {},
+    "core/config.py": {},
+    "monitoring/logging.py": {},
+    "monitoring/metrics.py": {},
+    "signals/mean_reversion.py": {},
+    "signals/aggregator.py": {},
+    "risk/drawdown_controller.py": {},
+    "risk/risk_manager.py": {
+        "RiskManager.__init__": DEVICE,
+        "RiskManager.compute_portfolio_risk": "hands its device and dtype to the VaR",
+    },
+    "data/reference.py": {},
+    "data/streaming.py": {},
+    "execution/order.py": {},
+    "execution/broker.py": {},
+    "execution/order_manager.py": {},
+    "execution/emergency.py": {},
+    "database/db.py": {},
+    "database/pgwire.py": {},
+    # the ported modules that keep the reference's code around one change
+    "data/providers.py": {
+        "SimulatedDataProvider.__init__": DEVICE,
+        "SimulatedDataProvider.get_options_chain":
+            "prices the chain by the port's Black-Scholes on the provider's device",
+    },
+    "signals/variance_premium.py": {
+        "VariancePremiumStrategy.__init__": DEVICE,
+        "VariancePremiumStrategy._tensor": "puts host numbers on that device (new)",
+        "VariancePremiumStrategy.expected_variance": "the maturity as a tensor there",
+        "VariancePremiumStrategy.evaluate_chain": "the strip's strikes and prices there",
+    },
+    "trading_system.py": {
+        "TradingSystem.__init__": DEVICE,
+        "TradingSystem.initialize": "hands them to the calibrators, signals and VaR",
+        "TradingSystem._build_risk_manager": "hands them to the risk manager",
+        "TradingSystem.run_monte_carlo": "hands the device to the Monte Carlo",
+        "TradingSystem.run_live": "hands the device to the vote; no TPU keep-alive thread",
+        "create_trading_system": DEVICE,
+    },
+}
+
+
+class _Normalize(ast.NodeTransformer):
+    """Drop docstrings and imports; read the port's name as the reference's."""
+
+    def _body(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+        return node
+
+    visit_Module = visit_ClassDef = visit_FunctionDef = visit_AsyncFunctionDef = _body
+
+    def visit_Import(self, node):
+        return None
+
+    visit_ImportFrom = visit_Import
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            node.value = node.value.replace("pde_tpu_torch", "pde_tpu")
+        return node
+
+
+def _units(path):
+    """Each top-level function, class member and the rest, as AST dumps."""
+    with open(path) as f:
+        tree = _Normalize().visit(ast.parse(f.read()))
+    units, rest = {}, []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            units[node.name] = ast.dump(node)
+        elif isinstance(node, ast.ClassDef):
+            members = []
+            for item in node.body:
+                if isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    units[f"{node.name}.{item.name}"] = ast.dump(item)
+                else:
+                    members.append(ast.dump(item))
+            units[node.name] = (ast.dump(ast.ClassDef(
+                node.name, node.bases, node.keywords, [], node.decorator_list,
+                getattr(node, "type_params", []))), members)
+        else:
+            rest.append(ast.dump(node))
+    units["<module>"] = rest
+    return units
+
+
+@pytest.mark.parametrize("path", list(COPIES))
+def test_copy_equals_the_reference(path):
+    ref = _units(os.path.join(ROOT, "pde_tpu", path))
+    port = _units(os.path.join(ROOT, "pde_tpu_torch", path))
+    differ = {k for k in ref.keys() | port.keys() if ref.get(k) != port.get(k)}
+    assert differ == set(COPIES[path]), sorted(differ ^ set(COPIES[path]))
+
+
+def test_every_copied_module_is_listed():
+    """A module of the port that is the reference file under its own path
+    but for docstrings and imports must be listed above."""
+    unlisted = []
+    for base, _, files in os.walk(os.path.join(ROOT, "pde_tpu_torch")):
+        for name in files:
+            rel = os.path.relpath(os.path.join(base, name), os.path.join(ROOT, "pde_tpu_torch"))
+            ref = os.path.join(ROOT, "pde_tpu", rel)
+            if (name.endswith(".py") and name != "__init__.py" and rel not in COPIES
+                    and os.path.exists(ref)
+                    and _units(ref) == _units(os.path.join(ROOT, "pde_tpu_torch", rel))):
+                unlisted.append(rel)
+    assert not unlisted

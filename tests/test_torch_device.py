@@ -32,6 +32,10 @@ from pde_tpu_torch.solvers import (barrier_pde, bates_pide, bermudan_g2, bermuda
                                    heston_adi, local_vol_pde, lsm, lsm_dual, pide)
 from pde_tpu_torch.utils import linalg
 from pde_tpu_torch.validation import statistical_tests, stress_testing
+from pde_tpu_torch import cli, trading_system
+from pde_tpu_torch.data import providers
+from pde_tpu_torch.risk.risk_manager import PositionRisk, RiskManager
+from pde_tpu_torch.signals.variance_premium import VariancePremiumStrategy
 
 
 @pytest.fixture()
@@ -267,8 +271,36 @@ BACKTEST_ENTRY_POINTS = {
 }
 
 
+def _risk_manager(d):
+    rm = RiskManager(100_000.0, device=d)
+    rm.positions["A"] = PositionRisk("A", 10.0, 100.0, 1_000.0)
+    return rm.compute_portfolio_risk(historical_returns=_RETURNS[:1].T).var_95
+
+
+def _trading_system(d):
+    cfg = trading_system.Config()
+    cfg.database.url = "sqlite://"
+    return trading_system.TradingSystem(cfg, device=d)
+
+
+# A.6e: the trading system, its VaR, the simulated options chain, the
+# variance-premium strip (each with ``device=``) and the command line
+TRADING_ENTRY_POINTS = {
+    "TradingSystem.run_monte_carlo": lambda d: _trading_system(d).run_monte_carlo(
+        _RETURNS[0], n_simulations=10).final_equity_mean,
+    "RiskManager.compute_portfolio_risk": _risk_manager,
+    "SimulatedDataProvider.get_options_chain": lambda d: [
+        r["last"] for r in providers.SimulatedDataProvider(device=d).get_options_chain("A")],
+    "VariancePremiumStrategy.expected_variance": lambda d: VariancePremiumStrategy(
+        device=d).expected_variance(model_params=_HESTON),
+    "cli.main": lambda d: cli.main(([] if d is None else ["--device", d])
+                                   + ["varswap", "--maturities", "0.5"]),
+}
+
+
 ENTRY_POINTS = {
     **SIGNAL_RISK_ENTRY_POINTS,
+    **{name: (lambda fn=fn: fn(None)) for name, fn in TRADING_ENTRY_POINTS.items()},
     **{name: (lambda fn=fn: fn(None)) for name, fn in BACKTEST_ENTRY_POINTS.items()},
     "HestonCalibrator": lambda: HestonCalibrator(),
     "generate_synthetic_data": lambda: HestonCalibrator.generate_synthetic_data(
@@ -447,4 +479,10 @@ def test_mc_entry_points_run_on_the_cpu_when_asked(no_card, name):
 @pytest.mark.parametrize("name", sorted(BACKTEST_ENTRY_POINTS))
 def test_backtest_entry_points_run_on_the_cpu_when_asked(no_card, name):
     out = BACKTEST_ENTRY_POINTS[name]("cpu")
+    assert np.all(np.isfinite(np.asarray(out, dtype=float)))
+
+
+@pytest.mark.parametrize("name", sorted(TRADING_ENTRY_POINTS))
+def test_trading_entry_points_run_on_the_cpu_when_asked(no_card, name):
+    out = TRADING_ENTRY_POINTS[name]("cpu")
     assert np.all(np.isfinite(np.asarray(out, dtype=float)))
