@@ -203,7 +203,31 @@ checks every result:
     ``demo`` (rmse < 0.05); only ``price --method pde``, ``pide`` and
     ``rates --bermudan`` launch K5 (the Merton strip exactly as often as
     item 14's), and each subcommand's wall on a second call is printed
-    (``cli_seconds``).
+    (``cli_seconds``);
+18. the parallel layer on a world-size-1 NCCL group made through the
+    port's own ``initialize_distributed`` (a file store in a temporary
+    directory) and ``make_mesh``, with one real ``all_reduce``:
+    ``sharded_heston_solve`` at 100x50x100 and ``sharded_bs_solve`` (the
+    American put by projection) at 200x50, float32, each by the card gate
+    against the single-device port in float64 on the CPU and within 1e-7 +
+    1e-4 |p| of the single-device port on the card, launching K5 exactly
+    200 and 50 times (two sweeps a Heston step, one partitioned solve a
+    Black-Scholes step); ``dist_tridiagonal_solve`` at (50, 100) against
+    ``ops.tridiag.thomas`` (one launch); three ``sharded_calibration_step``s
+    on the 108-quote surface against the single-device LM in float64 on
+    the CPU; ``calibrate_batch(mesh=...)`` of 4 surfaces equal to the
+    unmeshed fit, each at bench.py's gate; ``price_european_mc_sharded``
+    and ``price_american_lsm_sharded`` within 4 s.e. of the single-device
+    pricers; the sharded solves' walls beside the single-device port's
+    (``parallel_rows``) and the phases' seconds (``parallel_seconds``);
+    the group is destroyed after them, and on any failure;
+19. the services facade: each of the four service steps (data ingestion,
+    signals, calibration, execution) once on the card (float32) and once
+    on the CPU (float64), each against a temporary sqlite file in a
+    temporary working directory, with equal statuses and stored candidate
+    signals; the ``HealthManager`` with the three synthetic probes (the
+    calibration probe fitting on the card) all healthy; no kernel; their
+    walls (``services_seconds``).
 
 Before the paths, each of the six kernel wrappers is called on the card
 with an input that requires grad: each must raise (the kernels have no
@@ -211,7 +235,7 @@ backward) and launch nothing, and run under ``torch.no_grad()``; the
 fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
-Each main path (4-17) runs with every kernel's launch count set to 0 just
+Each main path (4-19) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails
 (the rows of item 4 after the headline and those of item 16 must launch
 none),
@@ -251,8 +275,9 @@ and credit rows, of the five Heston Monte Carlo rows, of the five rows
 of the rest of the Monte Carlo desk, of the four jump-diffusion and
 barrier rows, of the calibration-to-sizing pipeline, of one run of the
 pricing service, of the universe's strategy optimization and the shuffled
-Monte Carlo, and of the command line's ``demo`` and ``price --method pde``
-under ``torch.profiler``: wall, the card's busy time and idle
+Monte Carlo, of the command line's ``demo`` and ``price --method pde``, of
+the sharded Heston march on the one-rank NCCL mesh and of one calibration
+service pass under ``torch.profiler``: wall, the card's busy time and idle
 share, and the kernels that took most of the device time.  Row
 names after ``--profile`` (prefixes, e.g. ``rough``) trace those rows alone.
 """
@@ -3236,6 +3261,411 @@ def cli_profile_rows(torch, dev):
             "cli_price_pde": lambda: run_named(torch, dev, "price_pde")}
 
 
+# -- the parallel layer (ROADMAP A.7): a world-size-1 NCCL group --------------
+
+PARALLEL_BS = dict(n_space=200, n_time=50, is_call=False, american=True)
+# K5 launches predicted from the code, one call each (PERF.md, PR 19): the
+# Black-Scholes march solves one (1, 200) batch a step (at one rank the
+# partitioned solve is the local solve of d); the Heston march one (50, 100) S
+# batch and one (100, 50) v batch a step; the distributed solve one batch
+PARALLEL_LAUNCHES = {"phase_parallel_bs": 50, "phase_parallel_heston": 2 * 100,
+                     "phase_parallel_dist_tridiag": 1}
+PARALLEL_TRIDIAG = (50, 100)
+PARALLEL_CAL_U, PARALLEL_STEPS = 4, 3
+PARALLEL_X0 = (1.5, 0.06, 0.4, -0.5, 0.06)
+GROUP = {}  # the process group's store directory, once a run
+
+
+def world_mesh(torch, dev, axis_names=("grid",)):
+    """A mesh over the world of one rank: the NCCL group on the card (gloo
+    only for a CPU rehearsal), made once through the port's own
+    ``initialize_distributed`` on a file store in a temporary directory (no
+    port, no network), and ``make_mesh``."""
+    import tempfile
+    from datetime import timedelta
+
+    from pde_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    if "store" not in GROUP:
+        GROUP["store"] = tempfile.mkdtemp(prefix="pde_tpu_torch_group_")
+        world = initialize_distributed(f"file://{GROUP['store']}/store", 1, 0, device=dev,
+                                       timeout=timedelta(seconds=120))
+        if world != 1:
+            raise AssertionError(f"the group has {world} ranks, not 1")
+    return make_mesh(1, axis_names, (1,) * len(axis_names),
+                     device_type="cuda" if dev.type == "cuda" else "cpu")
+
+
+def close_group():
+    """Destroy the process group and its store, if this run made them."""
+    import shutil
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    if "store" in GROUP:
+        shutil.rmtree(GROUP.pop("store"), ignore_errors=True)
+
+
+def phase_parallel_group(torch, dev):
+    """The group and mesh the parallel phases run on: NCCL on the card, one
+    rank, and one real collective through it."""
+    import torch.distributed as dist
+
+    mesh = world_mesh(torch, dev, ("dp", "quotes"))
+    x = torch.full((4,), 2.0, device=dev)
+    dist.all_reduce(x)
+    sync(torch, dev)
+    ok = (float(x.sum()) == 8.0 and dist.get_world_size() == 1
+          and (dev.type != "cuda" or dist.get_backend() == "nccl")
+          and mesh.device_type == dev.type and tuple(mesh.mesh_dim_names) == ("dp", "quotes"))
+    emit(phase="parallel_group", backend=dist.get_backend(), world=dist.get_world_size(),
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), mesh_device=mesh.device_type,
+         all_reduce=float(x.sum()), ok=ok)
+    if not ok:
+        raise AssertionError("the parallel layer's group is not the one asked for")
+
+
+def _gate_solve(torch, card, cpu64, cpu32, fields):
+    """The card gate on the price and the grid of a sharded solve."""
+    out, ok = {}, True
+    for f in fields:
+        g, good = card_gate(getattr(card, f), getattr(cpu64, f), getattr(cpu32, f))
+        out[f], ok = g, ok and good and bool(torch.isfinite(getattr(card, f)).all())
+    return out, ok
+
+
+def phase_parallel_heston(torch, dev):
+    """``sharded_heston_solve`` at bench_full.py:787's 100x50x100 (q 0.02),
+    float32, on the one-rank grid mesh: the card gate against
+    ``heston_adi.solve`` in float64 on the CPU (its float32 run setting the
+    gate), price and grid.  Returns the card's result."""
+    from pde_tpu_torch.parallel import sharded_heston_solve
+    from pde_tpu_torch.solvers import heston_adi
+
+    cpu, p = torch.device("cpu"), heston_params()
+    t0 = time.perf_counter()
+    card = sharded_heston_solve(world_mesh(torch, dev), p, 100.0, dtype=torch.float32)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    refs = [heston_adi.solve(p, 100.0, device=cpu, dtype=dt)
+            for dt in (torch.float64, torch.float32)]
+    gates, ok = _gate_solve(torch, card, *refs, ("price", "prices"))
+    emit(phase="parallel_heston", grid=list(GRID.values()), dtype="float32",
+         price=float(card.price), price_cpu_f64=float(refs[0].price), gates=gates,
+         greeks_abs_vs_cpu_f64={g: abs(float(getattr(card, g)) - float(getattr(refs[0], g)))
+                                for g in ("delta", "gamma", "vega", "theta")},
+         first_call_wall_s=wall, ok=ok)
+    if not ok:
+        raise AssertionError("sharded_heston_solve missed the card gate")
+    return card
+
+
+def phase_parallel_bs(torch, dev):
+    """``sharded_bs_solve`` of the American put by projection at 200x50,
+    float32, on the one-rank grid mesh: the card gate against
+    ``bs_pde.solve`` in float64 on the CPU.  Returns the card's result."""
+    from pde_tpu_torch.parallel import sharded_bs_solve
+    from pde_tpu_torch.solvers import bs_pde
+
+    cpu, p = torch.device("cpu"), bs_pde.BSPDEParams(**PARALLEL_BS)
+    card = sharded_bs_solve(world_mesh(torch, dev), p, 100.0, dtype=torch.float32)
+    sync(torch, dev)
+    refs = [bs_pde.solve(p, 100.0, device=cpu, dtype=dt) for dt in (torch.float64, torch.float32)]
+    gates, ok = _gate_solve(torch, card, *refs, ("price", "prices"))
+    emit(phase="parallel_bs", grid=[p.n_space, p.n_time], dtype="float32",
+         price=float(card.price), price_cpu_f64=float(refs[0].price), gates=gates, ok=ok)
+    if not ok:
+        raise AssertionError("sharded_bs_solve missed the card gate")
+    return card
+
+
+def phase_parallel_dist_tridiag(torch, dev):
+    """``dist_tridiagonal_solve`` of a seeded (50, 100) float32 batch on the
+    one-rank grid mesh, against ``ops.tridiag.thomas`` on the card."""
+    from pde_tpu_torch.ops import tridiag
+    from pde_tpu_torch.parallel import dist_tridiagonal_solve
+
+    lower, diag, upper, rhs = seeded_system(torch, dev, *PARALLEL_TRIDIAG)
+    X = dist_tridiagonal_solve(lower, diag, upper, rhs, world_mesh(torch, dev))
+    compare(torch, dev, X, tridiag.thomas(lower, diag, upper, rhs), kernel="K5",
+            case="dist_tridiagonal_solve", B=PARALLEL_TRIDIAG[0], n=PARALLEL_TRIDIAG[1])
+
+
+def phase_parallel_vs_single(torch, dev, heston, bs):
+    """The sharded solves against the single-device port on the card, same
+    float32 inputs: price and grid within 1e-7 + 1e-4 |p| (outside the
+    counted paths: the single-device solves launch K5 too)."""
+    from pde_tpu_torch.solvers import bs_pde, heston_adi
+
+    singles = {"heston": (heston, heston_adi.solve(heston_params(), 100.0, device=dev)),
+               "bs": (bs, bs_pde.solve(bs_pde.BSPDEParams(**PARALLEL_BS), 100.0, device=dev))}
+    out, ok = {}, True
+    for name, (sharded, single) in singles.items():
+        for f in ("price", "prices"):
+            a, b = getattr(sharded, f).double(), getattr(single, f).double()
+            over = float(((a - b).abs() / (PANEL_ATOL + PANEL_RTOL * b.abs())).max())
+            out[f"{name}.{f}"] = dict(max_abs=float((a - b).abs().max()), max_over_limit=over)
+            ok = ok and over <= 1.0
+    emit(phase="parallel_vs_single_device", limit=f"{PANEL_ATOL} + {PANEL_RTOL} |p|",
+         fields=out, ok=ok)
+    if not ok:
+        raise AssertionError("a sharded solve strays from the single-device port on the card")
+
+
+def _surface_108(torch, dev, dtype):
+    """bench.py's 108-quote surface as (strikes, maturities, prices)."""
+    import numpy as np
+
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator
+
+    data = HestonCalibrator.generate_synthetic_data(
+        S0=S0, r=R, q=Q, **TRUE, strikes=np.linspace(85.0, 115.0, 12),
+        maturities=np.linspace(0.25, 1.5, 9), device=dev, dtype=dtype)
+    return (np.asarray(data["strike"]), np.asarray(data["maturity"]),
+            np.asarray(data["mid_price"]))
+
+
+def phase_parallel_calibration_step(torch, dev):
+    """Three ``sharded_calibration_step``s on the 108-quote surface, float32,
+    on the one-rank (dp, quotes) mesh, from PARALLEL_X0: the last cost by
+    the card gate against three iterations of the single-device port's LM
+    (``levenberg_marquardt``, the same damped step) in float64 on the CPU,
+    its float32 run setting the gate; the costs never rise."""
+    import numpy as np
+
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator
+    from pde_tpu_torch.calibrate.lm import levenberg_marquardt
+    from pde_tpu_torch.parallel import sharded_calibration_step
+    from pde_tpu_torch.parallel.mesh import _price_population
+
+    k, t, y = _surface_108(torch, dev, torch.float64)
+    bounds = HestonCalibrator.DEFAULT_BOUNDS
+    lower = np.array([bounds[n][0] for n in ("kappa", "theta", "sigma", "rho", "v0")])
+    upper = np.array([bounds[n][1] for n in ("kappa", "theta", "sigma", "rho", "v0")])
+    step = sharded_calibration_step(world_mesh(torch, dev, ("dp", "quotes")), lower, upper)
+    f32 = torch.float32
+    x = torch.tensor([PARALLEL_X0], dtype=f32, device=dev)
+    lam = torch.full((1,), 1e-3, dtype=f32, device=dev)
+    costs = []
+    for _ in range(PARALLEL_STEPS):
+        x, cost, lam = step(x, k[None], t[None], y[None], lam, S0, R, Q)
+        costs.append(cost[0])
+    card = torch.stack(costs)
+
+    def lm_costs(dtype):
+        c = torch.device("cpu")
+        kk, tt, yy = (torch.as_tensor(a, dtype=dtype) for a in (k, t, y))
+
+        def res(xv):
+            prices = torch.clamp_min(_price_population(xv, kk, tt, S0, R, Q), 1e-10)
+            return (prices - yy) / yy
+
+        x0 = torch.tensor(PARALLEL_X0, dtype=dtype, device=c)
+        lo, hi = (torch.as_tensor(a, dtype=dtype) for a in (lower, upper))
+        return levenberg_marquardt(res, x0, lo, hi, max_iter=PARALLEL_STEPS).cost[None]
+
+    ref64, ref32 = lm_costs(torch.float64), lm_costs(f32)
+    gate, ok = card_gate(card[-1:], ref64, ref32)
+    c = card.double().cpu()
+    ok = ok and bool(torch.isfinite(c).all()) and bool((c[1:] <= c[:-1]).all())
+    emit(phase="parallel_calibration_step", n_quotes=int(k.shape[0]), steps=PARALLEL_STEPS,
+         dtype="float32", costs=c.tolist(), last_cost_cpu_f64=float(ref64[0]), gate=gate,
+         x=x[0].cpu().double().tolist(), ok=ok)
+    if not ok:
+        raise AssertionError("sharded_calibration_step missed its gate")
+
+
+def phase_parallel_calibrate_batch(torch, dev):
+    """``calibrate_batch(mesh=...)`` of U = 4 copies of the 108-quote surface
+    (DE 100/15, LM 60, float32) on the one-rank (dp, quotes) mesh: equal to
+    the unmeshed call (the same draws, the same generations), every surface
+    at bench.py:274's gate."""
+    import numpy as np
+
+    from pde_tpu_torch.calibrate.heston import HestonCalibrator
+
+    k, t, y = _surface_108(torch, dev, torch.float32)
+    tile = lambda a: np.tile(a, (PARALLEL_CAL_U, 1))  # noqa: E731
+    book = (tile(k), tile(t), tile(y), np.full(PARALLEL_CAL_U, S0))
+    # "cuda" with no index, as a user writes it: the mesh's cuda:<current>
+    cal = HestonCalibrator(seed=42, device="cuda", dtype=torch.float32, **BUDGET)
+    mesh = world_mesh(torch, dev, ("dp", "quotes"))
+    t0 = time.perf_counter()
+    meshed = cal.calibrate_batch(*book, R, Q, mesh=mesh)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    plain = cal.calibrate_batch(*book, R, Q)
+    diffs = {f: float((meshed[f].double() - plain[f].double()).abs().max()) for f in meshed}
+    params = meshed["params"].cpu().double().numpy()
+    rel_rmse = np.sqrt(2.0 * meshed["cost"].cpu().double().numpy() / k.shape[0])
+    ok = (all(d == 0.0 for d in diffs.values())
+          and bool(np.all(np.abs(params[:, 4] - TRUE["v0"]) < 0.02) and np.all(rel_rmse < 0.05)))
+    emit(phase="parallel_calibrate_batch", surfaces=PARALLEL_CAL_U, dtype="float32",
+         max_abs_meshed_vs_unmeshed=diffs, v0=params[:, 4].tolist(),
+         rel_rmse=rel_rmse.tolist(), gate="equal to the unmeshed fit; bench.py:274 on each",
+         meshed_wall_s=wall, de_generations=meshed["de_n_iter"].tolist(), ok=ok)
+    if not ok:
+        raise AssertionError("calibrate_batch(mesh=...) is not the unmeshed fit")
+
+
+def phase_parallel_mc(torch, dev):
+    """``price_european_mc_sharded`` (2^17 x 64) and
+    ``price_american_lsm_sharded`` (2^16 x 64), float32 on the one-rank
+    mesh (seed 7), each within 4 s.e. of the single-device pricer
+    (``heston_mc.price_european_mc``, ``lsm.price_american_lsm``) on its own
+    generator."""
+    from pde_tpu_torch.models import heston_mc
+    from pde_tpu_torch.parallel import price_american_lsm_sharded, price_european_mc_sharded
+    from pde_tpu_torch.solvers import lsm
+
+    p32 = fourier_params(torch, dev, torch.float32, "heston")
+    mesh = world_mesh(torch, dev, ("paths",))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    eu = dict(rate=R, dividend=Q, n_steps=MC_STEPS, n_paths=MC_PATHS)
+    am = dict(rate=R, is_call=False, n_steps=MC_STEPS, n_paths=LSM_PATHS)
+    runs = {
+        "european": (price_european_mc_sharded(p32, 100.0, 1.0, S0, 7, mesh, **eu),
+                     heston_mc.price_european_mc(p32, 100.0, 1.0, S0, gen, **eu)),
+        "american": (price_american_lsm_sharded(p32, 100.0, 1.0, S0, 7, mesh, **am),
+                     lsm.price_american_lsm(p32, 100.0, 1.0, S0, gen, **am)),
+    }
+    out, ok = {}, True
+    for name, ((p, se), (p1, se1)) in runs.items():
+        p, se, p1, se1 = float(p), float(se), float(p1), float(se1)
+        z = abs(p - p1) / (se * se + se1 * se1) ** 0.5
+        out[name] = dict(sharded=p, stderr=se, single_device=p1, single_stderr=se1, z=z)
+        ok = ok and z <= MC_Z
+    emit(phase="parallel_mc", dtype="float32", runs=out, gate=f"|z| <= {MC_Z}", ok=ok)
+    if not ok:
+        raise AssertionError("a sharded Monte Carlo pricer strays from its single-device twin")
+
+
+PARALLEL_PATHS = ((phase_parallel_group, ()), (phase_parallel_heston, ("K5", "K5-smem")),
+                  (phase_parallel_bs, ("K5", "K5-smem")),
+                  (phase_parallel_dist_tridiag, ("K5", "K5-smem")),
+                  (phase_parallel_calibration_step, ()), (phase_parallel_calibrate_batch, ()),
+                  (phase_parallel_mc, ()))
+
+
+def parallel_rows(torch, dev, reps=5):
+    """The sharded solves' walls on the card, median of ``reps`` warm calls,
+    beside the single-device port's (outside the counted paths)."""
+    from pde_tpu_torch.parallel import sharded_bs_solve, sharded_heston_solve
+    from pde_tpu_torch.solvers import bs_pde, heston_adi
+
+    mesh, p, pb = world_mesh(torch, dev), heston_params(), bs_pde.BSPDEParams(**PARALLEL_BS)
+    rows = {"sharded_heston_solve_s": lambda: sharded_heston_solve(mesh, p, 100.0,
+                                                                   dtype=torch.float32),
+            "heston_adi_solve_s": lambda: heston_adi.solve(p, 100.0, device=dev),
+            "sharded_bs_solve_s": lambda: sharded_bs_solve(mesh, pb, 100.0, dtype=torch.float32),
+            "bs_pde_solve_s": lambda: bs_pde.solve(pb, 100.0, device=dev)}
+    walls = {k: statistics.median(timed_walls(torch, dev, fn, reps)[1]) for k, fn in rows.items()}
+    emit(phase="parallel_rows", reps=reps, **walls)
+
+
+# -- the services facade and the health manager (ROADMAP A.6f) ---------------
+
+def _service_steps(torch, d, dtype, workdir, label):
+    """Each of the four service steps once on ``d`` (the simulated provider,
+    seed 3, a fresh sqlite file in ``workdir``): statuses, stored signals and
+    walls."""
+    import os
+
+    from pde_tpu_torch import services
+    from pde_tpu_torch.data.providers import SimulatedDataProvider
+    from pde_tpu_torch.database.db import TimeSeriesDB
+
+    db = TimeSeriesDB(os.path.join(workdir, f"services_{label}.db"))
+    prov = SimulatedDataProvider(seed=3, device=d, dtype=dtype)
+    where = dict(device=d, dtype=dtype)
+    steps = {
+        "data-ingestion": lambda: services.ingestion_step(provider=prov, db=db,
+                                                          symbols=["SPY", "QQQ"], **where),
+        "signals": lambda: services.signals_step(provider=prov, db=db,
+                                                 symbols=["SPY", "QQQ", "IWM"], **where),
+        "calibration": lambda: services.calibration_step(provider=prov, db=db, symbols=["SPY"],
+                                                         **where),
+        "execution": lambda: services.execution_step(symbols=["SPY"], n_ticks=40, **where),
+    }
+    out, walls = {}, {}
+    for name, fn in steps.items():
+        t0 = time.perf_counter()
+        out[name] = fn()
+        sync(torch, d)
+        walls[name] = time.perf_counter() - t0
+    signals = {sym: [(s["signal_type"], s["payload"]) for s in db.query_signals(asset=sym)]
+               for sym in ("SPY", "QQQ", "IWM")}
+    return out, signals, walls
+
+
+def phase_services(torch, dev):
+    """The four service steps once on the card (float32) and once on the
+    CPU (float64), each against a temporary sqlite file, in a temporary
+    working directory (the trading system's default database): equal
+    statuses and the same stored candidates; then the ``HealthManager``
+    with the three synthetic probes (the calibration probe fitting on the
+    card), all healthy."""
+    import os
+    import tempfile
+
+    from pde_tpu_torch.monitoring import health
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="pde_tpu_torch_services_") as workdir:
+        os.chdir(workdir)
+        try:
+            card, card_signals, walls = _service_steps(torch, dev, torch.float32, workdir,
+                                                       "card")
+            cpu, cpu_signals, cpu_walls = _service_steps(torch, torch.device("cpu"),
+                                                         torch.float64, workdir, "cpu")
+        finally:
+            os.chdir(here)
+    mgr = health.HealthManager()
+    for check in (health.SyntheticOrderFlowProbe(), health.SyntheticDataFeedProbe(),
+                  health.SyntheticCalibrationProbe(device=dev, dtype=torch.float32)):
+        mgr.register(check)
+    ready = mgr.readiness()
+    same_signals = {sym: [t for t, _ in card_signals[sym]] == [t for t, _ in cpu_signals[sym]]
+                    for sym in card_signals}
+    # the execution chunk's worst signal-to-order latency is a wall time
+    statuses = lambda o: {k: v for k, v in o.items() if k != "execution"}  # noqa: E731
+    ok = (statuses(card) == statuses(cpu) and all(same_signals.values())
+          and card["execution"]["orders_submitted"] == cpu["execution"]["orders_submitted"]
+          and ready["status"] == "ok"
+          and mgr.overall == health.HealthState.HEALTHY)
+    emit(phase="services", dtype="float32", statuses=card, cpu_f64_statuses=cpu,
+         stored_signals=card_signals, cpu_stored_signals=cpu_signals,
+         health=ready, walls_s=walls, cpu_walls_s=cpu_walls, ok=ok)
+    if not ok:
+        raise AssertionError("a service step or probe disagrees with the CPU run")
+    return walls
+
+
+def parallel_profile_rows(torch, dev):
+    """The sharded Heston march on the one-rank NCCL mesh and one pass of the
+    calibration service, float32 on the card (its sqlite file in a temporary
+    directory, removed with the rows or at exit)."""
+    import os
+    import tempfile
+
+    from pde_tpu_torch import services
+    from pde_tpu_torch.data.providers import SimulatedDataProvider
+    from pde_tpu_torch.database.db import TimeSeriesDB
+    from pde_tpu_torch.parallel import sharded_heston_solve
+
+    f32 = torch.float32
+    workdir = tempfile.TemporaryDirectory(prefix="pde_tpu_torch_profile_")
+    db = TimeSeriesDB(os.path.join(workdir.name, "profile.db"))
+    prov = SimulatedDataProvider(seed=3, device=dev, dtype=f32)
+    return {"parallel_heston_100x50x100": lambda: sharded_heston_solve(
+                world_mesh(torch, dev), heston_params(), 100.0, dtype=f32),
+            # the row holds ``workdir``: its directory lives as long as the row
+            "services_calibration": lambda: (workdir, services.calibration_step(
+                provider=prov, db=db, symbols=["SPY"], device=dev, dtype=f32))[1]}
+
+
 def timed_walls(torch, dev, fn, reps):
     """One warm call, then ``reps`` host-clock walls, each ending in a sync."""
     fn()
@@ -4743,6 +5173,7 @@ def profile_rows(torch, dev, interp, top=4):
         **signal_profile_rows(torch, dev),
         **backtest_profile_rows(torch, dev),
         **cli_profile_rows(torch, dev),
+        **parallel_profile_rows(torch, dev),
     }
     only = [a for a in sys.argv[1:] if not a.startswith("-")]
     for name, fn in rows.items():
@@ -4828,6 +5259,7 @@ def main() -> None:
     k6_inputs = LaunchInputs(lcp, "_launch_psor")
 
     path_seconds = {}
+    launches_parallel = {}
 
     def path(fn, *args, needs=()):
         for obj, attr in counters.values():
@@ -4934,6 +5366,30 @@ def main() -> None:
         if fn.__name__ == "phase_cli_pide_merton" and counts["K5"] != PIDE_STEPS:
             raise AssertionError(f"cli pide launched K5 {counts['K5']} times, not {PIDE_STEPS}")
     phase_cli_seconds(torch, dev)
+    # the parallel layer on a world-size-1 NCCL group: the sharded solves
+    # launch K5 exactly as PERF.md predicts, the rest launch none
+    t_par = time.perf_counter()
+    par = {}
+    for fn, needs in PARALLEL_PATHS:
+        counts, par[fn.__name__] = path(fn, torch, dev, needs=needs)
+        want = PARALLEL_LAUNCHES.get(fn.__name__, 0)
+        if counts["K5"] != want or counts["K5-smem"] != want or any(
+                n for k, n in counts.items() if not k.startswith("K5")):
+            raise AssertionError(f"{fn.__name__} launched {counts}, not K5 {want} times")
+        if want:
+            launches_parallel[fn.__name__] = counts["K5"]
+    phase_parallel_vs_single(torch, dev, par["phase_parallel_heston"], par["phase_parallel_bs"])
+    parallel_rows(torch, dev)
+    emit(phase="parallel_seconds",
+         seconds={fn.__name__: path_seconds[fn.__name__] for fn, _ in PARALLEL_PATHS},
+         total_s=time.perf_counter() - t_par)
+    close_group()
+    # the services facade and the health manager launch no kernel
+    t_svc = time.perf_counter()
+    counts, walls = path(phase_services, torch, dev)
+    if any(counts.values()):
+        raise AssertionError(f"phase_services launched a kernel: {counts}")
+    emit(phase="services_seconds", seconds=walls, total_s=time.perf_counter() - t_svc)
     # what the PIDE phases cost against the repeats cut to pay for them
     new_s = {fn.__name__: path_seconds[fn.__name__] for fn, _ in PIDE_PATHS}
     new_s.update(phase_hjb_native=path_seconds["phase_hjb_native"],
@@ -4954,7 +5410,7 @@ def main() -> None:
     on_paths = {"K5": {"launches_bermudan": BERM_STEPS, "bermudan": dict(
         B=berm["B"], n=berm["n"], ms=berm["ms"], plain_ms=berm["plain_ms"],
         bound_ms=berm_bound_ms, bound_by=berm_bound_by, library_ms=berm["library_ms"]),
-        "launches_pide": PIDE_STEPS, "pide": dict(
+        "launches_parallel": launches_parallel, "launches_pide": PIDE_STEPS, "pide": dict(
         B=strip["B"], n=strip["n"], ms=strip["ms"], plain_ms=strip["plain_ms"],
         bound_ms=strip_bound_ms, bound_by=strip_bound_by, library_ms=strip["library_ms"])}}
     rows = []
@@ -4974,5 +5430,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        close_group()
     sys.exit(0)

@@ -46,6 +46,7 @@ def differential_evolution(
     stagnation_rtol: float = 1e-2,
     target_energy=0.0,
     n_surfaces: int | None = None,
+    shard=None,
 ) -> DEResult:
     """Global minimization of a BATCHED objective over a box.
 
@@ -72,6 +73,16 @@ def differential_evolution(
     leading U axis, and ``n_iter`` counts each surface's own generations.
     The draws have the (U, npop, ...) shapes, so U = 1 draws exactly what
     the single-surface call draws.
+
+    ``shard`` runs these U surfaces as one rank's part of a larger batch
+    (``calibrate/heston._Shard``: the surfaces laid over ranks).  Its draws
+    are made for all ``shard.n_surfaces`` surfaces and it keeps the rows
+    ``shard.draw_rows`` (an index tensor, one row a local surface), so each
+    surface sees the draws it would see in the whole batch;
+    ``shard.running(done)`` says whether a surface of any rank is still
+    running (one host read and one collective a generation), so every rank
+    runs the same generations and the shard's fit equals the whole batch's
+    rows.
     """
     if n_surfaces is None:
         res = differential_evolution(
@@ -86,11 +97,18 @@ def differential_evolution(
     npop = popsize * dim
     dtype, device = lower.dtype, lower.device
 
+    U_draw = U if shard is None else shard.n_surfaces
+
+    def rows(x):
+        return x if shard is None else x[shard.draw_rows]
+
     def uniform(*shape):
-        return torch.rand((U, *shape), generator=generator, dtype=dtype, device=device)
+        return rows(torch.rand((U_draw, *shape), generator=generator, dtype=dtype,
+                               device=device))
 
     def randint(low, high):
-        return torch.randint(low, high, (U, npop), generator=generator, device=device)
+        return rows(torch.randint(low, high, (U_draw, npop), generator=generator,
+                                  device=device))
 
     def members(pop, idx):
         """pop[u, idx[u, i]] for each surface u: (U, n, dim)."""
@@ -140,7 +158,8 @@ def differential_evolution(
         done = done | converged(pop, energies)
         if stagnation_patience > 0:
             done = done | (stall >= stagnation_patience)
-        if bool(torch.all(done)):  # the one host read per generation
+        # the one host read per generation (and, in a shard, one collective)
+        if not (shard.running(done) if shard else not bool(torch.all(done))):
             break
         best_prev = torch.amin(energies, dim=-1)
         trial_pop, trial_energies = generation(pop, energies)

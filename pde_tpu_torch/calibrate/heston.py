@@ -21,10 +21,11 @@ is float32/complex64, the parity tests float64/complex128 on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from datetime import datetime
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,7 +111,7 @@ def _price_vec_gl_grouped(params_array, strikes, t_idx, unique_T, is_calls,
 
 def _objective_population_gl_grouped(pop, strikes, t_idx, unique_T, is_calls,
                                      market_prices, mask, S0, r, q,
-                                     n_points=_DE_GL_POINTS):
+                                     n_points=_DE_GL_POINTS, reduce=None):
     """DE-stage objective: sum of squared relative errors per population
     member (reference heston_calibrator.py:486-513) on the corrected-GL
     grid.  ``mask`` zeroes the residuals of padded quote slots.
@@ -119,7 +120,9 @@ def _objective_population_gl_grouped(pop, strikes, t_idx, unique_T, is_calls,
     clamped to 1e-10, as the reference's own local-stage residuals do
     (:533), instead of the flat 1e10 penalty, which an f32 DE stage would
     hit on deep-OTM short-dated quotes even at the true parameters.  NaN
-    still gets the hard penalty."""
+    still gets the hard penalty.  ``reduce`` (a quote block of a surface
+    whose other blocks lie on other ranks) sums the objective and the NaN
+    count over the ranks before the penalty is applied."""
     prices = _price_vec_gl_grouped(pop, strikes, t_idx, unique_T, is_calls,
                                    S0, r, q, n_points)          # (..., P, N)
     # neutralize padded slots BEFORE the NaN check: NaN * 0 is NaN
@@ -128,6 +131,9 @@ def _objective_population_gl_grouped(pop, strikes, t_idx, unique_T, is_calls,
     prices = torch.clamp_min(prices, 1e-10)
     errors = mask * (prices - market_prices) / market_prices
     obj = torch.sum(errors * errors, dim=-1)
+    if reduce is not None:
+        obj, n_bad = reduce(torch.stack([obj, nan_bad.to(obj.dtype)]))
+        nan_bad = n_bad > 0
     return torch.where(nan_bad, torch.full_like(obj, 1e10), obj)
 
 
@@ -189,6 +195,7 @@ def _calibrate_pipeline_batch(
     global_maxiter: int = 100,
     global_popsize: int = 15,
     local_max_iter: int = 60,
+    shard: Optional["_Shard"] = None,
 ):
     """The two-stage calibration of U surfaces as one program, the
     reference's ``vmap`` of its pipeline (pde_tpu/calibrate/heston.py:595-610).
@@ -200,14 +207,21 @@ def _calibrate_pipeline_batch(
     given its own surface's quotes through ``data=``; each surface keeps
     the best of its own starts.  Returns the tuple of
     :func:`_calibrate_pipeline`, each entry with a leading U axis.
+
+    ``shard`` runs these U surfaces as one rank's part of a batch laid over
+    a mesh (``calibrate_batch(mesh=...)``): the DE draws are the whole
+    batch's rows, the objective and the LM's normal equations sum this
+    rank's quote block over the quote ranks.
     """
     U = strikes.shape[0]
+    qs = slice(None) if shard is None else shard.quotes
+    quotes_sum = None if shard is None else shard.quotes_sum
 
     def objective(pop):  # (U, P, 5) -> (U, P)
         return _objective_population_gl_grouped(
-            pop, strikes[:, None], t_idx[:, None], unique_T[:, None],
-            is_calls[:, None], market_prices[:, None], mask[:, None],
-            S0[:, None, None], r, q,
+            pop, strikes[:, None, qs], t_idx[:, None, qs], unique_T[:, None],
+            is_calls[:, None, qs], market_prices[:, None, qs], mask[:, None, qs],
+            S0[:, None, None], r, q, reduce=quotes_sum,
         )
 
     # warm start seeds the DE population (heston_calibrator.py:411-413)
@@ -227,6 +241,7 @@ def _calibrate_pipeline_batch(
         stagnation_patience=12,
         target_energy=1e-4 * torch.sum(mask, dim=-1),
         n_surfaces=U,
+        shard=shard,
     )
 
     def residuals(x, strikes, t_idx, unique_T, is_calls, market_prices, mask, S0):
@@ -271,11 +286,14 @@ def _calibrate_pipeline_batch(
     # through the ill-conditioned kappa-sigma ridge inflate lambda; the
     # restart from the first pass's iterate reaches the optimum quickly
     data = tuple(t.repeat_interleave(n_starts, dim=0) for t in
-                 (strikes, t_idx, unique_T, is_calls, market_prices, mask, S0))
+                 (strikes[:, qs], t_idx[:, qs], unique_T, is_calls[:, qs],
+                  market_prices[:, qs], mask[:, qs], S0))
     first = levenberg_marquardt(residuals, starts.reshape(U * n_starts, 5), lower, upper,
-                                max_iter=local_max_iter, ftol=1e-8, data=data)
+                                max_iter=local_max_iter, ftol=1e-8, data=data,
+                                reduce=quotes_sum)
     lm_all = levenberg_marquardt(residuals, first.x, lower, upper,
-                                 max_iter=local_max_iter, ftol=1e-8, data=data)
+                                 max_iter=local_max_iter, ftol=1e-8, data=data,
+                                 reduce=quotes_sum)
     best = torch.argmin(lm_all.cost.reshape(U, n_starts), dim=-1)
     rows = torch.arange(U, device=best.device) * n_starts + best
     lm_x = lm_all.x[rows]
@@ -286,6 +304,20 @@ def _calibrate_pipeline_batch(
                                       S0[:, None], r, q)
     return (de.x, de.fun, de.n_iter, lm_x, lm_all.cost[rows],
             lm_all.converged[rows], lm_all.n_iter[rows], model_prices)
+
+
+class _Shard(NamedTuple):
+    """One rank's part of a batch of surfaces laid over a (dp, quotes)
+    mesh: the rows of the whole batch's DE draws that its surfaces take
+    (``draw_rows``, of ``n_surfaces``), its quote block (``quotes``), the
+    sum over its quote ranks (``quotes_sum``) and whether a surface of any
+    rank is still in its DE (``running``)."""
+
+    n_surfaces: int
+    draw_rows: torch.Tensor
+    quotes: slice
+    quotes_sum: Optional[Callable[[torch.Tensor], torch.Tensor]]
+    running: Callable[[torch.Tensor], bool]
 
 
 def _sensitivities_impl(x, strikes, t_idx, unique_T, is_calls, market_prices,
@@ -538,13 +570,22 @@ class HestonCalibrator:
         of tensors on the calibrator's device: ``params`` (U, 5), ``cost``,
         ``converged``, ``model_prices`` (U, n_options), and the DE
         generations ``de_n_iter`` and LM iterations ``lm_n_iter`` of each
-        surface.  ``mesh`` (the reference's device-mesh sharding) is not
-        ported and raises.
+        surface.
+
+        ``mesh`` (a ``DeviceMesh`` with dimensions ``dp`` and ``quotes``,
+        ``parallel.make_mesh``; every rank calls with the same global
+        arguments) lays the U surfaces over ``dp`` and each surface's
+        quotes over ``quotes``: the DE objective and the LM's normal
+        equations are summed over the quote ranks (``all_reduce``), and the
+        U rows are gathered over ``dp``, so every rank returns the whole
+        batch.  When dp does not divide U the batch is padded with copies
+        of the last surface (results sliced back to U), as the reference
+        does; n_options must divide by the quotes size.  The DE draws are
+        the unmeshed call's rows (a padded copy takes its surface's), and
+        every rank runs the same generations, so the meshed fit equals the
+        unmeshed one up to the order of the quote sums.  The mesh's device
+        must be the calibrator's.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "calibrate_batch(mesh=...): sharding over a device mesh needs "
-                "parallel/, which the port has not ported yet (ROADMAP A.7)")
         dev, dt = self.device, self.dtype
 
         def tensor(a, dtype=dt):
@@ -553,6 +594,14 @@ class HestonCalibrator:
         strikes = np.asarray(strikes, dtype=np.float64)
         if is_calls is None:
             is_calls = np.ones(strikes.shape, dtype=bool)
+        U = strikes.shape[0]
+        shard, in_mesh = None, contextlib.nullcontext()
+        if mesh is not None:
+            from ..parallel.mesh import using_mesh  # parallel imports the LM
+
+            shard, (strikes, maturities, market_prices, S0, is_calls) = self._shard_batch(
+                mesh, strikes, maturities, market_prices, S0, is_calls)
+            in_mesh = using_mesh(mesh)  # the mesh the shard's collectives run over
         lower = tensor([self.bounds[k][0] for k in PARAM_ORDER])
         upper = tensor([self.bounds[k][1] for k in PARAM_ORDER])
         generator = torch.Generator(device=dev)
@@ -565,16 +614,58 @@ class HestonCalibrator:
         unique_T = np.stack([np.concatenate([uT, np.full(max_m - len(uT), uT[-1])])
                              for uT, _ in grouped])
         t_idx = np.stack([idx for _, idx in grouped])
-        (_, _, de_iter, lm_x, lm_cost, lm_conv, lm_iter,
-         model_prices) = _calibrate_pipeline_batch(
-            tensor(strikes), tensor(t_idx, torch.int64), tensor(unique_T),
-            tensor(is_calls, torch.bool), tensor(market_prices),
-            torch.ones(strikes.shape, dtype=dt, device=dev), tensor(S0), float(r),
-            float(q), lower, upper, generator, torch.zeros(5, dtype=dt, device=dev),
-            False, global_maxiter=self.global_maxiter,
-            global_popsize=self.global_popsize, local_max_iter=self.local_max_iter)
-        return {"params": lm_x, "cost": lm_cost, "converged": lm_conv,
-                "model_prices": model_prices, "de_n_iter": de_iter, "lm_n_iter": lm_iter}
+        with in_mesh:
+            (_, _, de_iter, lm_x, lm_cost, lm_conv, lm_iter,
+             model_prices) = _calibrate_pipeline_batch(
+                tensor(strikes), tensor(t_idx, torch.int64), tensor(unique_T),
+                tensor(is_calls, torch.bool), tensor(market_prices),
+                torch.ones(strikes.shape, dtype=dt, device=dev), tensor(S0), float(r),
+                float(q), lower, upper, generator, torch.zeros(5, dtype=dt, device=dev),
+                False, global_maxiter=self.global_maxiter,
+                global_popsize=self.global_popsize, local_max_iter=self.local_max_iter,
+                shard=shard)
+        out = {"params": lm_x, "cost": lm_cost, "converged": lm_conv,
+               "model_prices": model_prices, "de_n_iter": de_iter, "lm_n_iter": lm_iter}
+        if mesh is None:
+            return out
+        if "dp" in mesh.mesh_dim_names:
+            from ..parallel.mesh import all_gather
+
+            # the dp blocks' rows, gathered on every rank
+            out = {k: all_gather(v.long() if v.dtype == torch.bool else v, mesh, "dp")
+                   .to(v.dtype) for k, v in out.items()}
+        return {k: v[:U] for k, v in out.items()}
+
+    def _shard_batch(self, mesh, strikes, maturities, market_prices, S0, is_calls):
+        """This rank's surfaces of a batch laid over ``mesh`` (padded as the
+        reference pads), and the :class:`_Shard` its pipeline runs with."""
+        from ..parallel.mesh import axis_index, axis_size, mesh_device, on_mesh_device, psum
+
+        if not on_mesh_device(mesh, self.device):
+            raise ValueError(f"the mesh's device {mesh_device(mesh)} is not the "
+                             f"calibrator's {self.device}")
+        names = mesh.mesh_dim_names
+        n_dp = axis_size(mesh, "dp") if "dp" in names else 1
+        n_q = axis_size(mesh, "quotes") if "quotes" in names else 1
+        i_dp = axis_index(mesh, "dp") if "dp" in names else 0
+        i_q = axis_index(mesh, "quotes") if "quotes" in names else 0
+        U, Q = strikes.shape
+        if Q % n_q:
+            raise ValueError(f"n_options {Q} not divisible by the quotes size {n_q}")
+        u_pad = U + (-U) % n_dp
+        m_u, m_q = u_pad // n_dp, Q // n_q
+        # padded rows are copies of the last surface, with its draws
+        rows = np.minimum(np.arange(i_dp * m_u, (i_dp + 1) * m_u), U - 1)
+
+        quotes_sum = (lambda t: psum(t, "quotes")) if n_q > 1 else None  # noqa: E731
+        if n_dp > 1:
+            running = lambda done: bool(psum((~done).sum().to(self.dtype), "dp") > 0)  # noqa: E731
+        else:
+            running = lambda done: not bool(torch.all(done))  # noqa: E731
+        shard = _Shard(U, torch.as_tensor(rows, device=self.device),
+                       slice(i_q * m_q, (i_q + 1) * m_q), quotes_sum, running)
+        return shard, tuple(np.asarray(a)[rows] for a in
+                            (strikes, maturities, market_prices, S0, is_calls))
 
     # ------------------------------------------------------------ internals
 

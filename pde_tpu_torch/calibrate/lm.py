@@ -71,6 +71,7 @@ def levenberg_marquardt(
     gtol: float = 1e-10,
     xtol: float = 1e-10,
     data: Optional[Sequence[torch.Tensor]] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> LMResult:
     """Minimize 0.5 ||residual_fn(x, *data)||^2 subject to lower <= x <= upper.
 
@@ -79,7 +80,9 @@ def levenberg_marquardt(
     its inputs, no host reads).  ``x0`` is (n,) for one start or (S, n)
     for S starts solved together; each ``data`` tensor then has a leading
     S axis, and start s sees its slice s.  The result's leading dimension
-    follows ``x0``.
+    follows ``x0``.  ``reduce`` (``parallel``: the residuals of a quote
+    block, the rest on other ranks) sums the packed (cost, J^T J, J^T r) of
+    each start over the ranks, so every rank takes the same step.
     """
     single = x0.dim() == 1
     x = torch.clamp(x0.reshape(-1, x0.shape[-1]), lower, upper)
@@ -101,7 +104,11 @@ def levenberg_marquardt(
         r = res_b(x, *data)                            # (S, m)
         J = jac_b(x, *data)                            # (S, m, n)
         JT = J.transpose(-1, -2)
-        return 0.5 * torch.sum(r * r, dim=-1), JT @ J, (JT @ r[..., None])[..., 0]
+        cost, JTJ, JTr = 0.5 * torch.sum(r * r, dim=-1), JT @ J, (JT @ r[..., None])[..., 0]
+        if reduce is None:
+            return cost, JTJ, JTr
+        tot = reduce(torch.cat([cost[:, None], JTJ.reshape(S, n * n), JTr], -1))
+        return tot[:, 0], tot[:, 1:1 + n * n].reshape(S, n, n), tot[:, 1 + n * n:]
 
     with _full_fp32_matmul():
         cost, JTJ, JTr = normal_eqs(x)

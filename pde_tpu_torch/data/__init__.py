@@ -1,6 +1,6 @@
-"""Data: options analytics, providers, streaming and reference data (the
-reference's validation, ingestion, recovery, monitoring and API modules
-come with ROADMAP A.6f or are left out of the port)."""
+"""Data: options analytics, providers, validation, streaming, ingestion and
+reference data (the reference's recovery, monitoring and API modules are
+left out of the port)."""
 
-from . import options, providers, reference, streaming  # noqa: F401
+from . import ingestion, options, providers, reference, streaming, validation  # noqa: F401
 from .options import OptionsChainProcessor, SVIParameterization, VolatilitySurface  # noqa: F401

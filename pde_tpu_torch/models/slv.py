@@ -138,21 +138,27 @@ def _bin_expectation(ln_s, v, edges, n_bins, min_count=8, axis_name=None):
     less one, clamped to [0, n_bins - 1] (a particle exactly on an edge
     falls in the bin below it, as in the reference).  The counts and sums
     are one full-float32 product of the one-hot bin matrix with ``(1, v)``
-    (exact counts; a fixed order of addition).  ``axis_name`` (a path axis
-    sharded over devices) raises ``NotImplementedError`` until
-    ``pde_tpu/parallel`` is ported (ROADMAP item A.7)."""
+    (exact counts; a fixed order of addition).  With ``axis_name`` (a path
+    axis sharded over the ranks of that dimension of the mesh in use,
+    ``parallel.using_mesh``) the counts, sums and the cloud's total are
+    ``all_reduce``d in one collective, so every rank sees the GLOBAL
+    conditional expectation (``parallel/mc.calibrate_leverage_sharded``)."""
     from ..calibrate.lm import _full_fp32_matmul  # calibrate imports the models
 
-    if axis_name is not None:
-        raise NotImplementedError(
-            "slv: axis_name (a path axis sharded over devices) waits for the port of "
-            "pde_tpu/parallel (ROADMAP item A.7)")
     idx = torch.clamp(torch.searchsorted(edges, ln_s.contiguous()) - 1, 0, n_bins - 1)
     one_hot = (idx[:, None] == torch.arange(n_bins, device=idx.device)).to(v.dtype)
     with _full_fp32_matmul():
         counts, sums = torch.stack([torch.ones_like(v), v]) @ one_hot
+    v_sum = torch.sum(v)
+    n_tot = torch.full((), float(v.shape[0]), dtype=v.dtype, device=v.device)
+    if axis_name is not None:
+        from ..parallel.mesh import psum
+
+        tot = psum(torch.cat([counts, sums, torch.stack([v_sum, n_tot])]), axis_name)
+        counts, sums, v_sum, n_tot = (tot[:n_bins], tot[n_bins:2 * n_bins], tot[-2],
+                                      tot[-1])
     ev = sums / torch.clamp_min(counts, 1.0)
-    return torch.where(counts >= min_count, ev, torch.sum(v) / v.shape[0]), idx
+    return torch.where(counts >= min_count, ev, v_sum / n_tot), idx
 
 
 def _state0(s0, v0, n_paths):

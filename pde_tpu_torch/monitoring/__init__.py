@@ -1,6 +1,7 @@
-"""Observability: structured logging and the metrics registry (the
-reference's alerts and health modules come with ROADMAP A.6f; its
-diagnostics, attribution, dashboards and runbooks are left out of the
-port)."""
+"""Observability: structured logging, the metrics registry, alerts and the
+health manager (the reference's diagnostics, attribution, dashboards and
+runbooks are left out of the port)."""
 
-from . import logging, metrics  # noqa: F401
+from . import alerts, health, logging, metrics  # noqa: F401
+from .alerts import AlertManager  # noqa: F401
+from .health import HealthManager  # noqa: F401

@@ -79,29 +79,44 @@ def _step_sampler(params, t_a, t_b, dtype):
     return step
 
 
+def _event_steps(params, schedule, exercise_idx, dtype):
+    """The closed-form steps from 0 into each date ``schedule[exercise_idx]``
+    (:func:`_step_sampler`), one an exercise row."""
+    device = schedule.device
+    ts = torch.cat([torch.zeros(1, dtype=dtype, device=device),
+                    schedule[torch.as_tensor(exercise_idx, device=device)]])
+    return [_step_sampler(params, ts[r], ts[r + 1], dtype) for r in range(len(exercise_idx))]
+
+
+def _simulate_events(steps, n_paths, generator, dtype, device):
+    """Exact path panel along ``steps`` (:func:`_event_steps`): ``(xs, ys,
+    log_ds)`` of shape (n_ex, n_paths); one ``(next, draw)`` split of the
+    draw source a step, as the reference splits its key."""
+    k = _draws(generator, device)
+    xs, ys, lds = [], [], []
+    xv = yv = ld = torch.zeros(n_paths, dtype=dtype, device=device)
+    for step in steps:
+        k, k_r = k.split(2)
+        xv, yv, ld = step(xv, yv, ld, k_r)
+        xs.append(xv)
+        ys.append(yv)
+        lds.append(ld)
+    return torch.stack(xs), torch.stack(ys), torch.stack(lds)
+
+
 def _bermudan_g2_impl(params, strike_rate, schedule, generator, *, payer, exercise, n_paths,
                       n_outer, n_inner):
     dtype, device = schedule.dtype, schedule.device
     ex_idx = tuple(j for j, b in enumerate(exercise) if b)
     n_ex = len(ex_idx)
-    ex_dates = torch.cat([torch.zeros(1, dtype=dtype, device=device),
-                          schedule[torch.as_tensor(ex_idx, device=device)]])
-    steps = [_step_sampler(params, ex_dates[r], ex_dates[r + 1], dtype) for r in range(n_ex)]
+    steps = _event_steps(params, schedule, ex_idx, dtype)
 
     def payoff_at(row, x, y):
         return torch.clamp_min(remaining_swap_value_g2(
             params, strike_rate, schedule, ex_idx[row], x, y, payer), 0.0)
 
     def simulate(n, k):
-        xs, ys, lds = [], [], []
-        xv = yv = ld = torch.zeros(n, dtype=dtype, device=device)
-        for r in range(n_ex):
-            k, k_r = k.split(2)
-            xv, yv, ld = steps[r](xv, yv, ld, k_r)
-            xs.append(xv)
-            ys.append(yv)
-            lds.append(ld)
-        return torch.stack(xs), torch.stack(ys), torch.stack(lds)
+        return _simulate_events(steps, n, k, dtype, device)
 
     k_reg, k_out, k_in = _draws(generator, device).split(3)
     with _full_fp32_matmul():

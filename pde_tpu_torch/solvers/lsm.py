@@ -61,13 +61,16 @@ def _basis(s_norm, v):
 
 
 def _reduce_sum(x, axis_name):
-    """Sum over the paths.  A path axis sharded over devices (``axis_name``)
-    waits for the port of ``pde_tpu/parallel`` (ROADMAP item A.7)."""
+    """Sum over the paths.  With ``axis_name`` the path axis is sharded
+    over the ranks of that dimension of the mesh in use
+    (``parallel.using_mesh``), and the local sum is ``all_reduce``d, so
+    every rank fits the regression of the GLOBAL cross-section."""
+    s = torch.sum(x, dim=0)
     if axis_name is not None:
-        raise NotImplementedError(
-            "lsm: axis_name (a path axis sharded over devices) waits for the "
-            "port of pde_tpu/parallel (ROADMAP item A.7)")
-    return torch.sum(x, dim=0)
+        from ..parallel.mesh import psum
+
+        s = psum(s, axis_name)
+    return s
 
 
 def _solve(gram, rhs, n_itm, failures):
@@ -101,8 +104,11 @@ def lsm_backward_induction(
     (t_1..t_{N-1}): the fitted continuation in raw feature space,
     ``cont_hat = basis(S/K, v) @ gamma[t] + c[t]``, the frozen exercise
     policy of the dual bound (:mod:`pde_tpu_torch.solvers.lsm_dual`).
-    ``axis_name`` raises ``NotImplementedError`` until ``parallel`` is
-    ported.
+    With ``axis_name`` (a dimension of the mesh in use, which the caller
+    enters with ``parallel.using_mesh``) the paths are one rank's shard
+    and every regression sum is ``all_reduce``d over that dimension, so
+    every rank fits the GLOBAL continuation regression
+    (``parallel/mc.price_american_lsm_sharded``).
     """
     dtype, device = s_path.dtype, s_path.device
     k_arr = to_tensor(strike, dtype, device)
@@ -138,6 +144,8 @@ def lsm_backward_induction(
             phi = (phi - mu) / sd
             wphi = phi * w[:, None]
             gram = wphi.T @ phi
+            if axis_name is not None:
+                gram = _reduce_sum(gram[None], axis_name)  # every rank's paths
             gram = gram / n_itm
             ridge = 1e-4 * torch.trace(gram) / F
             gram = gram + ridge * eye

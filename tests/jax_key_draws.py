@@ -16,6 +16,14 @@ each, and ``(k_next, k_draw)`` chains in the Bermudan continuations; a
 ``JaxKey(key)`` sees the draws the reference makes from ``key``.  A
 ``count`` (``randint``, ``permutation``) answers the reference's ``vmap``
 over ``jax.random.split(key, count)``: one draw from each split key, as rows.
+
+For the port's multi-rank pricers (``pde_tpu_torch/parallel/mc.py``),
+``JaxKey(key).fold_in(i)`` is ``jax.random.fold_in(key, i)``, the key the
+reference's device i draws from, and :func:`recorded` runs a simulation
+on ``heston_mc._Replay`` of such a key once, here, and returns the replay
+without its JAX source: a tree of torch tensors that pickles to a spawned
+rank and replays the same draws there without importing JAX (a draw it did
+not record raises).
 """
 
 import jax
@@ -36,6 +44,9 @@ class JaxKey:
 
     def split(self, n):
         return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, data):
+        return JaxKey(jax.random.fold_in(self.key, data))
 
     def uniform(self, shape, dtype, device):
         return _torch(jax.random.uniform(self.key, shape, _JAX_DTYPES[dtype]), dtype, device)
@@ -71,3 +82,20 @@ class JaxKey:
 
     def student_t(self, df, shape, dtype, device):
         return _torch(jax.random.t(self.key, df, tuple(shape), _JAX_DTYPES[dtype]), dtype, device)
+
+
+def recorded(key, simulate):
+    """A replay of ``key`` (a :class:`JaxKey`) holding exactly the draws
+    ``simulate(replay)`` makes, with no JAX object left in it."""
+    from pde_tpu_torch.models.heston_mc import _Replay
+
+    replay = _Replay(key)
+    simulate(replay)
+    _drop_sources(replay)
+    return replay
+
+
+def _drop_sources(replay):
+    replay._source = None
+    for child in replay._children or ():
+        _drop_sources(child)

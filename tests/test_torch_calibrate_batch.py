@@ -113,10 +113,36 @@ def test_ragged_maturity_counts_pad_to_a_common_m(book):
     np.testing.assert_allclose(out["params"].numpy()[:, 4], TRUTH[4], atol=0.01)
 
 
-def test_mesh_is_not_ported(book):
-    with pytest.raises(NotImplementedError, match="A.7"):
-        HestonCalibrator(device="cpu", dtype=F64, **SMALL).calibrate_batch(
-            *book, R, Q, mesh=object())
+def test_mesh_is_not_ported(tmp_path):
+    """(Named when the mesh raised.)  ``calibrate_batch(mesh=...)`` on a
+    (2, 2) mesh of four gloo ranks: U = 4 surfaces over dp, the 16 quotes
+    over quotes, at the JAX test's budget (tests/test_parallel.py:413-450).
+    Every rank returns the unmeshed port's fit at 1e-8 (the DE draws are
+    the unmeshed call's rows, the quote sums reduced across ranks), with
+    costs under 1e-3 and v0 and theta within 0.01 of the truth; and U = 3
+    on dp = 2 (padded with a copy of the last surface, sliced back) equals
+    the unmeshed U = 3 fit too."""
+    import torch_dist_workers as W
+
+    strikes = np.tile(np.linspace(90.0, 110.0, NQ), (4, 1))
+    maturities = np.tile(np.repeat([0.5, 1.0], NQ // 2), (4, 1))
+    prices = np.maximum(np.asarray(jax.jit(jh.price_options)(
+        jh.HestonParams(*TRUTH), jnp.asarray(strikes.ravel()),
+        jnp.asarray(maturities.ravel()), S0, R, Q)).reshape(4, NQ), 0.01)
+    book4 = (strikes, maturities, prices, np.full(4, S0))
+    book3 = tuple(a[:3] for a in book4)
+    run = W.run_ranks(4, [(f"u{len(b[0])}", W.case_calibrate_batch,
+                           ((2, 2), JAX_TEST_BUDGET, *b)) for b in (book4, book3)], tmp_path)
+    for b in (book4, book3):
+        got = W.same_on_every_rank(W.outputs(run, f"u{len(b[0])}"))
+        want = _calibrate(b, **JAX_TEST_BUDGET)
+        assert got["params"].shape == (len(b[0]), 5)
+        np.testing.assert_allclose(got["params"], want["params"].numpy(), rtol=1e-8)
+        np.testing.assert_allclose(got["cost"], want["cost"].numpy(), rtol=1e-8, atol=1e-14)
+        np.testing.assert_array_equal(got["de_n_iter"], want["de_n_iter"].numpy())
+        assert np.all(got["cost"] < 1e-3)
+        np.testing.assert_allclose(got["params"][:, 4], TRUTH[4], atol=0.01)
+        np.testing.assert_allclose(got["params"][:, 1], TRUTH[1], atol=0.01)
 
 
 # ------------------------------------------------------ DE with a surface axis

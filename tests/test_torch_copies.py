@@ -45,6 +45,9 @@ COPIES = {
     "execution/emergency.py": {},
     "database/db.py": {},
     "database/pgwire.py": {},
+    "data/validation.py": {},
+    "data/ingestion.py": {},
+    "monitoring/alerts.py": {},
     # the ported modules that keep the reference's code around one change
     "data/providers.py": {
         "SimulatedDataProvider.__init__": DEVICE,
@@ -56,6 +59,18 @@ COPIES = {
         "VariancePremiumStrategy._tensor": "puts host numbers on that device (new)",
         "VariancePremiumStrategy.expected_variance": "the maturity as a tensor there",
         "VariancePremiumStrategy.evaluate_chain": "the strip's strikes and prices there",
+    },
+    "monitoring/health.py": {
+        "SyntheticCalibrationProbe.__init__": DEVICE,
+        "SyntheticCalibrationProbe._check": "fits on that device in that dtype",
+    },
+    "services.py": {
+        "_provider": "the simulated provider prices on the service's device",
+        "calibration_step": "hands the service's device and dtype to the orchestrator",
+        "signals_step": "hands them to the OU fitter",
+        "ingestion_step": "hands them to the provider",
+        "execution_step": "hands them to the trading system",
+        "main": "takes --device before the service name; the card when absent",
     },
     "trading_system.py": {
         "TradingSystem.__init__": DEVICE,

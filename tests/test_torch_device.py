@@ -36,6 +36,9 @@ from pde_tpu_torch import cli, trading_system
 from pde_tpu_torch.data import providers
 from pde_tpu_torch.risk.risk_manager import PositionRisk, RiskManager
 from pde_tpu_torch.signals.variance_premium import VariancePremiumStrategy
+from pde_tpu_torch import parallel, services
+from pde_tpu_torch.database.db import TimeSeriesDB
+from pde_tpu_torch.monitoring import health
 
 
 @pytest.fixture()
@@ -298,8 +301,48 @@ TRADING_ENTRY_POINTS = {
 }
 
 
+def _service_main(d):
+    """``python -m pde_tpu_torch.services [--device d] signals``, one
+    iteration on an in-memory database."""
+    import os
+
+    env = dict(PDE_SERVICE_MAX_ITERATIONS="1", PDE_SERVICE_INTERVAL_S="0", PDE_SYMBOLS="SPY",
+               PDE_DB_PATH=":memory:")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return services.main(([] if d is None else ["--device", d]) + ["signals"])
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+
+
+# A.6f: the service steps and the health manager's calibration probe (the
+# calibration and execution steps, which the services tests run on the CPU,
+# and the parallel layer's group and mesh, which need ranks, are in the
+# no-card set only)
+SERVICE_ENTRY_POINTS = {
+    "services.signals_step": lambda d: len(services.signals_step(
+        provider=providers.SimulatedDataProvider(seed=3, device=d),
+        db=TimeSeriesDB(":memory:"), symbols=["SPY"], device=d)),
+    "services.ingestion_step": lambda d: len(services.ingestion_step(
+        db=TimeSeriesDB(":memory:"), symbols=["SPY"], device=d)),
+    "services.main": _service_main,
+    "SyntheticCalibrationProbe": lambda d: float(health.SyntheticCalibrationProbe(
+        device=d)._check()[1].split()[-1]),
+}
+
+
 ENTRY_POINTS = {
     **SIGNAL_RISK_ENTRY_POINTS,
+    **{name: (lambda fn=fn: fn(None)) for name, fn in SERVICE_ENTRY_POINTS.items()},
+    "services.calibration_step": lambda: services.calibration_step(
+        provider=providers.SimulatedDataProvider(seed=3, device="cpu"),
+        db=TimeSeriesDB(":memory:"), symbols=["SPY"]),
+    "services.execution_step": lambda: services.execution_step(symbols=["SPY"], n_ticks=5),
+    "parallel.make_mesh": lambda: parallel.make_mesh(),
+    "parallel.initialize_distributed": lambda: parallel.initialize_distributed(
+        "localhost:1", 1, 0),
     **{name: (lambda fn=fn: fn(None)) for name, fn in TRADING_ENTRY_POINTS.items()},
     **{name: (lambda fn=fn: fn(None)) for name, fn in BACKTEST_ENTRY_POINTS.items()},
     "HestonCalibrator": lambda: HestonCalibrator(),
@@ -485,4 +528,10 @@ def test_backtest_entry_points_run_on_the_cpu_when_asked(no_card, name):
 @pytest.mark.parametrize("name", sorted(TRADING_ENTRY_POINTS))
 def test_trading_entry_points_run_on_the_cpu_when_asked(no_card, name):
     out = TRADING_ENTRY_POINTS[name]("cpu")
+    assert np.all(np.isfinite(np.asarray(out, dtype=float)))
+
+
+@pytest.mark.parametrize("name", sorted(SERVICE_ENTRY_POINTS))
+def test_service_entry_points_run_on_the_cpu_when_asked(no_card, name):
+    out = SERVICE_ENTRY_POINTS[name]("cpu")
     assert np.all(np.isfinite(np.asarray(out, dtype=float)))

@@ -15,8 +15,10 @@ Gates, each with its reason:
 - the batch against the single-contract pricer on one generator's paths:
   1e-12 relative, as the reference's own
   ``tests/test_lsm.py::TestLSMBatch::test_batch_matches_single_exactly``;
-- ``axis_name`` raises ``NotImplementedError`` until ``pde_tpu/parallel``
-  is ported.
+- ``axis_name``: the induction on the reference's stored paths with the
+  path axis split over P = 2 and 4 gloo ranks equals the reference's
+  single-device induction at 1e-9 absolute (its own sharded test's gate,
+  ``tests/test_mc_sharded.py:34-57``), on every rank.
 Sizes: at most 4096 paths x 16 steps.
 """
 
@@ -124,7 +126,26 @@ def test_put_dominates_intrinsic_and_european_on_generator_paths():
     assert float(amer) > float(euro) - 4 * float(se)
 
 
-def test_axis_name_waits_for_parallel():
-    s = torch.full((4, 8), 100.0, dtype=F64)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tlsm.lsm_backward_induction(s, s * 0.0 + 0.04, 100.0, -1.0, 0.99, axis_name="paths")
+def test_axis_name_waits_for_parallel(tmp_path):
+    """(Named when ``axis_name`` raised.)  The regression sums all-reduced
+    over the ranks holding the paths: P = 2 (a (2, 2) mesh's columns) and
+    P = 4 ranks of one spawned gloo group reproduce the single-device
+    induction of the reference on the same paths."""
+    import torch_dist_workers as W
+
+    s_path, v_path = jmc.simulate_qe_paths(JP, 100.0, 1.0, jax.random.PRNGKey(7),
+                                           n_steps=16, n_paths=4096, rate=0.05,
+                                           antithetic=False)
+    disc = jnp.exp(jnp.asarray(-0.05 * 1.0 / 16, s_path.dtype))
+    want = np.asarray(jlsm.lsm_backward_induction(s_path, v_path, 100.0, -1.0, disc))
+    args = (torch.tensor(np.asarray(s_path)), torch.tensor(np.asarray(v_path)), 100.0, -1.0,
+            torch.tensor(float(disc), dtype=F64))
+    run = W.run_ranks(4, [(f"p{P}", W.case_lsm_induction, (P, *args)) for P in (2, 4)],
+                      tmp_path)
+    one = tlsm.lsm_backward_induction(*args, collect_policy=True)[1]
+    for P in (2, 4):
+        got = W.same_on_every_rank(W.outputs(run, f"p{P}"))
+        np.testing.assert_allclose(got["cash"], want, rtol=0, atol=1e-9)
+        # the policy is the global one, the port's single-device fit's
+        scale = np.abs(one[0].numpy()).max(axis=1, keepdims=True)
+        np.testing.assert_allclose(got["gamma"] / scale, one[0].numpy() / scale, atol=1e-10)

@@ -62,7 +62,7 @@ def _t_target(s, t):
     return 0.22 + 0.08 * torch.tanh(torch.log(100.0 / s)) + 0.02 * t
 
 
-def test_bin_expectation_matches_reference_with_particles_on_edges():
+def test_bin_expectation_matches_reference_with_particles_on_edges(tmp_path):
     rng = np.random.default_rng(0)
     edges = np.linspace(4.2, 5.0, 12)
     ln_s = np.concatenate([rng.normal(4.6, 0.15, 500), edges, [3.0, 6.0]])
@@ -78,9 +78,24 @@ def test_bin_expectation_matches_reference_with_particles_on_edges():
     on_edge = tslv._bin_expectation(torch.tensor(edges[3:4]), torch.tensor([0.04]),
                                     torch.tensor(edges), 11, min_count=1)[1]
     assert int(on_edge[0]) == 2
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tslv._bin_expectation(torch.tensor(ln_s), torch.tensor(v), torch.tensor(edges), 11,
-                              axis_name="paths")
+    # with axis_name, the particles split over P = 2 and 4 gloo ranks: the
+    # all-reduced bin sums give the reference's single-cloud E[v | S] at
+    # 1e-12 (tests/test_mc_sharded.py:133-157) and the same bins, on every
+    # rank (the cloud cut to a multiple of 4: 512 of its 514 particles)
+    import torch_dist_workers as W
+
+    cut = (ln_s[:512], v[:512])
+    args = (torch.tensor(cut[0]), torch.tensor(cut[1]), torch.tensor(edges), 11)
+    run = W.run_ranks(4, [(f"p{P}_{m}", W.case_bin_expectation, (P, *args, m))
+                          for P in (2, 4) for m in (1, 8, 40)], tmp_path)
+    for P in (2, 4):
+        for min_count in (1, 8, 40):
+            want_ev, want_idx = jslv._bin_expectation(*(jnp.asarray(a) for a in cut),
+                                                      jnp.asarray(edges), 11,
+                                                      min_count=min_count)
+            got = W.same_on_every_rank(W.outputs(run, f"p{P}_{min_count}"))
+            np.testing.assert_array_equal(got["idx"], np.asarray(want_idx))
+            np.testing.assert_allclose(got["ev"], np.asarray(want_ev), rtol=1e-12, atol=0.0)
 
 
 def test_interp_is_jnp_interp():
