@@ -227,7 +227,23 @@ checks every result:
     temporary working directory, with equal statuses and stored candidate
     signals; the ``HealthManager`` with the three synthetic probes (the
     calibration probe fitting on the card) all healthy; no kernel; their
-    walls (``services_seconds``).
+    walls (``services_seconds``);
+20. the collective audit (before the group of item 18 is destroyed):
+    ``comm_audit.audit_table`` on the one-rank NCCL group, where every
+    program of the six counts no collective and sends no byte (the
+    collectives are skipped at one rank, as on the gloo ranks at P = 1 in
+    the tests), its sharded solves launching K5 exactly 16 times;
+21. the rest of the port: ``heston_adi_ref.solve_reference``, the C++
+    reference's Heston scheme, in float64 on the card on the four golden
+    cases of tests/test_golden_pde.py against
+    tests/golden/reference_pde_values.json at 1e-10 (vega 1e-9), no
+    kernel (``golden_pde``); the native host bindings against the port's
+    card functions: ``native.thomas_solve`` against K5 at (50, 100) (one
+    launch), ``native.heston_adi_solve`` against ``heston_adi.solve`` at
+    100x50x100 in float32 (200 launches), each by the card gate, and
+    ``native.ou_mle`` against ``ou.fit_mle`` in float64 on the card
+    (``native_thomas``, ``native_heston_adi``, ``native_ou``); their walls
+    (``rest_of_port_seconds``).
 
 Before the paths, each of the six kernel wrappers is called on the card
 with an input that requires grad: each must raise (the kernels have no
@@ -235,7 +251,7 @@ backward) and launch nothing, and run under ``torch.no_grad()``; the
 fused-ADI book entry point must raise too, and ``tridiagonal_solve``
 under grad must take the differentiable ``thomas``.
 
-Each main path (4-19) runs with every kernel's launch count set to 0 just
+Each main path (4-21) runs with every kernel's launch count set to 0 just
 before it and read just after; a path whose kernel never launched fails
 (the rows of item 4 after the headline and those of item 16 must launch
 none),
@@ -259,8 +275,10 @@ Each phase prints one JSON line; then the kernel table (K5's and K6's rows
 with their launches on the HJB paths, ``launches_hjb``; K5's with its
 launches on the Bermudan ladder, ``launches_bermudan``, and its times and
 bound at that shape, ``bermudan``; and likewise on the Merton PIDE strip,
-``launches_pide`` and ``pide``), the card's
-``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
+``launches_pide`` and ``pide``; and its launches on the parallel and
+rest-of-port paths, ``launches_parallel`` and ``launches_rest_of_port``),
+the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+"device": ...}``.
 Any failure raises and exits non-zero before the last line.  Run from the
 repository root with no arguments:
 
@@ -3643,6 +3661,177 @@ def phase_services(torch, dev):
     return walls
 
 
+# -- the rest of the port: the C++ reference's Heston oracle, the native
+# host bindings, the collective audit --------------------------------------
+
+GOLDEN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                           "reference_pde_values.json")
+GOLDEN_BASE = dict(kappa=2.0, theta=0.04, sigma=0.3, rho=-0.7, v0=0.04, r=0.05, q=0.0, T=1.0,
+                   K=100.0, is_call=True)
+# tests/test_golden_pde.py:83-105: case -> (parameters, golden key by result field)
+GOLDEN_CASES = {
+    "euro_call": ({}, {"price": "heston_pde_euro_call_price",
+                       "delta": "heston_pde_euro_call_delta",
+                       "gamma": "heston_pde_euro_call_gamma",
+                       "vega": "heston_pde_euro_call_vega"}),
+    "euro_put": (dict(is_call=False), {"price": "heston_pde_euro_put_price"}),
+    "amer_put": (dict(is_call=False, american=True), {"price": "heston_pde_amer_put_price"}),
+    "second_set": (dict(kappa=1.5, theta=0.09, sigma=0.5, rho=-0.5, v0=0.06, r=0.03, q=0.01,
+                        T=0.5, K=110.0), {"price": "heston_pde2_euro_call_price"}),
+}
+GOLDEN_TOL = dict(price=1e-10, delta=1e-10, gamma=1e-10, vega=1e-9)
+# K5 launches, read from the code: the native host phases hold one
+# tridiagonal_solve at (50, 100) and one heston_adi.solve at 100x50x100 (two
+# sweeps a step); the audit at one rank runs the Black-Scholes march at 64
+# points for 2 and 3 steps (one launch a step), the Heston march at 32 x 8
+# for 2 and 3 steps (two a step) and one distributed solve
+NATIVE_LAUNCHES = {"phase_native_thomas": 1, "phase_native_heston_adi": 2 * GRID["n_time"],
+                   "phase_native_ou": 0}
+AUDIT_LAUNCHES = (2 + 3) + 2 * (2 + 3) + 1
+NATIVE_OU = dict(speed=2.0, mean=6.0, sigma=0.4, T=4.0, n=1000)
+
+
+def phase_golden_pde(torch, dev):
+    """``heston_adi_ref.solve_reference`` in float64 on the card on the four
+    cases of tests/test_golden_pde.py:83-105, against the C++ reference's
+    own numbers (tests/golden/reference_pde_values.json) at 1e-10 (vega
+    1e-9): the largest error of each field and each solve's wall."""
+    from pde_tpu_torch.solvers import heston_adi, heston_adi_ref
+
+    with open(GOLDEN_PATH) as fh:
+        gold = json.load(fh)
+    errs, walls, ok = {}, {}, True
+    for name, (over, fields) in GOLDEN_CASES.items():
+        p = heston_adi.HestonPDEParams(**{**GOLDEN_BASE, **over})
+        t0 = time.perf_counter()
+        res = heston_adi_ref.solve_reference(p, 100.0, device=dev)
+        sync(torch, dev)
+        walls[name] = time.perf_counter() - t0
+        ok = ok and res.prices.dtype == torch.float64 and res.prices.device == dev
+        for f, key in fields.items():
+            err = abs(float(getattr(res, f)) - gold[key])
+            errs[f] = max(errs.get(f, 0.0), err)
+            ok = ok and err <= GOLDEN_TOL[f]
+    emit(phase="golden_pde", dtype="float64", grid=[GRID["n_spot"], GRID["n_vol"],
+                                                    GRID["n_time"]],
+         max_abs_vs_golden=errs, tolerance=GOLDEN_TOL, solve_wall_s=walls, ok=ok)
+    if not ok:
+        raise AssertionError("solve_reference missed the C++ reference's golden numbers")
+
+
+def phase_native_thomas(torch, dev):
+    """``native.thomas_solve`` (float64 on the host) against K5 through
+    ``tridiagonal_solve`` at (50, 100) on the card: the card gate, with the
+    port's float32 ``thomas`` on the CPU setting it."""
+    from pde_tpu_torch import native
+    from pde_tpu_torch.ops import tridiag
+
+    lower, diag, upper, rhs = seeded_system(torch, dev, *PARALLEL_TRIDIAG)
+    card = tridiag.tridiagonal_solve(lower, diag, upper, rhs)
+    sync(torch, dev)
+    host = [t.detach().cpu().double() for t in (lower, diag, upper, rhs)]
+    native.load()  # the host library's build at first use is not the call's
+    t0 = time.perf_counter()
+    ref = torch.as_tensor(native.thomas_solve(*(t.numpy() for t in host)))
+    host_s = time.perf_counter() - t0
+    fields, ok = card_gate(card, ref, tridiag.thomas(*(t.float() for t in host)))
+    ok = ok and bool(torch.isfinite(card).all())
+    emit(phase="native_thomas", B=PARALLEL_TRIDIAG[0], n=PARALLEL_TRIDIAG[1], dtype="float32",
+         reference="native.thomas_solve, float64 on the host", **fields,
+         native_wall_s=host_s, ok=ok)
+    if not ok:
+        raise AssertionError("K5 missed native.thomas_solve by the card gate")
+
+
+def phase_native_heston_adi(torch, dev):
+    """``native.heston_adi_solve`` (the independent float64 C++ Douglas
+    march) against ``heston_adi.solve`` at 100x50x100 in float32 on the
+    card (the scan route, K5): price and grid by the card gate, the port's
+    float32 march on the CPU setting it."""
+    from pde_tpu_torch import native
+    from pde_tpu_torch.solvers import heston_adi
+
+    p = heston_adi.HestonPDEParams(**GRID)
+    native.load()
+    t0 = time.perf_counter()
+    card = heston_adi.solve(p, 100.0, device=dev, dtype=torch.float32)
+    sync(torch, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    price, grid = native.heston_adi_solve(p.kappa, p.theta, p.sigma, p.rho, p.v0, p.r, p.q,
+                                          p.T, p.K, 100.0, n_spot=p.n_spot, n_vol=p.n_vol,
+                                          n_time=p.n_time)
+    host_s = time.perf_counter() - t0
+    cpu32 = heston_adi.solve(p, 100.0, device=torch.device("cpu"), dtype=torch.float32)
+    gates, ok = {}, True
+    for f, ref in (("price", torch.tensor(price)), ("prices", torch.as_tensor(grid))):
+        gates[f], good = card_gate(getattr(card, f), ref, getattr(cpu32, f))
+        ok = ok and good and bool(torch.isfinite(getattr(card, f)).all())
+    emit(phase="native_heston_adi", grid=list(GRID.values()), dtype="float32",
+         reference="native.heston_adi_solve, float64 on the host", price=float(card.price), price_native_f64=price, gates=gates, card_wall_s=card_s,
+         native_wall_s=host_s, ok=ok)
+    if not ok:
+        raise AssertionError("heston_adi.solve missed native.heston_adi_solve by the card gate")
+
+
+def phase_native_ou(torch, dev):
+    """``native.ou_mle`` against ``ou.fit_mle`` in float64 on the card on
+    one seeded OU path of 1000 steps, at tests/test_native.py's
+    tolerances (theta 1e-8 absolute, mu 1e-6 and sigma 1e-8 relative)."""
+    import numpy as np
+
+    from pde_tpu_torch import native
+    from pde_tpu_torch.models import ou
+
+    o = NATIVE_OU
+    dt = o["T"] / o["n"]
+    a = math.exp(-o["speed"] * dt)
+    sd = o["sigma"] * math.sqrt((1 - a * a) / (2 * o["speed"]))
+    z = np.random.default_rng(5).normal(size=o["n"])
+    path = np.empty(o["n"] + 1)
+    path[0] = 2.0
+    for k in range(o["n"]):
+        path[k + 1] = o["mean"] + (path[k] - o["mean"]) * a + sd * z[k]
+    fit = ou.fit_mle(torch.as_tensor(path, dtype=torch.float64, device=dev), dt).params
+    host = native.ou_mle(path, dt)
+    card = [float(fit.theta), float(fit.mu), float(fit.sigma)]
+    err = dict(theta_abs=abs(card[0] - host[0]), mu_rel=abs(card[1] - host[1]) / abs(host[1]),
+               sigma_rel=abs(card[2] - host[2]) / abs(host[2]))
+    ok = err["theta_abs"] <= 1e-8 and err["mu_rel"] <= 1e-6 and err["sigma_rel"] <= 1e-8
+    emit(phase="native_ou", dtype="float64", n=o["n"], card=card, native=list(host), **err,
+         ok=ok)
+    if not ok:
+        raise AssertionError("ou.fit_mle on the card missed native.ou_mle")
+
+
+NATIVE_PATHS = (phase_native_thomas, phase_native_heston_adi, phase_native_ou)
+
+
+def phase_comm_audit(torch, dev):
+    """``comm_audit.audit_table`` on the world-size-1 NCCL group: at one
+    rank every collective is skipped, so every program counts nothing and
+    sends no byte, as on the gloo ranks at P = 1
+    (tests/test_torch_parallel.py::test_audit_counts_nothing_at_one_rank)."""
+    import torch.distributed as dist
+
+    from pde_tpu_torch.parallel import comm_audit
+
+    world_mesh(torch, dev)
+    table = comm_audit.audit_table(device_type="cuda" if dev.type == "cuda" else "cpu")
+    sync(torch, dev)
+    counts = {prog: {k: dict(per_step={op: n for op, n in e["per_step"].items() if n},
+                             fixed={op: n for op, n in e["fixed"].items() if n},
+                             bytes_sent=e["bytes_sent"])
+                     for k, e in by_k.items()} for prog, by_k in table.items()}
+    ok = (len(table) == 6 and all(list(by_k) == [1] for by_k in table.values())
+          and all(not e["per_step"] and not e["fixed"] and e["bytes_sent"] == 0
+                  for by_k in counts.values() for e in by_k.values()))
+    emit(phase="comm_audit", backend=dist.get_backend(), world=dist.get_world_size(),
+         counts=counts, ok=ok)
+    if not ok:
+        raise AssertionError("the collective audit at one rank counted a collective")
+
+
 def parallel_profile_rows(torch, dev):
     """The sharded Heston march on the one-rank NCCL mesh and one pass of the
     calibration service, float32 on the card (its sqlite file in a temporary
@@ -5260,6 +5449,7 @@ def main() -> None:
 
     path_seconds = {}
     launches_parallel = {}
+    launches_rest = {}
 
     def path(fn, *args, needs=()):
         for obj, attr in counters.values():
@@ -5383,6 +5573,13 @@ def main() -> None:
     emit(phase="parallel_seconds",
          seconds={fn.__name__: path_seconds[fn.__name__] for fn, _ in PARALLEL_PATHS},
          total_s=time.perf_counter() - t_par)
+    # the collective audit at one rank: the sharded solves it runs launch K5
+    counts = path(phase_comm_audit, torch, dev, needs=("K5", "K5-smem"))[0]
+    if counts["K5"] != AUDIT_LAUNCHES or counts["K5-smem"] != AUDIT_LAUNCHES or any(
+            n for k, n in counts.items() if not k.startswith("K5")):
+        raise AssertionError(f"phase_comm_audit launched {counts}, not K5 "
+                             f"{AUDIT_LAUNCHES} times")
+    launches_rest["phase_comm_audit"] = counts["K5"]
     close_group()
     # the services facade and the health manager launch no kernel
     t_svc = time.perf_counter()
@@ -5390,6 +5587,23 @@ def main() -> None:
     if any(counts.values()):
         raise AssertionError(f"phase_services launched a kernel: {counts}")
     emit(phase="services_seconds", seconds=walls, total_s=time.perf_counter() - t_svc)
+    # the C++ reference's Heston oracle in float64 on the card (no kernel),
+    # and the native host bindings against the port's card functions: K5
+    # exactly once for the Thomas solve and 200 times for the Heston march
+    counts = path(phase_golden_pde, torch, dev)[0]
+    if any(counts.values()):
+        raise AssertionError(f"phase_golden_pde launched a kernel: {counts}")
+    for fn in NATIVE_PATHS:
+        want = NATIVE_LAUNCHES[fn.__name__]
+        counts = path(fn, torch, dev, needs=("K5", "K5-smem") if want else ())[0]
+        if counts["K5"] != want or counts["K5-smem"] != want or any(
+                n for k, n in counts.items() if not k.startswith("K5")):
+            raise AssertionError(f"{fn.__name__} launched {counts}, not K5 {want} times")
+        if want:
+            launches_rest[fn.__name__] = counts["K5"]
+    rest = ("phase_golden_pde", *(fn.__name__ for fn in NATIVE_PATHS), "phase_comm_audit")
+    emit(phase="rest_of_port_seconds", seconds={k: path_seconds[k] for k in rest},
+         total_s=sum(path_seconds[k] for k in rest))
     # what the PIDE phases cost against the repeats cut to pay for them
     new_s = {fn.__name__: path_seconds[fn.__name__] for fn, _ in PIDE_PATHS}
     new_s.update(phase_hjb_native=path_seconds["phase_hjb_native"],
@@ -5410,7 +5624,8 @@ def main() -> None:
     on_paths = {"K5": {"launches_bermudan": BERM_STEPS, "bermudan": dict(
         B=berm["B"], n=berm["n"], ms=berm["ms"], plain_ms=berm["plain_ms"],
         bound_ms=berm_bound_ms, bound_by=berm_bound_by, library_ms=berm["library_ms"]),
-        "launches_parallel": launches_parallel, "launches_pide": PIDE_STEPS, "pide": dict(
+        "launches_parallel": launches_parallel, "launches_rest_of_port": launches_rest,
+        "launches_pide": PIDE_STEPS, "pide": dict(
         B=strip["B"], n=strip["n"], ms=strip["ms"], plain_ms=strip["plain_ms"],
         bound_ms=strip_bound_ms, bound_by=strip_bound_by, library_ms=strip["library_ms"])}}
     rows = []

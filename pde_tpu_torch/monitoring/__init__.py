@@ -1,7 +1,15 @@
-"""Observability: structured logging, the metrics registry, alerts and the
-health manager (the reference's diagnostics, attribution, dashboards and
-runbooks are left out of the port)."""
+"""Observability: metrics, health, alerts, logging, diagnostics,
+attribution, dashboards, runbooks."""
 
-from . import alerts, health, logging, metrics  # noqa: F401
+from . import (  # noqa: F401
+    alerts,
+    attribution,
+    dashboards,
+    diagnostics,
+    health,
+    logging,
+    metrics,
+    runbooks,
+)
 from .alerts import AlertManager  # noqa: F401
 from .health import HealthManager  # noqa: F401

@@ -9,7 +9,8 @@ another CPU builds its own library instead of loading one it cannot run.
 The compiler writes a temporary file that ``os.replace`` then moves into
 place, so processes that build at once never load a half-written library.
 A missing compiler or a failed build raises :class:`NativeUnavailable`;
-nothing falls back.  Only the functions a ported module calls are bound.
+nothing falls back.  Every function of the C ABI is bound, with the
+argument types of the JAX package's loader.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NativeUnavailable", "SOURCES", "FLAGS", "library_path", "build", "load"]
+__all__ = ["NativeUnavailable", "SOURCES", "FLAGS", "library_path", "build", "load",
+           "is_available"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCES = (_ROOT / "src" / "cpp" / "pde_host.cpp", _ROOT / "src" / "cpp" / "pde_solvers.cpp")
@@ -89,12 +91,41 @@ def load() -> ctypes.CDLL:
     version = lib.pde_host_abi_version()
     if version != ABI_VERSION:
         raise NativeUnavailable(f"libpde_host ABI {version}, expected {ABI_VERSION}")
-    dbl, i64 = ctypes.c_double, ctypes.c_int64
+    dbl, i32, i64 = ctypes.c_double, ctypes.c_int32, ctypes.c_int64
     dbl_p, i32_p = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32)
-    lib.hjb_march.argtypes = [dbl] * 7 + [i64, i64, dbl_p, dbl_p]
-    lib.hjb_march.restype = None
-    lib.hjb_march_bs.argtypes = [dbl] * 7 + [i64, i64, dbl_p, ctypes.c_int32, dbl_p]
-    lib.hjb_march_bs.restype = None
-    lib.hjb_march_bs_multi.argtypes = [dbl] * 7 + [i64, i64, i64, dbl_p, i32_p, dbl_p]
-    lib.hjb_march_bs_multi.restype = None
+    signatures = {
+        # pde_host.cpp: streams, backtests, fills and float64 oracles
+        "aggregate_bars": ([dbl_p, dbl_p, dbl_p, i64, dbl, dbl_p, i64], i64),
+        "run_position_backtest": ([dbl_p, dbl_p, i64, dbl, dbl_p, dbl_p, dbl_p], None),
+        "thomas_solve": ([dbl_p, dbl_p, dbl_p, dbl_p, i64, i64, dbl_p, dbl_p], None),
+        "ou_mle": ([dbl_p, i64, dbl, dbl_p], None),
+        "zscore_positions": ([dbl_p, i64, i64, dbl, dbl, dbl_p], None),
+        "heston_price_batch": ([dbl] * 8 + [dbl_p, dbl_p, dbl_p, i64, i64, dbl, dbl, dbl_p],
+                               None),
+        "sabr_vols": ([dbl] * 6 + [dbl_p, i64, dbl_p], None),
+        "bs_implied_vol": ([dbl_p, dbl_p, dbl_p, dbl, dbl, dbl_p, dbl_p, i64, dbl, i64, dbl,
+                            dbl_p], None),
+        "simulate_fills": ([dbl_p, dbl_p, i64] + [dbl_p] * 6 + [i64, dbl, dbl, dbl, dbl_p],
+                           i64),
+        # pde_solvers.cpp: float64 PDE-solver oracles and the HJB marches
+        "bs_pde_solve": ([dbl] * 6 + [i32, i32, i64, i64, dbl, dbl, i32, dbl_p, dbl_p], dbl),
+        "heston_adi_solve": ([dbl] * 9 + [i32, i32, dbl, i64, i64, i64, dbl, dbl, dbl, dbl_p],
+                             dbl),
+        "hjb_march": ([dbl] * 7 + [i64, i64, dbl_p, dbl_p], None),
+        "hjb_march_bs": ([dbl] * 7 + [i64, i64, dbl_p, i32, dbl_p], None),
+        "hjb_march_bs_multi": ([dbl] * 7 + [i64, i64, i64, dbl_p, i32_p, dbl_p], None),
+    }
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def is_available() -> bool:
+    """Whether the library builds and loads on this host (a question only:
+    the wrappers raise :class:`NativeUnavailable` when it does not)."""
+    try:
+        load()
+    except NativeUnavailable:
+        return False
+    return True

@@ -38,7 +38,11 @@ Entry points:
 * :func:`partitioned_thomas_spmd` — call on every rank of the axis with
   its local row-aligned bands; returns the local solution slice.
 * :func:`dist_tridiagonal_solve` — global arrays in the ``ops.tridiag``
-  band convention, sharded solve, global result on every rank.
+  band convention, sharded solve, global result on every rank.  Its one
+  collective is one ``all_gather`` of every block's (g, w_L, w_R): each
+  rank then builds the interface system from the blocks' edge rows and
+  back-substitutes every block itself, so the gathered result needs no
+  second collective.
 """
 
 from __future__ import annotations
@@ -130,8 +134,16 @@ def partitioned_thomas_spmd(a, b, c, d, axis_name: str):
     if ndev == 1:  # no neighbour: the local solve of d alone, as one 2D batch
         a, b, c, d = (x.reshape(nb, m) for x in (a, b, c, d))
         return tridiagonal_solve(a[:, 1:], b, c[:, :-1], d).reshape(batch + (m,))
+    g, w_l, w_r = _local_solve(a, b, c, d, nb)
+    red_all = all_gather(_reduced(g, w_l, w_r)[None], mesh, axis_name)   # (P, 2, 4, B...)
+    y = _interface_solve(red_all, ndev).to(d.dtype)                      # (B..., 2P)
+    return _back_substitute(y, idx, ndev, g, w_l, w_r)
 
-    # --- local solve: T [g, w_L, w_R] = [d, -a_0 e_0, -c_{m-1} e_{m-1}] ----
+
+def _local_solve(a, b, c, d, nb: int):
+    """T [g, w_L, w_R] = [d, -a_0 e_0, -c_{m-1} e_{m-1}] for the block's own
+    matrix T, as one batched call of three right-hand sides a system."""
+    m = d.shape[-1]
     zero = torch.zeros_like(d)
     e_l = torch.cat([-a[..., :1], zero[..., 1:]], dim=-1)
     e_r = torch.cat([zero[..., :-1], -c[..., -1:]], dim=-1)
@@ -140,20 +152,25 @@ def partitioned_thomas_spmd(a, b, c, d, axis_name: str):
              for x in (a, b, c)]
     sol = tridiagonal_solve(bands[0][:, 1:], bands[1], bands[2][:, :-1],
                             rhs.reshape(3 * nb, m)).reshape(rhs.shape)
-    g, w_l, w_r = sol[0], sol[1], sol[2]                              # (B..., m)
+    return sol[0], sol[1], sol[2]                                     # (B..., m) each
 
-    # --- the reduced interface system, the same on every rank ---------------
+
+def _reduced(g, w_l, w_r):
+    """A block's two edge equations [ã, b́, c̃, d́] = [-w_L, 1, -w_R, g] at its
+    first and last row: (2, 4, B...)."""
     one = torch.ones_like(g[..., 0])
-    red = torch.stack([
+    return torch.stack([
         torch.stack([-w_l[..., 0], one, -w_r[..., 0], g[..., 0]]),
         torch.stack([-w_l[..., -1], one, -w_r[..., -1], g[..., -1]]),
-    ])                                                                # (2, 4, B...)
-    red_all = all_gather(red[None], mesh, axis_name)                  # (P, 2, 4, B...)
-    y = _interface_solve(red_all, ndev).to(d.dtype)                   # (B..., 2P)
+    ])
 
-    # --- back substitution ---------------------------------------------------
-    x_l = y[..., 2 * idx - 1] if idx > 0 else torch.zeros_like(one)
-    x_r = y[..., 2 * idx + 2] if idx < ndev - 1 else torch.zeros_like(one)
+
+def _back_substitute(y, p: int, ndev: int, g, w_l, w_r):
+    """Block p's solution ``x = g + w_L x_L + w_R x_R`` from the interface
+    unknowns y (B..., 2P)."""
+    zero = torch.zeros_like(g[..., 0])
+    x_l = y[..., 2 * p - 1] if p > 0 else zero
+    x_r = y[..., 2 * p + 2] if p < ndev - 1 else zero
     return g + w_l * x_l[..., None] + w_r * x_r[..., None]
 
 
@@ -187,7 +204,14 @@ def dist_tridiagonal_solve(lower, diag, upper, rhs, mesh, axis: str | None = Non
     b, d = diag.expand(batch + (n,)), rhs.expand(batch + (n,))
     m, i = n // ndev, axis_index(mesh, axis)
     cols = slice(i * m, (i + 1) * m)
-    with using_mesh(mesh):
-        x = partitioned_thomas_spmd(a[..., cols], b[..., cols], c[..., cols], d[..., cols],
-                                    axis)
-    return all_gather(x, mesh, axis, dim=-1)
+    a, b, c, d = (x[..., cols] for x in (a, b, c, d))
+    if ndev == 1:
+        with using_mesh(mesh):
+            return partitioned_thomas_spmd(a, b, c, d, axis)
+    # one all_gather of every block's (g, w_L, w_R): each rank then solves
+    # the interface system and back-substitutes every block itself
+    nb = int(np.prod(batch, dtype=np.int64))
+    parts = all_gather(torch.stack(_local_solve(a, b, c, d, nb))[None], mesh, axis)
+    red_all = torch.stack([_reduced(*parts[p]) for p in range(ndev)])   # (P, 2, 4, B...)
+    y = _interface_solve(red_all, ndev).to(dtype)
+    return torch.cat([_back_substitute(y, p, ndev, *parts[p]) for p in range(ndev)], dim=-1)

@@ -1,9 +1,16 @@
-"""Risk layer: sizing, limits, VaR and drawdown control (the reference's
-Greeks and correlation monitors are pure Python and are left out of the
-port)."""
+"""Risk layer: sizing, limits, VaR, Greeks, correlation and drawdown
+control."""
 
-from . import drawdown_controller, position_sizer, risk_manager, var_calculator  # noqa: F401
+from . import (  # noqa: F401
+    correlation_monitor,
+    drawdown_controller,
+    greeks_monitor,
+    position_sizer,
+    risk_manager,
+    var_calculator,
+)
 from .drawdown_controller import DrawdownController  # noqa: F401
+from .greeks_monitor import GreeksRiskMonitor  # noqa: F401
 from .position_sizer import (KellyPositionSizer, VolatilityEstimator,  # noqa: F401
                              VolatilityScaledPositionSizer)
 from .risk_manager import RiskManager  # noqa: F401

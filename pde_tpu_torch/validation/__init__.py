@@ -1,6 +1,6 @@
-"""Strategy validation: statistical tests and stress testing (the
-reference's model validators, walk-forward splitters and benchmark
-comparators are pure Python and are left out of the port)."""
+"""Model and strategy validation: SR 11-7 checks, statistical tests,
+walk-forward, stress testing, benchmarks."""
 
-from . import statistical_tests, stress_testing  # noqa: F401
+from . import benchmarks, model_validation, statistical_tests, stress_testing, walk_forward  # noqa: F401
+from .model_validation import HestonModelValidator, OUModelValidator, SABRModelValidator  # noqa: F401
 from .statistical_tests import BootstrapAnalysis, OverfittingDetector, StrategyStatisticalTests  # noqa: F401

@@ -7,7 +7,9 @@ set aside: docstrings, import statements, and the package's own name in
 string constants (``"pde_tpu_torch"`` reads as ``"pde_tpu"``: the logger
 names, the database client's application name).  Every other difference
 is listed below, function by function, with its reason.  The test reads
-the two source files only; it imports neither.
+the two source files only; it imports neither.  (Relative imports read
+the port's own modules: ``execution/algorithms.simulate_fills`` imports
+the port's ``native``, whose library is built from the same C++ sources.)
 """
 
 import ast
@@ -17,6 +19,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "takes the device and dtype its numerics run on"
+INTERVAL = ("binds its interval as CAST(? AS interval): the reference's INTERVAL ? is "
+            "INTERVAL $2 on the wire, which PostgreSQL refuses to parse")
 
 # path -> {function or class member that differs: why}
 COPIES = {
@@ -48,6 +52,31 @@ COPIES = {
     "data/validation.py": {},
     "data/ingestion.py": {},
     "monitoring/alerts.py": {},
+    # the rest of the reference's host-side modules
+    "execution/algorithms.py": {},  # simulate_fills' `from .. import native` is the port's
+    "execution/tca.py": {},
+    "execution/routing.py": {},
+    "execution/reconciliation.py": {},
+    "risk/greeks_monitor.py": {},
+    "risk/correlation_monitor.py": {},
+    "validation/model_validation.py": {},
+    "validation/walk_forward.py": {},
+    "validation/benchmarks.py": {},
+    "monitoring/attribution.py": {},
+    "monitoring/diagnostics.py": {},
+    "monitoring/dashboards.py": {},
+    "monitoring/runbooks.py": {},
+    "data/request_schema.py": {},
+    "data/monitoring.py": {},
+    "data/recovery.py": {},
+    "data/storage.py": {},
+    "data/alternative.py": {},
+    "data/api.py": {},
+    "database/migrations.py": {},
+    "database/timescale.py": {
+        "TimescaleManager.enable_compression": INTERVAL,
+        "TimescaleManager.add_retention_policy": INTERVAL,
+    },
     # the ported modules that keep the reference's code around one change
     "data/providers.py": {
         "SimulatedDataProvider.__init__": DEVICE,
@@ -152,3 +181,41 @@ def test_every_copied_module_is_listed():
                     and _units(ref) == _units(os.path.join(ROOT, "pde_tpu_torch", rel))):
                 unlisted.append(rel)
     assert not unlisted
+
+
+def test_timescale_binds_its_intervals_as_a_cast():
+    """The reference's ``INTERVAL ?`` reaches PostgreSQL as ``INTERVAL $2``,
+    a parse error; the port's copy sends ``CAST($2 AS interval)``.  Both
+    managers run against a recording stand-in for the server engine, whose
+    statements go through the port's own ``?`` -> ``$n`` translation."""
+    from pde_tpu.database.timescale import TimescaleManager as JManager
+    from pde_tpu_torch.database.db import _PostgresEngine
+    from pde_tpu_torch.database.timescale import TimescaleManager
+
+    class Server:
+        engine_name, is_timescale = "postgresql", True
+
+        def __init__(self):
+            self.sent = []
+
+        def run_execute(self, sql, params=()):
+            self.sent.append((_PostgresEngine._translate(None, sql), tuple(params)))
+
+        run_script = run_execute
+
+    def policies(manager_cls):
+        server = Server()
+        mgr = manager_cls(server)
+        mgr.enable_compression("market_prices", compress_after="7 days")
+        mgr.add_retention_policy("market_prices", drop_after="30 days")
+        return [sql for sql, _ in server.sent if "policy" in sql], server.sent
+
+    port, sent = policies(TimescaleManager)
+    ref, _ = policies(JManager)
+    assert port == ["SELECT add_compression_policy($1, CAST($2 AS interval), "
+                    "if_not_exists => TRUE)",
+                    "SELECT add_retention_policy($1, CAST($2 AS interval), "
+                    "if_not_exists => TRUE)"]
+    assert all("INTERVAL $2" in sql for sql in ref)
+    assert ("market_prices", "7 days") in [p for _, p in sent]
+    assert ("market_prices", "30 days") in [p for _, p in sent]

@@ -29,7 +29,15 @@ own (``tests/test_parallel.py``):
   from near the truth recover v0 within 0.01 and a mean cost under 1e-4;
 - ``initialize_distributed`` with two real processes: the world size, a
   bare call, a cross-process ``all_reduce``, ``make_mesh``'s default shape
-  and its refusals (no card; more devices than ranks).
+  and its refusals (no card; more devices than ranks);
+- ``comm_audit.audit_table`` at P = 1, 2 and 4 (the invariants of
+  ``tests/test_comm_audit.py`` on the port's runtime counts): the six
+  programs' counts a step equal at P = 2 and 4 on every rank, and the
+  counts its docstring states; ``dist_tridiagonal_solve`` one
+  ``all_gather`` and no point-to-point; no ``all-to-all``; nothing at
+  P = 1; the bytes a rank sends shrinking with P where a program gathers
+  sharded state and equal where it reduces statistics; the recording
+  changes no result.
 """
 
 import jax
@@ -118,6 +126,7 @@ def ranks(tmp_path_factory, books):
                   (f"halo_indivisible_{P}", W.case_halo, (P, dict(HALO_NP, n_space=101))),
                   (f"heston_indivisible_{P}", W.case_heston_solve,
                    (P, tadi.HestonPDEParams(n_spot=63, n_vol=8, n_time=2), 100.0))]
+    cases.append(("comm_audit", W.case_comm_audit, ((1,) + PS, UNBATCHED)))
     s, m, t, x0, lam = books["step"]
     cases.append(("steps", W.case_calibration_steps,
                   (MESH_SHAPES, LOWER, UPPER, x0, s, m, t, lam, 8)))
@@ -391,3 +400,86 @@ def test_calibration_steps_converge_toward_truth(ranks):
     got = _out(ranks, "near")[(2, 2)]
     assert np.max(np.abs(got["x"][:, 4] - 0.04)) < 0.01
     assert got["costs"][-1].mean() < 1e-4
+
+
+# ------------------------------------------------------ the collective audit
+
+AUDITED = ("sharded_bs_solve", "sharded_heston_solve", "dist_tridiagonal_solve",
+           "sharded_calibration_step", "price_american_lsm_sharded",
+           "calibrate_leverage_sharded")
+GATHERS_STATE = AUDITED[:3]
+# program -> (counts a step, counts besides the steps), at every P > 1
+AUDIT_COUNTS = {
+    "sharded_bs_solve": ({"collective-permute": 1, "all-gather": 1}, {"all-gather": 1}),
+    "sharded_heston_solve": ({"collective-permute": 1, "all-gather": 1}, {"all-gather": 1}),
+    "dist_tridiagonal_solve": ({"all-gather": 1}, {}),
+    "sharded_calibration_step": ({"all-reduce": 2}, {}),
+    "price_american_lsm_sharded": ({"all-reduce": 5}, {"all-reduce": 1}),
+    "calibrate_leverage_sharded": ({"all-reduce": 1}, {"all-reduce": 1}),
+}
+
+
+def _nonzero(counts):
+    return {op: n for op, n in counts.items() if n}
+
+
+@pytest.fixture(scope="module")
+def audits(ranks):
+    return W.outputs(ranks, "comm_audit")
+
+
+def test_audit_covers_the_six_programs(audits):
+    from pde_tpu.parallel.comm_audit import COLLECTIVE_OPS as JOPS
+    from pde_tpu_torch.parallel.comm_audit import COLLECTIVE_OPS
+
+    assert COLLECTIVE_OPS == JOPS
+    for out in audits:
+        assert set(out["table"]) == set(AUDITED)
+
+
+@pytest.mark.parametrize("program", AUDITED)
+def test_audit_counts_a_step_do_not_depend_on_p(audits, program):
+    for rank, out in enumerate(audits):
+        by_p = out["table"][program]
+        for P in PS:
+            assert (_nonzero(by_p[P]["per_step"]), _nonzero(by_p[P]["fixed"])) == \
+                AUDIT_COUNTS[program], (rank, P, by_p[P])
+            assert by_p[P]["per_step"]["all-to-all"] == 0
+            assert by_p[P]["per_step"]["reduce-scatter"] == 0
+
+
+@pytest.mark.parametrize("program", AUDITED)
+def test_audit_counts_nothing_at_one_rank(audits, program):
+    for out in audits:
+        entry = out["table"][program][1]
+        assert not _nonzero(entry["per_step"]) and not _nonzero(entry["fixed"])
+        assert entry["bytes_sent"] == 0
+
+
+def test_dist_solve_is_one_all_gather_and_no_permute(audits):
+    for out in audits:
+        assert _nonzero(out["counts"]) == {"all-gather": 1}
+        assert [op for op, _ in out["calls"]] == ["all-gather"]
+
+
+@pytest.mark.parametrize("program", AUDITED)
+def test_audit_bytes_a_rank_sends(audits, program):
+    """At a fixed problem size: a program that gathers sharded state sends
+    fewer bytes a rank at P = 4 than at 2; one that reduces statistics
+    sends the same."""
+    for rank, out in enumerate(audits):
+        by_p = out["table"][program]
+        two, four = by_p[2]["bytes_sent"], by_p[4]["bytes_sent"]
+        assert two > 0, (rank, program)
+        if program in GATHERS_STATE:
+            assert four < two, (rank, program, two, four)
+        else:
+            assert four == two, (rank, program, two, four)
+
+
+def test_the_audit_changes_no_result(audits):
+    want = np.asarray(jtri.thomas(*(jnp.asarray(b) for b in UNBATCHED)))
+    for out in audits:
+        assert out["restored"]
+        np.testing.assert_array_equal(out["recorded"], out["bare"])
+        np.testing.assert_allclose(out["bare"], want, rtol=1e-12, atol=1e-12)

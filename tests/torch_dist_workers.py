@@ -288,3 +288,22 @@ def case_bin_expectation(P, ln_s, v, edges, n_bins, min_count):
 def skew_vol(s, t):
     """A target local vol for the SLV cases (module-level, so it pickles)."""
     return 0.18 + 0.05 * (s / 100.0 - 1.0) ** 2 + 0.0 * t
+
+
+def case_comm_audit(sizes, bands):
+    """``comm_audit.audit_table`` at each mesh size, and one
+    ``dist_tridiagonal_solve`` run bare and under the audit's recording
+    (which must pass every argument through)."""
+    import torch.distributed as dist
+
+    from pde_tpu_torch.parallel import comm_audit, dist_tridiagonal_solve
+
+    table = comm_audit.audit_table(sizes, device_type="cpu")
+    mesh = axis_mesh(max(sizes))
+    bare = _np(dist_tridiagonal_solve(*bands, mesh))
+    original = dist.all_gather
+    with comm_audit._recording() as calls:
+        recorded = _np(dist_tridiagonal_solve(*bands, mesh))
+    counts = comm_audit.collective_counts(dist_tridiagonal_solve, *bands, mesh)
+    return dict(table=table, bare=bare, recorded=recorded, calls=list(calls), counts=counts,
+                restored=dist.all_gather is original)
