@@ -3622,7 +3622,8 @@ def phase_services(torch, dev):
     """The four service steps once on the card (float32) and once on the
     CPU (float64), each against a temporary sqlite file, in a temporary
     working directory (the trading system's default database): equal
-    statuses and the same stored candidates; then the ``HealthManager``
+    statuses, the same stored candidates and their stored ``mu`` within
+    1e-3 relative; then the ``HealthManager``
     with the three synthetic probes (the calibration probe fitting on the
     card), all healthy."""
     import os
@@ -3647,14 +3648,23 @@ def phase_services(torch, dev):
     ready = mgr.readiness()
     same_signals = {sym: [t for t, _ in card_signals[sym]] == [t for t, _ in cpu_signals[sym]]
                     for sym in card_signals}
+    # the stored OU mean-reversion speeds: float32 on the card within 1e-3 of
+    # float64 on the CPU (tests/test_torch_ou.py holds the fit itself)
+    mu_err = {sym: [abs(a["mu"] - b["mu"]) / abs(b["mu"])
+                    for (_, a), (_, b) in zip(card_signals[sym], cpu_signals[sym])
+                    if "mu" in a and "mu" in b]
+              for sym in card_signals}
+    mu_errs = [e for errs in mu_err.values() for e in errs]
     # the execution chunk's worst signal-to-order latency is a wall time
     statuses = lambda o: {k: v for k, v in o.items() if k != "execution"}  # noqa: E731
     ok = (statuses(card) == statuses(cpu) and all(same_signals.values())
+          and bool(mu_errs) and max(mu_errs) <= 1e-3
           and card["execution"]["orders_submitted"] == cpu["execution"]["orders_submitted"]
           and ready["status"] == "ok"
           and mgr.overall == health.HealthState.HEALTHY)
     emit(phase="services", dtype="float32", statuses=card, cpu_f64_statuses=cpu,
          stored_signals=card_signals, cpu_stored_signals=cpu_signals,
+         stored_mu_rel_err=mu_err,
          health=ready, walls_s=walls, cpu_walls_s=cpu_walls, ok=ok)
     if not ok:
         raise AssertionError("a service step or probe disagrees with the CPU run")
@@ -4740,12 +4750,24 @@ def ar1_fit_mean_mu(paths=OU_PATHS, steps=OU_STEPS, seed=0):
     return float(np.mean(-np.log(b) / dt))
 
 
+# per-path gates of the card's float32 OU fit against float64 on the CPU
+# (relative): the fit's moments are of each path less its first value, so
+# float32 keeps the float64 fit's digits (tests/test_torch_ou.py).  theta
+# - mean(x) is the intercept over 1 - b, so it carries mu's error: theta is
+# held to 1e-5 |theta| + 1e-3 |theta - mean(x)| (near a unit root, mu ~
+# 0.01, float32 resolves 1 - b only to ~1e-4 and theta lies far from the
+# path: 5.3e-5 relative on 3 of 12,288 CPU paths, scripts/torch_ou_float32.py)
+OU_F32_GATES = {"theta": 1e-5, "mu": 1e-3, "sigma": 1e-4}
+
+
 def phase_ou(torch, dev, reps=10, long_reps=5):
     """bench_full.py:645-671: simulate 1024 OU(100, 5, 2) paths of 252
     steps from 100 and fit_mle over them, both in float32 on the card; the
     fits' mean theta within 0.5 of 100, their mean sigma within 5% of 2,
     and their mean mu within 20% of the same estimator's mean on numpy
-    float64 paths (ar1_fit_mean_mu: ~9.9, not 5, at this length).  Then
+    float64 paths (ar1_fit_mean_mu: ~9.9, not 5, at this length); every
+    path's float32 fit within ``OU_F32_GATES`` of float64 on the CPU on the
+    same paths (theta with its slope term), and the same slope clamps.  Then
     simulate_parallel on one path of 10^6 steps over 4 years, on the
     card's normals, against simulate's step loop on the same normals."""
     from pde_tpu_torch.models import ou
@@ -4761,14 +4783,28 @@ def phase_ou(torch, dev, reps=10, long_reps=5):
     fit64 = ou.fit_mle(paths.cpu().double(), 1.0 / OU_STEPS)
     expect_mu = ar1_fit_mean_mu()
     got = {k: mean(getattr(fit.params, k)) for k in ("theta", "mu", "sigma")}
+    err = {k: (getattr(fit.params, k).cpu().double() - getattr(fit64.params, k)).abs()
+           for k in OU_F32_GATES}
+    per_path = {k: float((err[k] / getattr(fit64.params, k).abs()).max()) for k in OU_F32_GATES}
+    theta64 = fit64.params.theta
+    theta_scale = (OU_F32_GATES["theta"] * theta64.abs() + OU_F32_GATES["mu"]
+                   * (theta64 - paths.cpu().double()[:, :-1].mean(-1)).abs())
+    within = {"theta": float((err["theta"] / theta_scale).max()),
+              "mu": per_path["mu"] / OU_F32_GATES["mu"],
+              "sigma": per_path["sigma"] / OU_F32_GATES["sigma"]}
     ok = (tuple(paths.shape) == (OU_PATHS, OU_STEPS + 1) and paths.dtype == torch.float32
           and bool(torch.isfinite(paths).all()) and bool((paths[:, 0] == OU["theta"]).all())
           and abs(got["theta"] - OU["theta"]) < 0.5
           and abs(got["sigma"] - OU["sigma"]) / OU["sigma"] < 0.05
-          and abs(got["mu"] - expect_mu) / expect_mu < 0.2)
+          and abs(got["mu"] - expect_mu) / expect_mu < 0.2
+          and max(within.values()) <= 1.0
+          and bool((fit.b_clamped.cpu() == fit64.b_clamped).all()))
     emit(phase="ou", paths=OU_PATHS, steps=OU_STEPS, mean_fit=got,
          numpy_f64_mean_mu=expect_mu,
          mean_fit_cpu_f64={k: mean(getattr(fit64.params, k)) for k in ("theta", "mu", "sigma")},
+         per_path_max_rel_err_vs_cpu_f64=per_path, per_path_share_of_gate=within,
+         theta_paths_over_1e5=int((err["theta"] / theta64.abs() > 1e-5).sum()),
+         clamped_paths=int(fit64.b_clamped.sum()),
          ou_sim252_paths_per_sec=OU_PATHS / statistics.median(walls),
          ou_mle252_fits_per_sec=OU_PATHS / statistics.median(fit_walls),
          sim_wall_s_runs=walls, fit_wall_s_runs=fit_walls, ok=ok)

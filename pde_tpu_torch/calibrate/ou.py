@@ -97,7 +97,12 @@ def _analytical_mle(x, dt):
     """OLS-regression MLE over the last axis, reference semantics
     (ou_fitter.py:246-294): a = corr-slope clipped to [0.001, 0.999], theta
     from the intercept, sigma^2 = 2 mu Var[resid]_{ddof=1} / (1 - a^2).
-    Returns (theta, mu, sigma), each of the batch shape."""
+    Returns (theta, mu, sigma), each of the batch shape.  The sums are
+    taken of each series less its first value, as in
+    :func:`pde_tpu_torch.models.ou.fit_mle`: S_xx - S_x^2 / n of a series
+    far from zero cancels most of float32's digits."""
+    shift = x[..., :1]
+    x = x - shift
     xt = x[..., :-1]
     xn = x[..., 1:]
     n = xt.shape[-1]
@@ -117,7 +122,7 @@ def _analytical_mle(x, dt):
     resid = xn - theta[..., None] - (xt - theta[..., None]) * a[..., None]
     var_resid = torch.var(resid, dim=-1, correction=1)
     sigma = torch.sqrt(torch.clamp_min(2.0 * mu * var_resid / (1.0 - a * a), 1e-10))
-    return theta, mu, sigma
+    return theta + shift[..., 0], mu, sigma
 
 
 def _neg_log_likelihood(params_vec, x, dt):

@@ -2,11 +2,13 @@
 
 Plain copy of ``pde_tpu/database/timescale.py`` (host-side Python, no numerics
 of its own): the port keeps its own copy because importing any module of
-``pde_tpu`` imports JAX.  One change: the compression and retention
+``pde_tpu`` imports JAX.  Two changes: the compression and retention
 policies bind their interval as ``CAST(? AS interval)``; the reference's
 ``INTERVAL ?`` becomes ``INTERVAL $2`` on the wire, which PostgreSQL
 refuses when it parses the statement (the ``INTERVAL '...'`` literal takes
-a string constant, not a parameter).
+a string constant, not a parameter).  And ``enable_compression`` checks
+its ``segment_by`` columns before any statement runs, where the reference
+writes the string into its DDL unchecked.
 
 The PG-engine analog of :mod:`pde_tpu_torch.data.storage` (whose
 StorageManager/DataRetentionManager administer the embedded sqlite
@@ -16,14 +18,17 @@ hypertable introspection, native compression policies, retention
 policies, and a continuous-aggregate daily OHLCV rollup.
 
 Everything issues plain SQL through the engine-neutral
-``TimeSeriesDB.run_query``/``run_execute`` surface; table names are
-validated against the known schema (no identifier interpolation from
-user input).  Exercised by the live-server integration tests
+``TimeSeriesDB.run_query``/``run_execute`` surface.  Table names are
+validated against the known schema, and ``segment_by``'s column names
+against the SQL identifier pattern, before any statement is sent: those
+are the only identifiers written into SQL, and values are bound as
+parameters.  Exercised by the live-server integration tests
 (``PDE_TEST_PG_URL``; the CI TimescaleDB service container).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional
 
 __all__ = ["TimescaleManager"]
@@ -38,6 +43,15 @@ def _check_table(table: str) -> str:
     if table not in _KNOWN_TABLES:
         raise ValueError(f"unknown table {table!r}")
     return table
+
+
+def _check_columns(columns: str) -> str:
+    """``columns``, a comma-separated list of plain column names (spaces
+    around each allowed); ``ValueError`` for anything else."""
+    for name in columns.split(","):
+        if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name.strip(" ")):
+            raise ValueError(f"not a column name: {name!r} in segment_by {columns!r}")
+    return columns
 
 
 class TimescaleManager:
@@ -85,7 +99,7 @@ class TimescaleManager:
         """Native columnar compression + an automatic policy
         (storage.py compression management)."""
         t = _check_table(table)
-        seg = f", timescaledb.compress_segmentby = '{segment_by}'" \
+        seg = f", timescaledb.compress_segmentby = '{_check_columns(segment_by)}'" \
             if segment_by else ""
         self.db.run_script(
             f"ALTER TABLE {t} SET (timescaledb.compress{seg})")

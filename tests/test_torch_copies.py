@@ -21,6 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEVICE = "takes the device and dtype its numerics run on"
 INTERVAL = ("binds its interval as CAST(? AS interval): the reference's INTERVAL ? is "
             "INTERVAL $2 on the wire, which PostgreSQL refuses to parse")
+CLEARTEXT = ("sends a cleartext password only to a loopback host or with allow_cleartext: "
+             "the client has no TLS, and the reference sends it to any host")
 
 # path -> {function or class member that differs: why}
 COPIES = {
@@ -48,7 +50,12 @@ COPIES = {
     "execution/order_manager.py": {},
     "execution/emergency.py": {},
     "database/db.py": {},
-    "database/pgwire.py": {},
+    "database/pgwire.py": {
+        "parse_pg_url": "reads allow_cleartext from the URL's query",
+        "_is_loopback": "new: whether a host names this machine, without resolving it",
+        "PgConnection.__init__": CLEARTEXT + "; closes its socket when the startup fails",
+        "PgConnection._auth_loop": CLEARTEXT,
+    },
     "data/validation.py": {},
     "data/ingestion.py": {},
     "monitoring/alerts.py": {},
@@ -74,7 +81,10 @@ COPIES = {
     "data/api.py": {},
     "database/migrations.py": {},
     "database/timescale.py": {
-        "TimescaleManager.enable_compression": INTERVAL,
+        "_check_columns": "new: segment_by's column names against the identifier pattern",
+        "TimescaleManager.enable_compression": (
+            INTERVAL + "; checks segment_by's column names before any statement, where the "
+            "reference writes the string into its DDL unchecked"),
         "TimescaleManager.add_retention_policy": INTERVAL,
     },
     # the ported modules that keep the reference's code around one change

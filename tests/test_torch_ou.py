@@ -13,8 +13,19 @@ under ``jax_enable_x64``).  Gates, each with its reason:
   roundoff.
 The reference's golden C++ path (tests/golden/reference_values.json) is one
 of the series.
+
+The port's float32 fits are held against the reference's float64 fits.
+Both fits take their moments of each series less its first value, which
+float32 needs on a series far from zero: raw moments cancel, and put a
+float32 mu off by up to 280% on OU paths about 100 and by up to 25% on
+log closes.  Gates, every path of the smoke's 1024 OU(100, 5, 2) paths of
+252 steps: theta 1e-5, mu 1e-3, sigma 1e-4 relative (the CPU reads 1.0e-6,
+4.5e-5, 1.6e-5 for ``fit_mle``, 1.5e-6, 5.7e-5, 4.8e-6 for ``fit_batch``);
+``OUFitter.fit`` on the simulated provider's log closes: mu 1e-3 relative
+(the CPU reads 1.7e-5 at most).
 """
 
+import datetime
 import json
 import pathlib
 
@@ -28,6 +39,7 @@ from pde_tpu.calibrate import ou as jcal
 from pde_tpu.models import ou as jou
 from pde_tpu_torch import interop
 from pde_tpu_torch.calibrate import ou as tcal
+from pde_tpu_torch.data.providers import SimulatedDataProvider
 from pde_tpu_torch.models import ou as tou
 
 GOLDEN = json.loads((pathlib.Path(__file__).parent / "golden"
@@ -258,6 +270,80 @@ def test_fitter_failure_and_synthetic_data(rng):
     data = tcal.OUFitter.generate_synthetic_data(n_points=200, theta=1.5, device="cpu",
                                                  dtype=torch.float64)
     assert data.shape == (201,) and data[0] == 1.5 and np.all(np.isfinite(data))
+
+
+def _ou_paths(n_paths=1024, steps=252, seed=0, theta=100.0, mu=5.0, sigma=2.0):
+    """The card smoke's OU(100, 5, 2) fan (``chip_smoke.ar1_fit_mean_mu``):
+    numpy exact discretisation from theta over one year, (n_paths, steps + 1)."""
+    rng = np.random.default_rng(seed)
+    a = np.exp(-mu / steps)
+    s = np.sqrt(sigma**2 * (1.0 - np.exp(-2.0 * mu / steps)) / (2.0 * mu))
+    z = rng.standard_normal((n_paths, steps))
+    x = np.empty((n_paths, steps + 1))
+    x[:, 0] = theta
+    for i in range(steps):
+        x[:, i + 1] = theta + (x[:, i] - theta) * a + s * z[:, i]
+    return x
+
+
+@pytest.fixture(scope="module")
+def ou_fan():
+    """The fan and the reference's float64 fits of it (``fit_mle`` vmapped,
+    the analytical ``fit_batch``)."""
+    x = _ou_paths()
+    return (x, jax.vmap(lambda s: jou.fit_mle(s, DT))(jnp.asarray(x)).params,
+            jcal.OUFitter().fit_batch(x))
+
+
+F32_GATES = (("theta", 1e-5), ("mu", 1e-3), ("sigma", 1e-4))
+
+
+@pytest.mark.parametrize("fit", ["fit_mle", "fit_batch"])
+def test_float32_fits_hold_float64_on_every_path(ou_fan, fit):
+    """Every path of the fan fitted in float32 by the port against the
+    reference in float64: theta 1e-5, mu 1e-3, sigma 1e-4 relative."""
+    x, want_mle, want_batch = ou_fan
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    if fit == "fit_mle":
+        got, want = tou.fit_mle(x32, DT).params, want_mle
+    else:
+        got, want = tcal.OUFitter(device="cpu", dtype=torch.float32).fit_batch(x32), want_batch
+    for f, rtol in F32_GATES:
+        assert getattr(got, f).dtype == torch.float32
+        _close(getattr(got, f).double(), getattr(want, f), rtol=rtol, atol=0.0)
+
+
+@pytest.mark.parametrize("seed", [42, 3])
+@pytest.mark.parametrize("symbol", ["SPY", "QQQ", "IWM"])
+def test_float32_fitter_on_service_series(symbol, seed):
+    """``OUFitter.fit`` in float32 on the log closes that the signals
+    service fits (the simulated provider at its default seed and at the
+    smoke's, one year of bars): mu within 1e-3 of the reference's float64
+    fit, and the same branch."""
+    end = datetime.date(2026, 1, 2)
+    bars = SimulatedDataProvider(seed=seed, device="cpu").get_bars(
+        symbol, end - datetime.timedelta(days=365), end)
+    X = np.log([b.close for b in bars])
+    want = jcal.OUFitter().fit(X)
+    got = tcal.OUFitter(device="cpu", dtype=torch.float32).fit(X)
+    assert got.success == want.success and got.message == want.message
+    _close(float(got.params.mu), float(want.params.mu), rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_constant_series_is_degenerate(dtype):
+    """A constant series far from zero is degenerate in either dtype:
+    ``fit_mle`` gives mu = sigma = 0 and theta = the level, the analytical
+    fit its degenerate slope 0.5 and theta = the level (the raw moments of
+    123.456 leave a variance of 2e-3 in float32 and 1e-11 in float64)."""
+    x = torch.full((253,), 123.456, dtype=dtype)
+    res = tou.fit_mle(x, DT)
+    assert not bool(res.converged)
+    assert float(res.params.mu) == 0.0 and float(res.params.sigma) == 0.0
+    assert float(res.params.theta) == float(x[0])
+    theta, mu, _ = tcal._analytical_mle(x, DT)
+    assert float(theta) == float(x[0])
+    _close(float(mu), np.log(2.0) / DT, rtol=1e-6, atol=0.0)
 
 
 def test_interop_ou_params():
