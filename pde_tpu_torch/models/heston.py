@@ -40,6 +40,7 @@ import torch
 
 from ..core.precision import (complex_dtype_for, device_of, result_dtype,
                               to_tensor, where_flag)
+from ..utils.profiling import span
 from . import black_scholes as bs
 
 __all__ = [
@@ -511,16 +512,20 @@ def price_carr_madan_gl(
     corrected rule (:func:`_gl_ref_rule`): the reference grid's rectangle
     sum, its dropped-endpoint bias included, to ~1e-9 from 70 instead of
     1023 integrand evaluations."""
-    strike, maturity, spot, rdt = _surface(strike, maturity, spot)
-    v_np, w_np = _gl_ref_rule(n_points, du, N_QUADRATURE * du)
-    v = to_tensor(v_np, rdt, strike.device)
-    w = to_tensor(w_np, rdt, strike.device)
-    integral = _carr_madan_integrand_sum(
-        params, strike, maturity, spot, rate, dividend, v, w, 1.0, alpha
-    )
-    return _price_from_integral(
-        integral, strike, maturity, spot, rate, dividend, is_call, alpha, rdt
-    )
+    with span("pde_tpu_torch.heston.price_carr_madan_gl"):
+        strike, maturity, spot, rdt = _surface(strike, maturity, spot)
+        with span("pde_tpu_torch.heston.rule"):
+            v_np, w_np = _gl_ref_rule(n_points, du, N_QUADRATURE * du)
+            v = to_tensor(v_np, rdt, strike.device)
+            w = to_tensor(w_np, rdt, strike.device)
+        with span("pde_tpu_torch.heston.integrand"):
+            integral = _carr_madan_integrand_sum(
+                params, strike, maturity, spot, rate, dividend, v, w, 1.0, alpha
+            )
+        with span("pde_tpu_torch.heston.price"):
+            return _price_from_integral(
+                integral, strike, maturity, spot, rate, dividend, is_call, alpha, rdt
+            )
 
 
 def price_carr_madan_gl_grouped(

@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from .build import load_library, refuse_autograd
 
 __all__ = ["fused_douglas_march", "fused_douglas_march_batched"]
@@ -237,8 +238,10 @@ def _launch_smem(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_
         TAB = torch.empty(B * 2 * _levels(nS) * -(-nS // gs) * nv * gs, dtype=torch.float32,
                           device=pay.device)
     stream = torch.cuda.current_stream(pay.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (*ins, V)), None if TAB is None else TAB.data_ptr(),
-             B, nS, nv, nT, ps, gs, gv, int(use_it), int(pcr_s), int(pcr_v), n_bytes, stream)
+    with span("pde_tpu_torch.ops.adi_fused.launch"):
+        err = fn(*(t.data_ptr() for t in (*ins, V)), None if TAB is None else TAB.data_ptr(),
+                 B, nS, nv, nT, ps, gs, gv, int(use_it), int(pcr_s), int(pcr_v), n_bytes,
+                 stream)
     if err != 0:
         raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
     fused_douglas_march_batched.launches += 1
@@ -276,7 +279,8 @@ def _launch(pay, sg, a1b, i1b, a2b, i2b, mixb, sc, nS, nv, nT, use_it, pcr_v,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     ptrs = [ptr(t) for t in (*ins, V, R, D, C1, INV1, LAM, C2, INV2, SAB, SINVD, WORK)]
     stream = torch.cuda.current_stream(pay.device).cuda_stream
-    err = fn(*ptrs, B, nS, nv, nT, int(use_it), int(pcr_v), int(pcr_s), stream)
+    with span("pde_tpu_torch.ops.adi_fused.launch"):
+        err = fn(*ptrs, B, nS, nv, nT, int(use_it), int(pcr_v), int(pcr_s), stream)
     if err != 0:
         raise RuntimeError(f"fused ADI march launch failed: CUDA error {err}")
     fused_douglas_march_batched.launches += 1

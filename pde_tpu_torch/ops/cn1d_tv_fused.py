@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
 from .build import load_library, refuse_autograd
 
 __all__ = ["fused_cn_march_1d_tv"]
@@ -110,8 +111,9 @@ def _launch_first(pay, bands, sc, n, n_time, w):
     V, C, D = (torch.empty((n, B), dtype=torch.float32, device=pay.device)
                for _ in range(3))
     stream = torch.cuda.current_stream(pay.device).cuda_stream
-    err = fn(pay.data_ptr(), bands.data_ptr(), sc.data_ptr(), V.data_ptr(),
-             C.data_ptr(), D.data_ptr(), B, n, n_time, float(w), stream)
+    with span("pde_tpu_torch.ops.cn1d_tv_fused.launch"):
+        err = fn(pay.data_ptr(), bands.data_ptr(), sc.data_ptr(), V.data_ptr(),
+                 C.data_ptr(), D.data_ptr(), B, n, n_time, float(w), stream)
     if err != 0:
         raise RuntimeError(f"fused CN march launch failed: CUDA error {err}")
     fused_cn_march_1d_tv.launches += 1
@@ -127,8 +129,9 @@ def _launch_warp(pay, bands, sc, n, n_time, w, n_bytes):
     B = pay.shape[-1]
     V = torch.empty((n, B), dtype=torch.float32, device=pay.device)
     stream = torch.cuda.current_stream(pay.device).cuda_stream
-    err = fn(pay.data_ptr(), bands.data_ptr(), sc.data_ptr(), V.data_ptr(), B, n, n_time,
-             float(w), n_bytes, stream)
+    with span("pde_tpu_torch.ops.cn1d_tv_fused.launch"):
+        err = fn(pay.data_ptr(), bands.data_ptr(), sc.data_ptr(), V.data_ptr(), B, n, n_time,
+                 float(w), n_bytes, stream)
     if err != 0:
         raise RuntimeError(f"fused CN march launch failed: CUDA error {err}")
     fused_cn_march_1d_tv.launches += 1

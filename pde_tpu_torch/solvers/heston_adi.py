@@ -38,6 +38,7 @@ from ..core.precision import resolve_device, result_dtype, to_tensor
 from ..ops.adi_fused import fused_douglas_march, fused_douglas_march_batched
 from ..ops.tridiag import (kernel_route, thomas_factor, thomas_solve_factored,
                            tridiagonal_solve)
+from ..utils.profiling import span
 
 __all__ = ["HestonPDEParams", "HestonPDEResult", "solve", "solve_fused",
            "solve_batch", "solve_fused_batch", "greeks_ad"]
@@ -622,26 +623,29 @@ def _fused_batch_impl(
     All inputs are (B,) float32 tensors on one device."""
     nS, nv = n_spot, n_vol
     B = kappa.shape[0]
-    args, v_grid = _march_inputs(kappa, theta, sigma, rho, r, q, T, K, is_call,
-                                 american, n_spot, n_vol, n_time, s_min_mult,
-                                 s_max_mult, v_max)
-    V = fused_douglas_march_batched(*args, n_spot=nS, n_vol=nv, n_time=n_time,
-                                    use_it=use_it, pcr_v=pcr_v,
-                                    pcr_s=pcr_s)         # (nS, nv, B)
+    with span("pde_tpu_torch.heston_adi.bands"):
+        args, v_grid = _march_inputs(kappa, theta, sigma, rho, r, q, T, K, is_call,
+                                     american, n_spot, n_vol, n_time, s_min_mult,
+                                     s_max_mult, v_max)
+    with span("pde_tpu_torch.heston_adi.march"):
+        V = fused_douglas_march_batched(*args, n_spot=nS, n_vol=nv, n_time=n_time,
+                                        use_it=use_it, pcr_v=pcr_v,
+                                        pcr_s=pcr_s)     # (nS, nv, B)
     dx = _dx(nS, s_min_mult, s_max_mult)
     dv = v_max / (nv - 1)
 
     # price + Greeks per option on its own grid (as the reference's
     # heston_pde.hpp:481-559); theta from the PDE: V_t = -(A0 + A1 + A2) V
-    Vt = V.permute(2, 0, 1)                               # (B, nS, nv)
-    sgT = args[1][:, 0, :].T.contiguous()                 # (B, nS)
-    lo_v, di_v, up_v = _a1_diags(v_grid, dx, r[:, None], q[:, None])
-    a1l, a1d, a1u = _assemble_a1(nS, nv, lo_v, di_v, up_v)
-    a2l, a2d, a2u = _a2_diags(v_grid, dv, kappa[:, None], theta[:, None],
-                              sigma[:, None], r[:, None])
-    LV = (_apply_a0(Vt, v_grid, dx, dv, rho[:, None, None], sigma[:, None, None])
-          + _apply_a1(Vt, a1l, a1d, a1u) + _apply_a2(Vt, a2l, a2d, a2u))
-    greeks = _readout(Vt, sgT, v_grid, dv, S0, v0, T, LV, split_davg=False)
+    with span("pde_tpu_torch.heston_adi.readout"):
+        Vt = V.permute(2, 0, 1)                           # (B, nS, nv)
+        sgT = args[1][:, 0, :].T.contiguous()             # (B, nS)
+        lo_v, di_v, up_v = _a1_diags(v_grid, dx, r[:, None], q[:, None])
+        a1l, a1d, a1u = _assemble_a1(nS, nv, lo_v, di_v, up_v)
+        a2l, a2d, a2u = _a2_diags(v_grid, dv, kappa[:, None], theta[:, None],
+                                  sigma[:, None], r[:, None])
+        LV = (_apply_a0(Vt, v_grid, dx, dv, rho[:, None, None], sigma[:, None, None])
+              + _apply_a1(Vt, a1l, a1d, a1u) + _apply_a2(Vt, a2l, a2d, a2u))
+        greeks = _readout(Vt, sgT, v_grid, dv, S0, v0, T, LV, split_davg=False)
     return HestonPDEResult(*greeks, Vt, sgT, v_grid.expand(B, nv))
 
 
@@ -679,13 +683,14 @@ def solve_fused_batch(
             "solve_fused_batch supports american_method 'projection' or "
             "'it_lcp'"
         )
-    device = resolve_device(device)
-    # the kernel variant resolves from the CALLER's american argument, so
-    # both packages pick the same variant for the same inputs
-    use_it = american_method == "it_lcp" and np_any_flag(american)
-    args = _broadcast_batch(kappa, theta, sigma, rho, v0, r, q, T, K, is_call,
-                            S0, american, device)
-    return _fused_batch_impl(
-        *args, use_it, n_spot, n_vol, n_time, s_min_mult, s_max_mult, v_max,
-        pcr_v, pcr_s,
-    )
+    with span("pde_tpu_torch.heston_adi.solve_fused_batch"):
+        device = resolve_device(device)
+        # the kernel variant resolves from the CALLER's american argument, so
+        # both packages pick the same variant for the same inputs
+        use_it = american_method == "it_lcp" and np_any_flag(american)
+        args = _broadcast_batch(kappa, theta, sigma, rho, v0, r, q, T, K, is_call,
+                                S0, american, device)
+        return _fused_batch_impl(
+            *args, use_it, n_spot, n_vol, n_time, s_min_mult, s_max_mult, v_max,
+            pcr_v, pcr_s,
+        )

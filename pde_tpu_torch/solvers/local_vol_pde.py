@@ -37,6 +37,7 @@ from ..core.precision import resolve_device, result_dtype, to_tensor
 from ..models.local_vol import SurfaceInterpolator
 from ..ops.cn1d_tv_fused import fused_cn_march_1d_tv
 from ..ops.tridiag import thomas, tridiagonal_solve
+from ..utils.profiling import span
 
 __all__ = ["LVPDEResult", "solve", "solve_fused", "solve_fused_batch"]
 
@@ -297,16 +298,21 @@ def solve_fused_batch(
     """
     if route not in _ROUTES:
         raise ValueError(f"unknown route {route!r}; expected one of {_ROUTES}")
-    device = resolve_device(device)
-    vals = [torch.atleast_1d(torch.as_tensor(a, device=device).to(torch.float32))
-            for a in (K, T, is_call, american, S0)]
-    B = max(a.shape[0] for a in vals)
-    K_b, T_b, call_f, amer_f, S0_b = (a.expand(B).contiguous() for a in vals)
-    pay, bands, sc, sg = _march_inputs(vol_fn, K_b, T_b, call_f, amer_f, r, q,
-                                       n_space, n_time, s_min_mult, s_max_mult)
-    w = _W[scheme]
-    if route == "scan":
-        V = _march_scan(pay, bands, sg, T_b, K_b, r, q, call_f, amer_f, n_time, w)
-    else:
-        V = fused_cn_march_1d_tv(pay, bands, sc, n_space=n_space, n_time=n_time, w=w)
-    return _extract(V.T, sg.T, S0_b, K_b, call_f > 0.5, amer_f > 0.5)
+    with span("pde_tpu_torch.local_vol_pde.solve_fused_batch"):
+        device = resolve_device(device)
+        vals = [torch.atleast_1d(torch.as_tensor(a, device=device).to(torch.float32))
+                for a in (K, T, is_call, american, S0)]
+        B = max(a.shape[0] for a in vals)
+        K_b, T_b, call_f, amer_f, S0_b = (a.expand(B).contiguous() for a in vals)
+        with span("pde_tpu_torch.local_vol_pde.bands"):
+            pay, bands, sc, sg = _march_inputs(vol_fn, K_b, T_b, call_f, amer_f, r, q,
+                                               n_space, n_time, s_min_mult, s_max_mult)
+        w = _W[scheme]
+        with span("pde_tpu_torch.local_vol_pde.march"):
+            if route == "scan":
+                V = _march_scan(pay, bands, sg, T_b, K_b, r, q, call_f, amer_f, n_time, w)
+            else:
+                V = fused_cn_march_1d_tv(pay, bands, sc, n_space=n_space, n_time=n_time,
+                                         w=w)
+        with span("pde_tpu_torch.local_vol_pde.readout"):
+            return _extract(V.T, sg.T, S0_b, K_b, call_f > 0.5, amer_f > 0.5)

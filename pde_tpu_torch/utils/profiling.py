@@ -4,10 +4,12 @@
   build of a hand-written kernel at its first use, the counterpart of a
   jit's compile) timed apart from the warm calls, each of which is timed
   between two device synchronizations; the median of the warm calls.
-* :class:`DeviceTimer` — named sections that synchronize the device when
-  they end, so a section's time includes the work it queued.
+* :func:`span` — a named span of the program in the profiler's trace,
+  ``pde_tpu_torch.<module>.<phase>``, on the same clock as the device's
+  operations; with no profiler on it only checks that none is.
 * :func:`trace` — a ``torch.profiler`` capture of the block, CPU and CUDA
-  activity, written as a Chrome trace (Perfetto, ``chrome://tracing``).
+  activity, written as a Chrome trace (Perfetto, ``chrome://tracing``),
+  the program's spans among its events.
 
 A CPU-only run synchronizes nothing: its calls finish when they return.
 The reference's ``device_keepalive`` and its transfer-forced timing kept a
@@ -23,11 +25,15 @@ import statistics
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List
+from typing import Callable, List
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["DeviceTimer", "time_jitted", "trace", "Timings"]
+__all__ = ["span", "time_jitted", "trace", "Timings"]
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
 @dataclass
@@ -41,6 +47,17 @@ class Timings:
     @property
     def per_second(self) -> float:
         return 1.0 / self.median_run_s if self.median_run_s > 0 else float("inf")
+
+
+def span(name: str):
+    """A context manager that marks the block as the span ``name`` in the
+    trace of a profiler that is on (``torch.profiler.record_function``:
+    a span's parent is the span open around it), and does nothing but one
+    check when none is, so the hot paths carry their spans always.  It
+    never synchronizes the device and keeps no record of its own."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _OFF
 
 
 def _sync() -> None:
@@ -65,41 +82,6 @@ def time_jitted(fn: Callable, *args, n_runs: int = 10, **kwargs) -> Timings:
         _sync()
         runs.append(time.perf_counter() - t0)
     return Timings(compile_s=compile_s, median_run_s=statistics.median(runs), runs_s=runs)
-
-
-class DeviceTimer:
-    """Accumulating section timer with device synchronization.
-
-    >>> timer = DeviceTimer()
-    >>> with timer("pricing"):
-    ...     prices = price_fn(params)
-    >>> timer.report()
-    """
-
-    def __init__(self):
-        self.sections: Dict[str, List[float]] = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        _sync()  # the work queued before the section is not its own
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync()
-            self.sections.setdefault(name, []).append(time.perf_counter() - t0)
-
-    def report(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        for name, times in self.sections.items():
-            s = sorted(times)
-            out[name] = {
-                "n": len(s),
-                "total_s": sum(s),
-                "median_s": s[len(s) // 2],
-                "max_s": s[-1],
-            }
-        return out
 
 
 @contextlib.contextmanager

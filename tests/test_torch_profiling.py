@@ -4,7 +4,6 @@
 - ``time_jitted`` splits the first call from the warm ones: the first of a
   callable that builds its state on first use takes longer than the median
   warm call, every warm call is timed, and the result is the callable's;
-- ``DeviceTimer`` counts and sums its sections;
 - ``trace`` writes a Chrome trace holding the profiled block's operators.
 """
 
@@ -14,7 +13,7 @@ import time
 
 import torch
 
-from pde_tpu_torch.utils.profiling import DeviceTimer, Timings, time_jitted, trace
+from pde_tpu_torch.utils.profiling import Timings, time_jitted, trace
 
 
 def test_time_jitted_first_call_warm_call_split():
@@ -34,20 +33,6 @@ def test_time_jitted_first_call_warm_call_split():
     assert t.compile_s >= t.median_run_s
     assert t.median_run_s == sorted(t.runs_s)[2]
     assert t.per_second == 1.0 / t.median_run_s
-
-
-def test_device_timer_sections():
-    timer = DeviceTimer()
-    for _ in range(3):
-        with timer("work"):
-            torch.ones(128).sum()
-    with timer("other"):
-        time.sleep(0.01)
-    rep = timer.report()
-    assert rep["work"]["n"] == 3
-    assert rep["work"]["total_s"] >= rep["work"]["median_s"]
-    assert rep["work"]["max_s"] >= rep["work"]["median_s"]
-    assert rep["other"]["n"] == 1 and rep["other"]["total_s"] >= 0.01
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
