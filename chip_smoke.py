@@ -9,7 +9,8 @@ checks every result:
    ``pde_tpu_torch/csrc`` (one ``nvcc`` per source, all started together),
    with each kernel's registers and spills, and the dynamic shared memory
    per block of the redesigned routes of K1 (Thomas and PCR sweeps), K2,
-   K3, K4 and K5 at the bench shapes (K6's warp route has none);
+   K3 (both routes), K4 and K5 at the bench shapes (K6's warp route has
+   none);
 3. kernel vs plain, each kernel against its plain PyTorch twin on the same
    inputs on the card, and both timed at the bench shape:
    - K1, the fused Douglas march (European, American projection, American
@@ -36,6 +37,14 @@ checks every result:
      lattice too long for the warp route (n = 520, B = 37), each public call
      checked to have taken its route; European and mixed American; w = 0.5
      and 1;
+   - K3's surface route, its bands built in the march from the surface, on
+     the inputs the local-vol book hands it: against the lattice route on
+     the same book's lattice at n = 200 (B = 256, 37, 7 and 1) and at n =
+     3, 33, 41 and 518 (B = 37, 7 and 1), against its plain twin at n =
+     200 (B = 256), 41 (B = 37) and once at 518, each call checked to have
+     launched the
+     route; European and mixed American; w = 0.5 and 1; timed at B = 256
+     and 4096 beside the lattice route;
    - K4, the constant-coefficient CN march: its warp route at n = 200 (B =
      512, 130, 37, 7 and 1), at n = 3 and 33 (B = 37, 7 and 1) and at n =
      100, 300 and 512 (B = 37 and 1), its first design at n = 200 (B = 512,
@@ -112,8 +121,9 @@ checks every result:
    ``heston_adi.solve_fused_batch``, checked against the converged
    Carr-Madan price;
 6. local-vol book: bench.py's row — a Dupire surface from Heston, 256
-   options at 200x100 through ``local_vol_pde.solve_fused_batch``, checked
-   against the ``route="scan"`` march on the same card;
+   options at 200x100 through ``local_vol_pde.solve_fused_batch`` (K3's
+   surface route), checked against the ``route="scan"`` march on the same
+   card;
 7. Black-Scholes American book: 512 options at 200x100 through
    ``bs_pde.solve_fused_batch``, checked against the closed form and its
    own European book;
@@ -418,6 +428,9 @@ KERNELS = {
     "K3": dict(name="fused_cn_march_1d_tv", route="cuda",
                source="pde_tpu_torch/csrc/cn1d_tv_fused.cu",
                replaces="pde_tpu/ops/cn1d_tv_fused.py:59"),
+    "K3-surface": dict(name="fused_cn_march_1d_tv_surface", route="cuda",
+                       source="pde_tpu_torch/csrc/cn1d_tv_fused.cu",
+                       replaces="pde_tpu/ops/cn1d_tv_fused.py:59"),
     "K4": dict(name="fused_cn_march_1d", route="cuda",
                source="pde_tpu_torch/csrc/cn1d_fused.cu",
                replaces="pde_tpu/ops/cn1d_fused.py:36"),
@@ -675,6 +688,87 @@ def phase_k3(torch, dev, interp, grid=LV_GRID, B=LV_B, plain_reps=1, kernel_reps
     # substitution 2, floor 4 = 24
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound=bound(nbytes(*args) + n * B * 4, 24.0 * n * nT * B))
+
+
+def phase_k3_surface(torch, dev, interp, grid=LV_GRID, B=LV_B, B_cell=4096, plain_reps=1,
+                     kernel_reps=20):
+    """K3's surface route on the main path's inputs (``local_vol_pde.
+    _grid_inputs`` and ``_surface_inputs``, as ``solve_fused_batch`` hands
+    them over), each call checked to have launched the route, held against
+    K3's lattice route on the same book's band lattice: at the bench shape
+    for B = 256, 37, 7 and 1, and at n = 3, 33, 41 and 518 (the route's
+    longest grid) for B = 37, 7 and 1; European and mixed American; w = 0.5
+    and 1.  Against its plain twin at the bench shape (B = 256) and at n = 41
+    (B = 37), and at n = 518 once (B = 7, mixed American, w = 1).  Timed at the bench shape and at the CN cell's B_cell = 4096,
+    each beside the lattice route; its bound from its own inputs."""
+    from pde_tpu_torch.ops import cn1d_tv_fused
+    from pde_tpu_torch.solvers import local_vol_pde
+
+    march = cn1d_tv_fused.fused_cn_march_1d_tv_surface
+    lattice = cn1d_tv_fused.fused_cn_march_1d_tv
+    plain = cn1d_tv_fused._fused_cn_march_1d_tv_surface_plain
+    n, nT = grid["n_space"], grid["n_time"]
+
+    def inputs(b, amer, m=n, steps=nT):
+        K, T, cf = lv_book(torch, dev, b)
+        pay, sc, sg, dx = local_vol_pde._grid_inputs(K, T, cf, amer, LV_R, LV_Q, m, steps,
+                                                     0.2, 5.0)
+        xq, *surface = local_vol_pde._surface_inputs(interp, sg)
+        bands = local_vol_pde._book_bands(interp, sg, dx, T, LV_R, LV_Q, steps)
+        return (pay, xq, sc, T, *surface), (pay, bands, sc), dx
+
+    def run(s_args, m, steps, dx, w):
+        before = march.launches
+        V = march(*s_args, m, steps, dx, LV_R, LV_Q, w)
+        if march.launches != before + 1:
+            raise AssertionError(f"K3 at n={m} did not take the surface route")
+        return V
+
+    worst = 0.0
+    for m, steps, batches in ((n, nT, (B, 37, 7, 1)), (3, 20, (37, 7, 1)),
+                              (33, 20, (37, 7, 1)), (41, 20, (37, 7, 1)),
+                              (518, nT, (37, 7, 1))):
+        for b in batches:
+            mixed = (torch.arange(b, device=dev) % 3 == 0).float()
+            for name, amer in (("european", torch.zeros(b, device=dev)),
+                               ("american_mixed", mixed)):
+                s_args, l_args, dx = inputs(b, amer, m, steps)
+                for w in (0.5, 1.0):
+                    V = run(s_args, m, steps, dx, w)
+                    L = lattice(*l_args, m, steps, w)
+                    worst = max(worst, compare(torch, dev, V, L, kernel="K3-surface",
+                                               against="lattice route", B=b, n=m, case=name,
+                                               w=w))
+                    if (m, b) in ((n, B), (41, 37)) or (m, b, w, name) == (
+                            518, 7, 1.0, "american_mixed"):
+                        P = plain(*s_args, m, steps, dx, LV_R, LV_Q, w)
+                        worst = max(worst, compare(torch, dev, V, P, kernel="K3-surface",
+                                                   against="plain twin", B=b, n=m,
+                                                   case=name, w=w))
+
+    timed = {}
+    for b in (B, B_cell):
+        s_args, l_args, dx = inputs(b, torch.zeros(b, device=dev))
+        ms = kernel_ms(torch, lambda: run(s_args, n, nT, dx, 0.5), kernel_reps)
+        lattice_ms = kernel_ms(torch, lambda: lattice(*l_args, n, nT), kernel_reps)
+        # per node and step the march's 24 operations (phase_k3); per node
+        # and level the lookup's 15 (two t lerps, the ln K lerp, a and b)
+        # and the three bands' 4
+        timed[b] = dict(ms=ms, lattice_ms=lattice_ms,
+                        bound=bound(nbytes(*s_args) + n * b * 4,
+                                    (24.0 * nT + 19.0 * (nT + 1)) * n * b))
+    s_args, _, dx = inputs(B, torch.zeros(B, device=dev))
+    plain_ms = time_ms(torch, lambda: plain(*s_args, n, nT, dx, LV_R, LV_Q, 0.5), plain_reps)
+    big = timed[B_cell]
+    emit(phase="kernel_timing", kernel="K3-surface", B=B, grid=[n, nT],
+         kernel_ms=timed[B]["ms"], lattice_route_ms=timed[B]["lattice_ms"], plain_ms=plain_ms,
+         kernel_options_per_s=B / timed[B]["ms"] * 1e3, B_cell=B_cell,
+         kernel_ms_cell=big["ms"], lattice_route_ms_cell=big["lattice_ms"],
+         bound_ms_cell=big["bound"][0], bound_by_cell=big["bound"][1])
+    return dict(max_abs_err=worst, ms=timed[B]["ms"], plain_ms=plain_ms,
+                bound=timed[B]["bound"],
+                cell=dict(B=B_cell, ms=big["ms"], lattice_ms=big["lattice_ms"],
+                          bound_ms=big["bound"][0], bound_by=big["bound"][1]))
 
 
 def bs_inputs(torch, dev, B, american, grid=BS_GRID):
@@ -5448,6 +5542,8 @@ def main() -> None:
                 for key, variant in PCR_VARIANTS.items() for it in ("", ", use_it")},
              "K2 (100x50)": adi_fused._smem_plan_single(*nS_nv)[4],
              "K3 (n=200)": cn1d_tv_fused._smem_bytes(LV_GRID["n_space"]),
+             "K3-surface (n=200, 24x6)": cn1d_tv_fused._surface_smem_bytes(
+                 LV_GRID["n_space"], 24, 6),
              "K4 (n=200)": cn1d_fused._warp_plan(BS_GRID["n_space"])[1],
              **{f"K5 (n={n})": tridiag._lane_plan(n)[3] for n in (50, 100, 200)}})
 
@@ -5464,6 +5560,7 @@ def main() -> None:
                 "K1-pcr_s-smem": (k1, "launches_pcr_s_smem"),
                 "K2": (k2, "launches"), "K2-smem": (k2, "launches_smem"),
                 "K3": (k3, "launches"), "K3-smem": (k3, "launches_smem"),
+                "K3-surface": (cn1d_tv_fused.fused_cn_march_1d_tv_surface, "launches"),
                 "K4": (k4, "launches"), "K4-warp": (k4, "launches_warp"),
                 "K5": (k5, "launches"), "K5-smem": (k5, "launches_smem"),
                 "K6": (k6, "launches"), "K6-warp": (k6, "launches_warp")}
@@ -5473,6 +5570,7 @@ def main() -> None:
         return
     measured = {"K1": phase_kernel(torch, dev), **phase_k1_pcr(torch, dev),
                 "K2": phase_k2(torch, dev), "K3": phase_k3(torch, dev, interp),
+                "K3-surface": phase_k3_surface(torch, dev, interp),
                 "K4": phase_k4(torch, dev)}
     bench_err = {"K5": phase_k5(torch, dev), "K6": phase_k6(torch, dev)}
     phase_grad_guard(torch, dev)
@@ -5513,9 +5611,12 @@ def main() -> None:
         if any(counts.values()):
             raise AssertionError(f"{fn.__name__} launched a kernel: {counts}")
     launches = {"K1": path(phase_book, torch, dev, needs=("K1", "K1-smem"))[0]["K1"],
-                "K3": path(phase_local_vol_book, torch, dev, interp,
-                           needs=("K3", "K3-smem"))[0]["K3"],
                 "K4": path(phase_bs_book, torch, dev, needs=("K4", "K4-warp"))[0]["K4"]}
+    # the local-vol book marches on K3's surface route and builds no lattice
+    counts = path(phase_local_vol_book, torch, dev, interp, needs=("K3-surface",))[0]
+    if counts["K3"]:
+        raise AssertionError(f"phase_local_vol_book launched K3's lattice route: {counts}")
+    launches.update({"K3": counts["K3"], "K3-surface": counts["K3-surface"]})
     path(phase_sabr, torch, dev)
     counts, scan = path(phase_heston_scan, torch, dev, needs=("K5", "K5-smem"))
     launches["K5"] = counts["K5"]
@@ -5663,7 +5764,8 @@ def main() -> None:
         "launches_parallel": launches_parallel, "launches_rest_of_port": launches_rest,
         "launches_pide": PIDE_STEPS, "pide": dict(
         B=strip["B"], n=strip["n"], ms=strip["ms"], plain_ms=strip["plain_ms"],
-        bound_ms=strip_bound_ms, bound_by=strip_bound_by, library_ms=strip["library_ms"])}}
+        bound_ms=strip_bound_ms, bound_by=strip_bound_by, library_ms=strip["library_ms"])},
+        "K3-surface": {"cell": measured["K3-surface"]["cell"]}}
     rows = []
     for k, info in KERNELS.items():
         m = measured[k]

@@ -9,12 +9,18 @@ in x = ln S, with a theta-scheme in time (Crank-Nicolson or implicit).
   three diagonals from ``vol_fn(s_grid, t)`` each step and solves through
   :func:`~pde_tpu_torch.ops.tridiag.tridiagonal_solve`.  Any dtype, and
   differentiable by autograd.
-* :func:`solve_fused` / :func:`solve_fused_batch` — the sigma(s, t)
-  lattice and every per-step operator row are built up front, then the
-  whole march of a book runs in ONE launch of the K3 kernel
-  (:mod:`pde_tpu_torch.ops.cn1d_tv_fused`).  ``route="scan"`` marches the
-  same bands through the batched :func:`~pde_tpu_torch.ops.tridiag.thomas`
-  instead, with a true divide at every pivot.
+* :func:`solve_fused` / :func:`solve_fused_batch` — the whole march of a
+  book runs in ONE launch of the K3 kernel
+  (:mod:`pde_tpu_torch.ops.cn1d_tv_fused`).  On a
+  :class:`~pde_tpu_torch.models.local_vol.SurfaceInterpolator` the kernel
+  builds every per-step operator row from the surface inside the march
+  (its surface route, for grids up to 518 rows:
+  :func:`~pde_tpu_torch.ops.cn1d_tv_fused.surface_route_fits`); for any
+  other ``vol_fn``, or a longer grid, the sigma(s, t) lattice and
+  every operator row are built up front and the kernel reads them.
+  ``route="scan"`` marches the lattice's bands through the batched
+  :func:`~pde_tpu_torch.ops.tridiag.thomas` instead, with a true divide at
+  every pivot.
 
 Port notes: the reference builds an interpolator surface's lattice as two
 one-hot matmuls because its TPU has no fast gather; here it is a direct
@@ -35,7 +41,9 @@ import torch
 from ..core import grids
 from ..core.precision import resolve_device, result_dtype, to_tensor
 from ..models.local_vol import SurfaceInterpolator
-from ..ops.cn1d_tv_fused import fused_cn_march_1d_tv
+from ..ops.cn1d_tv_fused import (fused_cn_march_1d_tv, fused_cn_march_1d_tv_surface,
+                                 operator_rows, strike_brackets, surface_route_fits,
+                                 surface_sigma)
 from ..ops.tridiag import thomas, tridiagonal_solve
 from ..utils.profiling import span
 
@@ -52,14 +60,6 @@ class LVPDEResult(NamedTuple):
     prices: torch.Tensor     # value on the grid at t=0
     spot_grid: torch.Tensor
     early_exercise_optimal: torch.Tensor
-
-
-def _coeffs(sig, dx, r, q):
-    """Per-node operator rows: L = diffusion + advection - r I in log space."""
-    sigma2 = sig * sig
-    a = 0.5 * sigma2 / (dx * dx)
-    b = (r - q - 0.5 * sigma2) / (2.0 * dx)
-    return a - b, -2.0 * a - r, a + b  # (L_m, L_c, L_p)
 
 
 def _extract(V, s_grid, S0, K, is_call, american):
@@ -124,10 +124,10 @@ def solve(
         tau = dt * float(k)
         # implicit side at the new level (time-to-expiry tau), explicit side
         # at the old one
-        L_m_n, L_c_n, L_p_n = _coeffs(vol_fn(s_grid, T - tau), dx, r, q)
+        L_m_n, L_c_n, L_p_n = operator_rows(vol_fn(s_grid, T - tau), dx, r, q)
         if w < 1.0:
             sig_old = vol_fn(s_grid, torch.minimum(T - tau + dt, T))
-            L_m_o, L_c_o, L_p_o = _coeffs(sig_old, dx, r, q)
+            L_m_o, L_c_o, L_p_o = operator_rows(sig_old, dx, r, q)
             LV = (L_m_o[1:-1] * V[:-2] + L_c_o[1:-1] * V[1:-1]
                   + L_p_o[1:-1] * V[2:])
             rhs = torch.cat([V[:1], V[1:-1] + (1.0 - w) * dt * LV, V[-1:]])
@@ -157,7 +157,7 @@ def _band_lattice(vol_fn, s_grid, dx, T, r, q, n_time):
     j = torch.arange(n_time + 1, dtype=s_grid.dtype, device=s_grid.device)
     t_levels = torch.minimum(torch.clamp_min(T - dt * j, 0.0), T)
     sig = torch.stack([vol_fn(s_grid, t) for t in t_levels])   # (nT+1, n)
-    return torch.cat(_coeffs(sig, dx, r, q), dim=-1)
+    return torch.cat(operator_rows(sig, dx, r, q), dim=-1)
 
 
 def _band_lattice_batch(interp: SurfaceInterpolator, sg, dx, T, r, q, n_time):
@@ -167,30 +167,20 @@ def _band_lattice_batch(interp: SurfaceInterpolator, sg, dx, T, r, q, n_time):
     is the count of knots <= x, minus one, clipped (``searchsorted``
     right); weights clipped to [0, 1]; flat beyond the pillars.  ``sg`` is
     the book's spot grid (n, B), ``T`` its maturities (B,)."""
+    sig = _sigma_lattice_batch(interp, sg, T, n_time)
+    return torch.cat(operator_rows(sig, dx, r, q), dim=1)
+
+
+def _sigma_lattice_batch(interp: SurfaceInterpolator, sg, T, n_time):
+    """The local vol of :func:`_band_lattice_batch` at every node and level,
+    ``(n_time+1, n, B)``."""
     f, dev = sg.dtype, sg.device
-    n, B = sg.shape
     log_k, tt, vols = (a.to(device=dev, dtype=f)
                        for a in (interp.log_k, interp.t, interp.vols))
-    n_k, n_t = log_k.shape[0], tt.shape[0]
-
-    # time bracket and weight per (option, level); interpolate in t first
-    dt_b = T / n_time
-    j = torch.arange(n_time + 1, dtype=f, device=dev)
-    t_lv = torch.minimum(torch.clamp_min(T[:, None] - dt_b[:, None] * j, 0.0),
-                         T[:, None])                            # (B, nT+1)
-    it = torch.clamp(torch.searchsorted(tt, t_lv, right=True) - 1, 0, n_t - 2)
-    wt = torch.clamp((t_lv - tt[it]) / (tt[it + 1] - tt[it]), 0.0, 1.0)
-    vols_t = (1.0 - wt)[..., None] * vols[it] + wt[..., None] * vols[it + 1]
-
-    # strike bracket and weight per (option, node), shared across levels
-    xq = torch.log(sg).T.contiguous()                           # (B, n)
-    ix = torch.clamp(torch.searchsorted(log_k, xq, right=True) - 1, 0, n_k - 2)
-    wx = torch.clamp((xq - log_k[ix]) / (log_k[ix + 1] - log_k[ix]), 0.0, 1.0)
-    at = ix[:, None, :].expand(B, n_time + 1, n)
-    sig = ((1.0 - wx)[:, None, :] * torch.gather(vols_t, 2, at)
-           + wx[:, None, :] * torch.gather(vols_t, 2, at + 1))  # (B, nT+1, n)
-    sig = sig.permute(1, 2, 0).contiguous()                     # (nT+1, n, B)
-    return torch.cat(_coeffs(sig, dx, r, q), dim=1)
+    ix, wx = strike_brackets(log_k, torch.log(sg).T.contiguous())   # (B, n)
+    levels = torch.arange(n_time + 1, dtype=f, device=dev)
+    sig = surface_sigma(tt, vols, ix, wx, T, T / n_time, levels)    # (B, nT+1, n)
+    return sig.permute(1, 2, 0).contiguous()
 
 
 def _book_bands(vol_fn, sg, dx, T, r, q, n_time):
@@ -202,10 +192,10 @@ def _book_bands(vol_fn, sg, dx, T, r, q, n_time):
                         for b in range(sg.shape[1])], dim=2)
 
 
-def _march_inputs(vol_fn, K, T, call_f, amer_f, r, q, n_space, n_time,
-                  s_min_mult, s_max_mult):
-    """K3's inputs for a book of (B,) float32 tensors on one device, in its
-    public layout ``(pay, bands, sc)``, plus the book's spot grid (n, B)."""
+def _grid_inputs(K, T, call_f, amer_f, r, q, n_space, n_time, s_min_mult, s_max_mult):
+    """K3's inputs but the bands, for a book of (B,) float32 tensors on one
+    device: ``pay`` (n, B), ``sc`` (8, B), the book's spot grid ``sg`` (n, B)
+    and the log-spot step ``dx``."""
     n, B = n_space, K.shape[0]
     f32, dev = torch.float32, K.device
     # K-scaled log-moneyness grid shared across the book: dx is
@@ -218,9 +208,26 @@ def _march_inputs(vol_fn, K, T, call_f, amer_f, r, q, n_space, n_time,
     pay = torch.where(call_f[None, :] > 0.5,
                       torch.clamp_min(ex - 1.0, 0.0)[:, None] * K[None, :],
                       torch.clamp_min(1.0 - ex, 0.0)[:, None] * K[None, :])
-    bands = _book_bands(vol_fn, sg, dx, T, r, q, n_time)        # (nT+1, 3n, B)
     full = lambda v: torch.full((B,), v, dtype=f32, device=dev)  # noqa: E731
     sc = torch.stack([T / n_time, full(r), full(q), K, call_f, amer_f, sg[0], sg[-1]])
+    return pay, sc, sg, dx
+
+
+def _surface_inputs(interp: SurfaceInterpolator, sg):
+    """The surface route's inputs beside :func:`_grid_inputs`': the nodes'
+    ln S ``xq`` (n, B), then the surface's ln K knots, maturity knots and
+    vols in float32 on the book's device."""
+    return (torch.log(sg), *(a.to(device=sg.device, dtype=torch.float32).contiguous()
+                             for a in (interp.log_k, interp.t, interp.vols)))
+
+
+def _march_inputs(vol_fn, K, T, call_f, amer_f, r, q, n_space, n_time,
+                  s_min_mult, s_max_mult):
+    """K3's inputs for a book of (B,) float32 tensors on one device, in its
+    public layout ``(pay, bands, sc)``, plus the book's spot grid (n, B)."""
+    pay, sc, sg, dx = _grid_inputs(K, T, call_f, amer_f, r, q, n_space, n_time,
+                                   s_min_mult, s_max_mult)
+    bands = _book_bands(vol_fn, sg, dx, T, r, q, n_time)        # (nT+1, 3n, B)
     return pay, bands, sc, sg
 
 
@@ -293,8 +300,10 @@ def solve_fused_batch(
     dt = T_b / n_time; ``r`` and ``q`` are scalars.  The book marches on
     ``device`` (default: the CUDA card) in float32.  ``route``: ``"fused"``
     (default; ``"pallas"`` is its alias) launches the K3 kernel on a CUDA
-    device and runs its plain twin on the CPU; ``"scan"`` is the batched
-    Thomas march.
+    device and runs its plain twin on the CPU, on the kernel's surface route
+    when ``vol_fn`` is a :class:`SurfaceInterpolator` and the grid fits it,
+    else on a band lattice built up front; ``"scan"`` is the batched Thomas
+    march on the lattice.
     """
     if route not in _ROUTES:
         raise ValueError(f"unknown route {route!r}; expected one of {_ROUTES}")
@@ -304,13 +313,25 @@ def solve_fused_batch(
                 for a in (K, T, is_call, american, S0)]
         B = max(a.shape[0] for a in vals)
         K_b, T_b, call_f, amer_f, S0_b = (a.expand(B).contiguous() for a in vals)
+        # the kernel builds the bands from the surface where it can, else
+        # reads a lattice built up front
+        on_surface = (route != "scan" and isinstance(vol_fn, SurfaceInterpolator)
+                      and surface_route_fits(n_space, vol_fn.log_k.shape[0],
+                                             vol_fn.t.shape[0]))
         with span("pde_tpu_torch.local_vol_pde.bands"):
-            pay, bands, sc, sg = _march_inputs(vol_fn, K_b, T_b, call_f, amer_f, r, q,
-                                               n_space, n_time, s_min_mult, s_max_mult)
+            pay, sc, sg, dx = _grid_inputs(K_b, T_b, call_f, amer_f, r, q, n_space, n_time,
+                                           s_min_mult, s_max_mult)
+            if on_surface:
+                xq, *surface = _surface_inputs(vol_fn, sg)
+            else:
+                bands = _book_bands(vol_fn, sg, dx, T_b, r, q, n_time)
         w = _W[scheme]
         with span("pde_tpu_torch.local_vol_pde.march"):
             if route == "scan":
                 V = _march_scan(pay, bands, sg, T_b, K_b, r, q, call_f, amer_f, n_time, w)
+            elif on_surface:
+                V = fused_cn_march_1d_tv_surface(pay, xq, sc, T_b, *surface, n_space=n_space,
+                                                 n_time=n_time, dx=dx, r=r, q=q, w=w)
             else:
                 V = fused_cn_march_1d_tv(pay, bands, sc, n_space=n_space, n_time=n_time,
                                          w=w)

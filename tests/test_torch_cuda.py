@@ -101,6 +101,35 @@ def test_k3_matches_plain(w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 4093])
+def test_k3_surface_route_matches_plain_and_lattice(B):
+    """K3's surface route against its plain twin and against the lattice
+    route on the same book at 200 x 100, mixed American; a ragged last
+    block at B = 4093."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    book = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in _lv_book(B, 9).items()}
+    surface = _surface(dev)
+    args = (book["K"], book["T"], book["is_call"], book["american"], 0.04, 0.01, 200, 100,
+            0.2, 5.0)
+    pay, bands, sc, sg = local_vol_pde._march_inputs(surface, *args)
+    dx = local_vol_pde._grid_inputs(*args)[3]
+    xq, *knots = local_vol_pde._surface_inputs(surface, sg)
+    s_args = (pay, xq, sc, book["T"], *knots)
+    k3s = cn1d_tv_fused.fused_cn_march_1d_tv_surface
+    before = k3s.launches
+    got = k3s(*s_args, 200, 100, dx, 0.04, 0.01)
+    want = cn1d_tv_fused._fused_cn_march_1d_tv_surface_plain(*s_args, 200, 100, dx, 0.04,
+                                                              0.01, 0.5)
+    lattice = cn1d_tv_fused.fused_cn_march_1d_tv(pay, bands, sc, 200, 100)
+    torch.cuda.synchronize()
+    assert k3s.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **GATE)
+    np.testing.assert_allclose(got.cpu().numpy(), lattice.cpu().numpy(), **GATE)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("w", [0.5, 1.0])
 def test_k4_matches_plain(w):
     _need_cuda()
